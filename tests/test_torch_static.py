@@ -1,0 +1,39 @@
+"""The PyTorch port stands alone: no module of `vap_realtime_tpu_torch/`,
+and not `chip_smoke.py`, imports JAX or the JAX package."""
+
+import os
+import re
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = re.compile(
+    r"import jax|(import|from) vap_realtime_tpu(\.| |$)", re.MULTILINE)
+
+
+def _port_files():
+    yield os.path.join(REPO, "chip_smoke.py")
+    for root, _, files in os.walk(os.path.join(REPO,
+                                               "vap_realtime_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = list(_port_files())
+    assert os.path.exists(files[0]) and len(files) > 15
+    bad = []
+    for path in files:
+        with open(path) as f:
+            for m in FORBIDDEN.finditer(f.read()):
+                bad.append(f"{os.path.relpath(path, REPO)}: {m.group(0)!r}")
+    assert not bad, bad
+
+
+def test_forbidden_pattern():
+    for line in ("import jax", "import jax.numpy as jnp",
+                 "from vap_realtime_tpu.config import VapConfig",
+                 "import vap_realtime_tpu", "from vap_realtime_tpu import x"):
+        assert FORBIDDEN.search(line), line
+    for line in ("from vap_realtime_tpu_torch.config import VapConfig",
+                 "import vap_realtime_tpu_torch"):
+        assert not FORBIDDEN.search(line), line

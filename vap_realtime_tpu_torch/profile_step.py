@@ -1,0 +1,124 @@
+"""Where the fast staged serving step's time goes on the card.
+
+    python -m vap_realtime_tpu_torch.profile_step [--batch 4096] [--steps 16]
+
+Full-width model (vap, 20 Hz, 2.5 s context, synthetic weights), bf16,
+staged slots, kernel attend, all streams active.  Prints, each beside the
+card's name and power limit:
+
+- ms/step of the whole step (host clock around synchronized steps), of
+  the encoder alone (CUDA events) and of the 7 attend launches of a step
+  (CUDA events); the trunk is the rest;
+- the top CUDA kernels by device time over the steps (torch.profiler),
+  and the device's busy share of that window (summed kernel time over
+  wall time; overlapping kernels would push it above 100%).
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import torch
+
+from vap_realtime_tpu_torch.config import VapConfig
+from vap_realtime_tpu_torch.models.encoder import encode_chunk_streaming
+from vap_realtime_tpu_torch.runtime import incremental as inc
+from vap_realtime_tpu_torch.weights.convert import params_to_torch
+from vap_realtime_tpu_torch.weights.synthetic import synthetic_params
+
+
+def gpu_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean ms per call of `fn` on the card (CUDA events, after warm-up)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--steps", type=int, default=16)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA card")
+    B, n, dt = args.batch, args.steps, torch.bfloat16
+    gpu = gpu_line()
+    cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
+    p = params_to_torch(synthetic_params(cfg.frame_hz), "cuda", dt)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    frames = (0.1 * torch.randn(8, B, 2, cfg.frame_shift, generator=g,
+                                device="cuda")).to(dt)
+    st = inc.init_fast_state(cfg, B, dt, staged=True, device="cuda")
+
+    def step(i):
+        nonlocal st
+        st, out = inc.fast_step(p, st, frames[i % 8], cfg, slots="staged",
+                                attend_impl="kernel")
+        return out
+
+    for i in range(4):
+        step(i)
+    torch.cuda.synchronize()
+    t = time.time()
+    for i in range(n):
+        step(i)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t) * 1e3 / n
+
+    conv = inc.init_fast_state(cfg, B, dt, device="cuda").conv
+    h0 = torch.zeros(2 * B, cfg.dim, device="cuda", dtype=dt)
+    enc_ms = cuda_ms(lambda: encode_chunk_streaming(
+        p["encoder"], frames[0].reshape(2 * B, -1), conv, h0, h0,
+        cfg.downsample_kernel), n)
+    kv = st.kv
+    T = cfg.context_frames
+    q2 = torch.randn(B, 2, cfg.dim, device="cuda", generator=g).to(dt)
+    age = torch.randint(1, T, (B, T), device="cuda", generator=g).float()
+    sage = torch.randint(1, T, (inc.STAGE_S, B), device="cuda",
+                         generator=g).float()
+    att_ms = cuda_ms(lambda: [inc.attend_pair(
+        kv.cache, q2, q2, q2, age, kv.stage, sage, pair_base=2 * ph,
+        num_heads=cfg.num_heads) for ph in range(7)], n)
+    print(f"[profile] B={B} bf16 fast staged step: {step_ms:.3f} ms/step; "
+          f"encoder {enc_ms:.3f} ms; 7 attend launches {att_ms:.3f} ms; "
+          f"trunk rest {step_ms - enc_ms - att_ms:.3f} ms | {gpu}",
+          flush=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t = time.time()
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    print(f"[profile] {n} steps in {wall_us / 1e3:.3f} ms wall; device "
+          f"kernel time {dev_us / 1e3:.3f} ms = {100 * dev_us / wall_us:.1f}%"
+          f" busy | {gpu}", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"[profile]   {e.self_device_time_total / n / 1e3:8.3f} "
+              f"ms/step  x{e.count // n:<4d} {e.key[:90]}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

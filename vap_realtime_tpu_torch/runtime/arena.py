@@ -1,0 +1,183 @@
+"""StreamArena — slot-based multi-stream serving state on the device.
+
+A fixed-capacity arena of stream slots: admission resets a free slot's
+recurrent state (its stale cache rows are masked by their stamps, so no
+cache clearing is needed); eviction returns the slot to the free list.
+Every tick steps the FULL batch once; empty slots are frozen (their
+state is untouched and their outputs ignored).
+
+Port of `vap_realtime_tpu/runtime/arena.py` for `path="fast"`.  The
+arena runs on the card unless the caller asks for the CPU; without CUDA
+it raises instead of falling back.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from vap_realtime_tpu_torch.config import VapConfig
+from vap_realtime_tpu_torch.runtime import incremental
+from vap_realtime_tpu_torch.weights.convert import params_to_torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or CUDA when None; raises when CUDA is asked for and
+    absent (the port never falls back to the CPU on its own)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "run on the CPU")
+    return dev
+
+
+def _reset_slot(state: incremental.FastState, mask: torch.Tensor) -> None:
+    """In place: zero the recurrent state and validity counters of every
+    slot where `mask` ((B,) bool) is set, in one fixed-shape pass.  The
+    cache and stage rows stay: their stamps are invalidated."""
+    m2 = mask.repeat_interleave(2).view(-1, 1, 1)   # conv tails per channel
+    for v in state.conv.values():
+        v.masked_fill_(m2, 0)
+    kv = state.kv
+    kv.lstm_h.masked_fill_(mask.view(-1, 1, 1), 0)
+    kv.lstm_c.masked_fill_(mask.view(-1, 1, 1), 0)
+    kv.count.masked_fill_(mask, 0)
+    kv.stamp.masked_fill_(mask.view(-1, 1), -1)
+    if kv.stage_stamp is not None:
+        kv.stage_stamp.masked_fill_(mask.view(1, -1), -1)
+
+
+class StreamArena:
+    """Fixed-capacity batched streaming engine with slot lifecycle."""
+
+    def __init__(self, cfg: VapConfig, params, capacity: int = 64,
+                 path: str = "fast", dtype=torch.float32,
+                 slots: str = "staged", attend_impl: str = "kernel",
+                 wire_dtype=np.float32, conv_chunks: int = 1,
+                 device=None):
+        """params: the params pytree with numpy (or array-like) leaves;
+        cast to `dtype` on `device` (None = CUDA).
+
+        wire_dtype: dtype of the chunks fed to step() — np.float32
+        (normalized audio) or np.int16 (raw samples, normalized /32768
+        on the device: a quarter of the host->device bytes).
+        """
+        if path != "fast":
+            raise ValueError(f"path {path!r}: only the fast path is ported")
+        self.cfg = cfg
+        self.capacity = capacity
+        self.path = path
+        self.dtype = dtype
+        self.slots = slots
+        self.attend_impl = attend_impl
+        self.conv_chunks = conv_chunks
+        self.wire_dtype = wire_dtype
+        self.device = resolve_device(device)
+        # the fast path consumes FRESH samples only (no 320 overlap)
+        self.chunk_samples = cfg.frame_shift
+        self.params = params_to_torch(params, self.device, dtype)
+        self.state = incremental.init_fast_state(
+            cfg, capacity, dtype, slots == "staged", self.device)
+        self._free: List[int] = list(range(capacity))
+        self._active: Dict[int, bool] = {}
+        self._lock = threading.Lock()
+        self._zero = np.zeros((capacity, 2, self.chunk_samples), wire_dtype)
+
+    # --- lifecycle ---------------------------------------------------------
+
+    @property
+    def n_active(self) -> int:
+        return len(self._active)
+
+    def add_stream(self) -> Optional[int]:
+        """Claim a slot; returns its id or None when full."""
+        with self._lock:
+            if not self._free:
+                return None
+            slot = self._free.pop()
+            self._active[slot] = True
+        self.reset_slot(slot)
+        return slot
+
+    def remove_stream(self, slot: int) -> None:
+        with self._lock:
+            if self._active.pop(slot, None) is not None:
+                self._free.append(slot)
+
+    def reset_slot(self, slot: int) -> None:
+        """Reset a slot's stream state WITHOUT touching the free list
+        (for external slot managers such as the native ingest engine)."""
+        self.reset_slots([slot])
+
+    def reset_slots(self, slots) -> None:
+        """Reset MANY slots in one fixed-shape pass."""
+        mask = np.zeros((self.capacity,), bool)
+        mask[list(slots)] = True
+        _reset_slot(self.state, self._upload(mask))
+
+    # --- stepping ----------------------------------------------------------
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without stalling the host: a
+        pinned copy, then an asynchronous transfer (the pinned block is
+        not reused before the transfer completes)."""
+        t = torch.from_numpy(arr)
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _run(self, frames: np.ndarray, act: np.ndarray, merge: str):
+        x = self._upload(frames).to(self.dtype)
+        if frames.dtype == np.int16:
+            x = x * (1.0 / 32768.0)          # exact power-of-two scale
+        self.state, out = incremental.fast_step(
+            self.params, self.state, x, self.cfg, self._upload(act),
+            slots=self.slots, attend_impl=self.attend_impl,
+            conv_chunks=self.conv_chunks, merge=merge)
+        return out
+
+    def warmup(self) -> None:
+        """All-frozen ticks (state-neutral): the first builds the kernel
+        and warms the libraries; with staged slots a second one runs the
+        merge path (a frozen empty-stage merge writes nothing), as the
+        JAX arena warms its merge variant."""
+        act = np.zeros((self.capacity,), bool)
+        modes = ["never", "force"] if self.slots == "staged" else ["never"]
+        for merge in modes:
+            out = self._run(self._zero, act, merge)
+        for v in out.values():
+            v.cpu()
+
+    def step(self, chunks: Dict[int, np.ndarray]) -> Dict[int, Dict]:
+        """chunks: {slot: (2, chunk_samples)} for streams with a fresh
+        frame this tick; all other slots are FROZEN.  With the default
+        ``slots="staged"`` (and ``"stream"``) a stream's results depend
+        only on its own frame sequence.  Returns {slot: {name: array}}."""
+        out = self.step_device(chunks)
+        out_np = {k: v.float().cpu().numpy() for k, v in out.items()}
+        return {slot: {k: v[slot] for k, v in out_np.items()}
+                for slot in chunks}
+
+    def step_device(self, chunks: Dict[int, np.ndarray]):
+        """Dispatch one tick; returns the DEVICE output dict unread."""
+        batch = self._zero.copy()
+        act = np.zeros((self.capacity,), bool)
+        for slot, chunk in chunks.items():
+            batch[slot] = chunk
+            act[slot] = True
+        return self._run(batch, act, "auto")
+
+    def step_device_batch(self, frames: np.ndarray, slots: np.ndarray):
+        """`step_device` for callers holding the FULL (capacity, 2,
+        chunk_samples) slot-major frame array (the native ingest poll
+        buffer); rows not in `slots` are masked by the active flag.
+
+        The staged merge is decided on the host from the state's tick
+        counter ("auto": (step + 1) % STAGE_S == 0), so no tick waits on
+        the device to learn its cadence."""
+        act = np.zeros((self.capacity,), bool)
+        act[slots] = True
+        return self._run(frames, act, "auto")

@@ -1,0 +1,443 @@
+"""Incremental streaming step — per-frame KV-cache append, single-query
+attention, no full-context recompute (the fast serving path).
+
+Port of `vap_realtime_tpu/runtime/incremental.py` (float caches): the same
+phase-major cache layout, per-stream stamps, slot policies and staged
+merge, so that states compare one to one with the JAX package.
+
+- ALL per-frame K/V vectors (28 for 1 channel layer + 3 stereo layers)
+  live in ONE phase-major cache (B, P=7, T, 4*D): each layer phase's twin
+  k/v pairs form one per-stream-contiguous (T, 4D) plane, read by one
+  `attend_pair` launch.
+- Each attention reads the T cached rows (ages >= 1) plus the current
+  position's fresh k/v (age 0); the frame's cache write is deferred to
+  the end of the step.
+- Ages are `count - stamp` in each stream's own frame timeline, so a
+  frozen stream's rows do not age; dead rows carry age DEAD.
+
+PyTorch idiom: the step updates its state IN PLACE and returns it — the
+cache and the stage are written with indexed in-place stores (no
+cache-sized copy per step), and the small tensors (counts, LSTM and conv
+carries) are rebound on the same state object.  `KVState.step`, the
+global frame counter, is a host int: the staged-merge cadence and the
+"global" write slot are decided on the host with no device sync.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from vap_realtime_tpu_torch.config import VapConfig
+from vap_realtime_tpu_torch.models.encoder import (
+    encode_chunk_streaming, init_conv_stream_state,
+)
+from vap_realtime_tpu_torch.models.transformer import alibi_slopes, combinator
+from vap_realtime_tpu_torch.models.vap import heads_forward, probs_from_outputs
+from vap_realtime_tpu_torch.ops.basic import gelu, layer_norm, linear
+from vap_realtime_tpu_torch.ops.cuda.attend import (
+    DEAD, attend_pair, attend_pair_plain,
+)
+
+Params = Dict[str, Any]
+Tensor = torch.Tensor
+
+STAGE_S = 8  # staged-slot policy: frames buffered between ring merges
+
+ATTEND_IMPLS = ("kernel", "plain", "einsum")
+
+
+def cache_layout(cfg: VapConfig) -> List[str]:
+    """Fixed slot order of the fused cache's last dim (28 x D for the
+    default 1 channel layer + 3 cross layers).  Every k/v pair is
+    adjacent and the TWIN pairs of each attend phase form one 4-slot
+    phase: slot s maps to cache[:, s // 4, :, (s % 4) * D:]."""
+    names = []
+    for li in range(cfg.channel_layers):
+        for ch in (0, 1):
+            names += [f"ch{li}.{ch}.k", f"ch{li}.{ch}.v"]
+    for li in range(cfg.cross_layers):
+        for tw in (0, 1):
+            names += [f"x{li}.{tw}.sk", f"x{li}.{tw}.sv"]
+        for tw in (0, 1):
+            names += [f"x{li}.{tw}.ck", f"x{li}.{tw}.cv"]
+    return names
+
+
+@dataclass
+class KVState:
+    """Fused-KV streaming state (see the module docstring).
+
+    cache:  (B, P, T, 4*D) phase-major K/V rows.
+    lstm_h/lstm_c: (B, 2, D) encoder context-net state.
+    count:  (B,) int32 frames seen per stream.
+    stamp:  (B, T) int32 `count` at which each ring row was written,
+            -1 = invalid row.
+    step:   host int, global frame counter (tick index).
+    stage / stage_stamp: "staged" policy only (else None) — stage
+            (S, B, P*4D) frame-major staged rows (stage[i] holds tick
+            g = i mod S); stage_stamp (S, B) the stream's `count` at
+            staging, -1 = invalid (frozen tick, or merged).
+    """
+
+    cache: Tensor
+    lstm_h: Tensor
+    lstm_c: Tensor
+    count: Tensor
+    stamp: Tensor
+    step: int
+    stage: Optional[Tensor] = None
+    stage_stamp: Optional[Tensor] = None
+
+
+def init_kv_state(cfg: VapConfig, batch: int = 1, dtype=torch.float32,
+                  staged: bool = False, device=None) -> KVState:
+    """staged=True adds the (S, B, P*4D) stage that slots="staged" needs."""
+    D, T = cfg.dim, cfg.context_frames
+    P = len(cache_layout(cfg)) // 4
+    S = STAGE_S
+    if staged and S > T:
+        # the merge targets stamp % T and relies on the S staged stamps
+        # being distinct mod T
+        raise ValueError(
+            f"staged slots need context_frames >= {S} (got {T}); use "
+            f"slots='stream' for tiny-context configs")
+    kw = dict(dtype=dtype, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return KVState(
+        cache=torch.zeros((batch, P, T, 4 * D), **kw),
+        lstm_h=torch.zeros((batch, 2, D), **kw),
+        lstm_c=torch.zeros((batch, 2, D), **kw),
+        count=torch.zeros((batch,), **i32),
+        stamp=torch.full((batch, T), -1, **i32),
+        step=0,
+        stage=torch.zeros((S, batch, P * 4 * D), **kw) if staged else None,
+        stage_stamp=torch.full((S, batch), -1, **i32) if staged else None,
+    )
+
+
+def _scatter_rows(cache: Tensor, rows: Tensor, idx: Tensor,
+                  valid: Tensor) -> None:
+    """In place: cache[b, :, idx[b]] = rows[b] for every stream b with
+    valid[b]; other streams' rows stay as they are.
+
+    cache (B, P, T, X); rows (B, P, X); idx (B,) int; valid (B,) bool.
+    The JAX package writes with `.at[...].set(mode="drop")` and parks
+    the invalid streams' targets out of range (T, or T + i); torch's
+    index_put_ raises on out-of-range targets instead.  So an invalid
+    stream writes its OWN current row at an in-range position (0): one
+    target per stream, no duplicates, no change.
+    """
+    b = torch.arange(cache.shape[0], device=cache.device)
+    t = torch.where(valid, idx, 0)
+    old = cache[b, :, t]                                   # (B, P, X)
+    cache[b, :, t] = torch.where(valid.view(-1, 1, 1), rows, old)
+
+
+def _scatter_rows_multi(cache: Tensor, vals: Tensor, idx: Tensor,
+                        valid: Tensor) -> None:
+    """S-row variant of `_scatter_rows` (the staged-merge write), one row
+    per stream at a time: vals (S, B, P, X); idx, valid (S, B).  A
+    stream's valid targets are distinct, so the order does not matter."""
+    for i in range(vals.shape[0]):
+        _scatter_rows(cache, vals[i], idx[i], valid[i])
+
+
+@functools.lru_cache(maxsize=None)
+def _alibi(H: int, device: torch.device) -> Tensor:
+    """(H,) float32 AliBi slopes, built once per device."""
+    return torch.tensor(alibi_slopes(H), dtype=torch.float32, device=device)
+
+
+def _einsum_attend(state: KVState, q: Tensor, k_cur: Tensor, v_cur: Tensor,
+                   slot_k: int, bias: Tensor, H: int,
+                   staged: bool) -> Tensor:
+    """Single-query softmax attention over the cached rows (+ the staged
+    rows when `staged`) + the current position, in einsum form (the JAX
+    package's `attend`, incremental.py:486-576).  q, k_cur, v_cur:
+    (B, D); bias: (B, H, L) additive AliBi/validity bias of the L read
+    rows."""
+    B, D = q.shape
+    Dh = D // H
+    dtype = state.lstm_h.dtype
+    ph, ko = slot_k // 4, (slot_k % 4) * D
+
+    def load(off):
+        x = state.cache[:, ph, :, off:off + D]             # (B, T, D)
+        if staged:
+            col = 4 * D * ph + off
+            y = state.stage[:, :, col:col + D]               # (S, B, D)
+            x = torch.cat([x, y.transpose(0, 1)], dim=1)
+        return x
+
+    k_old, v_old = load(ko), load(ko + D)
+    L = k_old.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    # bf16 operands, float32 products and sums (JAX: preferred f32)
+    qh = q.reshape(B, H, Dh).to(dtype)
+    s_old = torch.einsum("bhd,bthd->bht", qh.float(),
+                         k_old.reshape(B, L, H, Dh).float())
+    s_old = s_old * scale + bias
+    s_cur = ((qh * k_cur.reshape(B, H, Dh)).float()
+             .sum(-1, keepdim=True) * scale)                # (B, H, 1)
+    w = torch.softmax(torch.cat([s_old, s_cur], dim=-1), dim=-1)
+    out = (torch.einsum("bht,bthd->bhd", w[:, :, :L].to(dtype).float(),
+                        v_old.reshape(B, L, H, Dh).float())
+           + w[:, :, L:] * v_cur.reshape(B, H, Dh).float())
+    return out.reshape(B, D).to(dtype)
+
+
+def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
+             c_new: Tensor, cfg: VapConfig, active: Tensor, slots: str,
+             attend_impl: str = "einsum", merge: str = "auto"
+             ) -> Dict[str, Tensor]:
+    """Post-encoder incremental step, in place on `state`: e (B, 2, D)
+    fresh embeddings -> single-query attentions over the fused cache +
+    one slot write.  Returns the probability outputs (B, ...).
+
+    attend_impl: "kernel" (`attend_pair`: the CUDA kernel on a CUDA
+    tensor, its plain version on the CPU), "plain" (`attend_pair_plain`
+    on any device) or "einsum".
+    merge (staged slots): "auto" merges when (step + 1) % STAGE_S == 0,
+    "never" / "force" let the caller decide.
+    """
+    if attend_impl not in ATTEND_IMPLS:
+        raise ValueError(f"attend_impl {attend_impl!r} not in "
+                         f"{ATTEND_IMPLS}")
+    B = e.shape[0]
+    D, T, H = cfg.dim, cfg.context_frames, cfg.num_heads
+    layout = cache_layout(cfg)
+    P = len(layout) // 4
+    dtype = state.lstm_h.dtype
+    g = state.step
+    staged = slots == "staged"
+    if staged and state.stage is None:
+        raise ValueError('slots="staged" needs a state built with '
+                         'staged=True')
+
+    # ages of cached rows relative to the current frame (age 0 = this
+    # frame, written at the END of the step) in each stream's own
+    # timeline; a row is live iff its stamp is valid AND within the last
+    # T-1 own frames.  Dead rows get age DEAD: weight exactly 0.
+    age = state.count[:, None] - state.stamp               # (B, T)
+    max_age = state.count.clamp(max=T - 1)
+    live = (state.stamp >= 0) & (age <= max_age[:, None])
+    if cfg.context_limit > 0:
+        live = live & (age < cfg.context_limit)
+    age_f = torch.where(live, age.float(), DEAD)
+    age_st_f = None
+    if staged:
+        # staged rows: also younger than `count` — a slot reset can leave
+        # stale stage stamps >= the new count (incremental.py:404-414)
+        age_st = state.count[None, :] - state.stage_stamp  # (S, B)
+        live_st = ((state.stage_stamp >= 0) & (age_st >= 1)
+                   & (age_st <= max_age[None, :]))
+        if cfg.context_limit > 0:
+            live_st = live_st & (age_st < cfg.context_limit)
+        # (S, B) float32 ages; the TPU kernel took them in the state dtype
+        age_st_f = torch.where(live_st, age_st.float(), DEAD)
+
+    if attend_impl == "einsum":
+        slopes = _alibi(H, e.device)
+        age_cat, live_cat = age_f, live
+        if staged:
+            age_cat = torch.cat([age_f, age_st_f.T], dim=1)
+            live_cat = torch.cat([live, live_st.T], dim=1)
+        bias = torch.where(
+            live_cat[:, None, :],
+            -torch.where(live_cat, age_cat, 0.0)[:, None, :]
+            * slopes[None, :, None], float("-inf"))        # (B, H, L)
+
+    def attend2(q2, k2, v2, pair_base):
+        """Twin attentions of one phase; set s reads pair pair_base + s."""
+        if attend_impl == "einsum":
+            return torch.stack([
+                _einsum_attend(state, q2[:, s], k2[:, s], v2[:, s],
+                               2 * (pair_base + s), bias, H, staged)
+                for s in (0, 1)], dim=1)
+        fn = attend_pair if attend_impl == "kernel" else attend_pair_plain
+        return fn(state.cache, q2.to(dtype).contiguous(),
+                  k2.to(dtype).contiguous(), v2.to(dtype).contiguous(),
+                  age_f, state.stage if staged else None, age_st_f,
+                  pair_base=pair_base, num_heads=H)
+
+    def ffn(x, layer):
+        h = layer_norm(x, layer["ln_ffn"]["w"], layer["ln_ffn"]["b"])
+        return x + linear(gelu(linear(h, layer["ffn"]["w1"])),
+                          layer["ffn"]["w2"])
+
+    new_vecs: Dict[str, Tensor] = {}
+    # both channels / towers ride a size-2 axis at dim 1 (shared weights)
+    x = e
+    for li, layer in enumerate(params["ar_channel"]["layers"]):
+        z = layer_norm(x, layer["ln_self"]["w"], layer["ln_self"]["b"])
+        q = linear(z, layer["attn"]["q"])
+        k = linear(z, layer["attn"]["k"])
+        v = linear(z, layer["attn"]["v"])
+        for ch in (0, 1):
+            new_vecs[f"ch{li}.{ch}.k"] = k[:, ch]
+            new_vecs[f"ch{li}.{ch}.v"] = v[:, ch]
+        a = linear(attend2(q, k, v, 2 * li), layer["attn"]["proj"])
+        x = ffn(x + a, layer)
+    o1, o2 = x[:, 0], x[:, 1]
+
+    for li, layer in enumerate(params["ar"]["layers"]):
+        base = 2 * cfg.channel_layers + 4 * li
+        z = layer_norm(x, layer["ln_self"]["w"], layer["ln_self"]["b"])
+        q = linear(z, layer["attn"]["q"])
+        k = linear(z, layer["attn"]["k"])
+        v = linear(z, layer["attn"]["v"])
+        for tw in (0, 1):
+            new_vecs[f"x{li}.{tw}.sk"] = k[:, tw]
+            new_vecs[f"x{li}.{tw}.sv"] = v[:, tw]
+        x_mid = x + linear(attend2(q, k, v, base), layer["attn"]["proj"])
+        # cross phase: query from LN(x_mid); K/V from the RAW pre-update
+        # OTHER tower (modules.py:276-283: src is not normalized).  JAX
+        # swaps the twin axis with [:, ::-1]; torch has no negative-stride
+        # slice, so flip(1) (a copy).
+        zc = layer_norm(x_mid, layer["ln_src"]["w"], layer["ln_src"]["b"])
+        qc = linear(zc, layer["attn_cross"]["q"])
+        kc = linear(x, layer["attn_cross"]["k"]).flip(1)
+        vc = linear(x, layer["attn_cross"]["v"]).flip(1)
+        for tw in (0, 1):
+            new_vecs[f"x{li}.{tw}.ck"] = kc[:, tw]
+            new_vecs[f"x{li}.{tw}.cv"] = vc[:, tw]
+        c = linear(attend2(qc, kc, vc, base + 2), layer["attn_cross"]["proj"])
+        x = ffn(x_mid + c, layer)
+    x1, x2 = x[:, 0], x[:, 1]
+    xc = combinator(params["ar"]["combinator"], x1, x2)
+
+    # --- the frame's single cache write: rows (B, P, 4D) phase-major
+    rows = torch.stack(
+        [torch.cat([new_vecs[n] for n in layout[4 * ph:4 * ph + 4]], dim=-1)
+         for ph in range(P)], dim=1).to(dtype)
+    # stamps ride the same row writer as a (B, 1, T, 1) view
+    stamp4 = state.stamp.view(B, 1, T, 1)
+    if staged:
+        S = state.stage.shape[0]
+        si = g % S
+        state.stage[si] = rows.reshape(B, -1)
+        state.stage_stamp[si] = torch.where(active, state.count, -1)
+        do_merge = ((g + 1) % STAGE_S == 0 if merge == "auto"
+                    else merge == "force")
+        if do_merge:
+            # every S ticks: each staged row goes to its stream's own ring
+            # position stamp % T (placement identical to "stream")
+            valid = state.stage_stamp >= 0                     # (S, B)
+            idx = torch.remainder(state.stage_stamp, T)
+            _scatter_rows_multi(state.cache,
+                                state.stage.view(S, B, P, -1), idx, valid)
+            _scatter_rows_multi(stamp4, state.stage_stamp.view(S, B, 1, 1),
+                                idx, valid)
+            state.stage_stamp.fill_(-1)
+    elif slots == "stream":
+        # per-stream ring position; a frozen tick touches nothing
+        idx = torch.remainder(state.count, T)
+        _scatter_rows(state.cache, rows, idx, active)
+        _scatter_rows(stamp4, state.count.view(B, 1, 1), idx, active)
+    elif slots == "global":
+        # one scalar slot for all streams; frozen streams keep their row
+        t = g % T
+        keep = active.view(B, 1, 1)
+        state.cache[:, :, t] = torch.where(keep, rows, state.cache[:, :, t])
+        state.stamp[:, t] = torch.where(active, state.count,
+                                        state.stamp[:, t])
+    else:
+        raise ValueError(f"unknown slots policy {slots!r}")
+
+    trunk = {"x": xc[:, None], "o1": o1[:, None], "o2": o2[:, None],
+             "x1": x1[:, None], "x2": x2[:, None]}
+    probs = probs_from_outputs(heads_forward(params, trunk, cfg), cfg)
+
+    a3 = active.view(B, 1, 1)
+    state.lstm_h = torch.where(a3, h_new.to(dtype), state.lstm_h)
+    state.lstm_c = torch.where(a3, c_new.to(dtype), state.lstm_c)
+    state.count = state.count + active.to(torch.int32)
+    state.step = g + 1
+    return {k: v[:, -1] for k, v in probs.items()}
+
+
+# ---------------------------------------------------------------------------
+# Fast path: seamless streaming conv + incremental KV
+# ---------------------------------------------------------------------------
+
+@dataclass
+class FastState:
+    """KVState plus the streaming-conv input tails (per CHANNEL-stream:
+    B*2 leading axis, slot i owns rows 2i and 2i+1)."""
+
+    kv: KVState
+    conv: Dict[str, Tensor]
+
+
+def init_fast_state(cfg: VapConfig, batch: int = 1, dtype=torch.float32,
+                    staged: bool = False, device=None) -> FastState:
+    return FastState(
+        kv=init_kv_state(cfg, batch, dtype, staged, device),
+        conv=init_conv_stream_state(batch * 2, cfg.encoder_dim, dtype,
+                                    device))
+
+
+def fast_step(params: Params, state: FastState, new: Tensor,
+              cfg: VapConfig, active: Optional[Tensor] = None,
+              slots: str = "global", attend_impl: str = "einsum",
+              conv_chunks: int = 1, merge: str = "auto"
+              ) -> Tuple[FastState, Dict[str, Tensor]]:
+    """One fast-path frame: new (B, 2, 16000//frame_hz) FRESH samples
+    (no 320-sample overlap) -> probabilities.  Updates `state` in place
+    and returns it with the outputs.
+
+    active: (B,) bool; streams without a fresh frame this tick are FROZEN
+    (state untouched; their outputs are to be ignored).  conv_chunks > 1
+    runs the encoder over that many sequential sub-batches (smaller
+    transient activations; identical numerics).
+    """
+    B = new.shape[0]
+    D = cfg.dim
+    kv = state.kv
+    dtype = kv.lstm_h.dtype
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=new.device)
+
+    flat = new.reshape(B * 2, -1)
+    h0 = kv.lstm_h.reshape(B * 2, -1)
+    c0 = kv.lstm_c.reshape(B * 2, -1)
+    enc = params["encoder"]
+    k = conv_chunks if conv_chunks > 1 and (B * 2) % conv_chunks == 0 else 1
+    n = B * 2 // k
+    parts = [encode_chunk_streaming(
+        enc, flat[i * n:(i + 1) * n],
+        {name: c[i * n:(i + 1) * n] for name, c in state.conv.items()},
+        h0[i * n:(i + 1) * n], c0[i * n:(i + 1) * n], cfg.downsample_kernel)
+        for i in range(k)]
+    # the embedding enters the trunk in the state dtype (as in JAX)
+    e = torch.cat([p[0] for p in parts]).reshape(B, 2, D).to(dtype)
+    h_new = torch.cat([p[2] for p in parts]).reshape(B, 2, D)
+    c_new = torch.cat([p[3] for p in parts]).reshape(B, 2, D)
+
+    act2 = active.repeat_interleave(2).view(-1, 1, 1)
+    for name in state.conv:
+        conv2 = torch.cat([p[1][name] for p in parts])
+        state.conv[name] = torch.where(act2, conv2.to(dtype),
+                                       state.conv[name])
+    outs = _kv_core(params, kv, e, h_new, c_new, cfg, active, slots,
+                    attend_impl, merge)
+    return state, outs
+
+
+def run_frames_fast(params: Params, state: FastState, frames: Tensor,
+                    cfg: VapConfig, slots: str = "global",
+                    attend_impl: str = "einsum"):
+    """fast_step over (F, B, 2, frame_shift) frames; returns (state,
+    {name: (F, B, ...)}) like the JAX package's lax.scan."""
+    outs: Dict[str, List[Tensor]] = {}
+    for f in range(frames.shape[0]):
+        state, o = fast_step(params, state, frames[f], cfg, slots=slots,
+                             attend_impl=attend_impl)
+        for name, v in o.items():
+            outs.setdefault(name, []).append(v)
+    return state, {name: torch.stack(v) for name, v in outs.items()}
