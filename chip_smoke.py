@@ -10,26 +10,44 @@ Phases (any failed check raises, so the script exits non-zero):
          process per source, all started together) while g++ builds the
          native ingest engine.
   (a)    Each kernel against its plain PyTorch version on the card at the
-         serving shapes (B=4096 streams and the server run's 64, T=50,
-         S=8, all 7 phases, both bodies): float32 at atol 1e-4 (TF32 off), bfloat16 at atol/rtol
-         2e-2 (the plain version rounds (k - kc) * q and w * v to bf16, the
-         kernel keeps them in float32), a mixed live/DEAD case and an
-         all-DEAD case.
+         serving shapes:
+         - attend_pair, float caches (K1 ring-only, K2 staged): B=4096
+           streams and the server run's 64, T=50, S=8, all 7 phases,
+           float32 at atol 1e-4 (TF32 off), bfloat16 at atol/rtol 2e-2
+           (the plain version rounds (k - kc) * q and w * v to bf16, the
+           kernel keeps them in float32), a mixed live/DEAD case and an
+           all-DEAD case (output == v_cur);
+         - attend_pair on int8 codes (K3: the frozen scales folded into
+           q / k_cur / v_cur as the step does, compared in float units;
+           K4: per-row scales > 0 on the ring and the stage), bf16 q, the
+           same shapes, cases and tolerance;
+         - channel_norm_relu (K6) at every conv layer's serving shape
+           (8192, 256, T), T = 160, 40, 20, 10, 5: float32 at atol 1e-5;
+           bf16 within one bf16 rounding step at each of its three
+           rounding points, |d| <= 2^-6 |w y| + 2^-7 |out| + 1e-6 (y the
+           float32 normalised value).
   (b)    The full-width fast staged step (vap, 20 Hz, 2.5 s context,
-         synthetic weights): on a small input, float32 on the card equals
-         the CPU path (which the CPU tests hold against the JAX package) at
-         atol 1e-4; at B=4096 bf16 over 17 frames (two merges) the kernel
-         run equals the same step with `attend_pair_plain` (p_now atol
-         2e-2) and the launch counter rises by exactly 7 per step.
+         synthetic weights) in four configurations: the bf16 cache, the
+         int8 cache with frozen scales (quant="global") and with row
+         scales (quant="row"), and conv_impl="normk".  Each on a small
+         input in float32 on the card equals the CPU path (which the CPU
+         tests hold against the JAX package) at atol 1e-4; each at B=4096
+         bf16 over 17 frames (two merges) with the kernels equals the same
+         step with the plain versions (p_now atol 2e-2), and the launch
+         counters rise by exactly 7 attend launches per step and 5
+         channel_norm_relu launches per normk step.
   (d)    Times with CUDA events after warm-up, each beside the card's name
-         and power limit: kernel ms per launch and its bound, the plain
-         version, one scaled_dot_product_attention call over the same
-         problem as a yardstick (the port never calls it), and the fast
-         step's ms/step at B=4096 with the streams per card it implies.
-  (c)    The main path through its user entry point: the native server
-         (capacity 64, bf16, int16 wire) answers 8 loopback connections
-         streaming 1 s of synthetic audio each (>= 15 results on each);
-         the launch counters are zeroed just before and read just after.
+         and power limit: each kernel body's ms per launch and its bound,
+         its plain version, one PyTorch call over the same problem as a
+         yardstick where one exists (scaled_dot_product_attention on the
+         dequantised bf16 rows; the port never calls it), and the fast
+         step's ms/step at B=4096 for the four configurations.
+  (c)    The main path through its user entry point, twice: the native
+         server (capacity 64, bf16, int16 wire) answers 8 loopback
+         connections streaming 1 s of synthetic audio each (>= 15 results
+         on each), first with the bf16 cache, then with
+         StreamArena(quant_cache="global", conv_impl="normk"); the launch
+         counters are zeroed just before each run and read just after.
 
 The last lines: the card's name and power limit, one JSON line listing
 each kernel, and {"ok": true, "device": {...}}.
@@ -48,14 +66,26 @@ import numpy as np
 import torch
 
 B, T, S, P, D, H = 4096, 50, 8, 7, 256, 4
+C, NORM_T = 256, (160, 40, 20, 10, 5)   # conv output channels and lengths
 SERVER_CAPACITY = 64
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
+BF16_TOL = 2e-2                    # attend, bf16: atol and rtol
+CODE_SCALE = 3.0 / 127             # int8 scale of rows with max-abs ~3
+# the step's configurations: init_fast_state / fast_step keywords
+CONFIGS = {"bf16": {}, "q8g": dict(quant="global"), "q8": dict(quant="row"),
+           "normk": dict(conv_impl="normk")}
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
+
+
+def bound(nbytes: float, flops: float):
+    """The least time on the card: (ms, "bytes" or "operations")."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
 def build() -> None:
@@ -77,17 +107,12 @@ def build() -> None:
           flush=True)
 
 
-def attend_inputs(dtype, case: str, seed: int, nb: int = B):
-    """Serving-shaped attend inputs for nb streams, made on the card from
-    a seed: live ages in [1, T+S), about a third DEAD ("mixed") or all
-    DEAD ("dead")."""
+def _ages(g, case: str, nb: int):
+    """Ring (nb, T) and stage (S, nb) ages: live in [1, T+S), about a
+    third DEAD ("mixed") or all DEAD ("dead")."""
     from vap_realtime_tpu_torch.ops.cuda.attend import DEAD
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
-    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
-    cache, stage = rn(nb, P, T, 4 * D), rn(S, nb, P * 4 * D)
-    q2, kc2, vc2 = rn(nb, 2, D), rn(nb, 2, D), rn(nb, 2, D)
     age = torch.randint(1, T + S, (nb, T), generator=g, device=dev).float()
     sage = torch.randint(1, T + S, (S, nb), generator=g, device=dev).float()
     if case == "dead":
@@ -96,23 +121,72 @@ def attend_inputs(dtype, case: str, seed: int, nb: int = B):
     else:
         age[torch.rand(nb, T, generator=g, device=dev) < 0.35] = DEAD
         sage[torch.rand(S, nb, generator=g, device=dev) < 0.35] = DEAD
-    return cache, q2, kc2, vc2, age, stage, sage
+    return age, sage
+
+
+def attend_inputs(dtype, case: str, seed: int, nb: int = B):
+    """Serving-shaped float attend inputs for nb streams, made on the card
+    from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    cache, stage = rn(nb, P, T, 4 * D), rn(S, nb, P * 4 * D)
+    q2, kc2, vc2 = rn(nb, 2, D), rn(nb, 2, D), rn(nb, 2, D)
+    return (cache, q2, kc2, vc2, *_ages(g, case, nb), stage)
+
+
+def attend_inputs_int8(case: str, seed: int, nb: int = B):
+    """Serving-shaped int8 attend inputs made on the card from a seed:
+    int8 codes, bf16 q / k_cur / v_cur in float units, row scales
+    CODE_SCALE x [0.5, 1.5) of the ring (nb, P, T) and the stage
+    (S, nb, P)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    codes = lambda *s: torch.randint(-127, 128, s, generator=g,
+                                     device=dev).to(torch.int8)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(
+        torch.bfloat16)
+    cache, stage = codes(nb, P, T, 4 * D), codes(S, nb, P * 4 * D)
+    q2, kc2, vc2 = rn(nb, 2, D), rn(nb, 2, D), rn(nb, 2, D)
+    sc = CODE_SCALE * (0.5 + torch.rand(nb, P, T, generator=g, device=dev))
+    ssc = CODE_SCALE * (0.5 + torch.rand(S, nb, P, generator=g, device=dev))
+    age, sage = _ages(g, case, nb)
+    return cache, q2, kc2, vc2, age, sage, stage, sc, ssc
+
+
+def fold_global(q2, kc2, vc2):
+    """The quant="global" fold of `_kv_core` with one frozen scale
+    CODE_SCALE for k and v: q * c_k, k_cur / c_k, v_cur / c_v; the
+    kernel's output times c_v is in float units."""
+    f = lambda x, c: (x.float() * c).to(x.dtype).contiguous()
+    return f(q2, CODE_SCALE), f(kc2, 1 / CODE_SCALE), f(vc2, 1 / CODE_SCALE)
+
+
+def _compare(got, want, unit: float, what: str) -> float:
+    """bf16 kernel vs plain at atol/rtol BF16_TOL in float units (output
+    x unit); returns max |d|."""
+    torch.cuda.synchronize()
+    g, w = got.float() * unit, want.float() * unit
+    d = (g - w).abs()
+    check(torch.isfinite(got).all().item(), f"non-finite output ({what})")
+    check(not (d > BF16_TOL + BF16_TOL * w.abs()).any().item(),
+          f"kernel vs plain {what}: max |d| {d.max().item():.3e}")
+    return d.max().item()
 
 
 def phase_a() -> float:
-    """Kernel vs plain at the serving shapes (B=4096, and the server
-    run's capacity); returns the max abs error of the bf16 staged body
-    (the main path's)."""
+    """Float-cache attend (K1, K2) vs plain at the serving shapes (B=4096,
+    and the server run's capacity); returns the max abs error of the
+    bf16 staged body (the bf16 main path's)."""
     from vap_realtime_tpu_torch.ops.cuda.attend import (
         attend_pair, attend_pair_plain,
     )
 
     worst_main = 0.0
     for dtype, atol, rtol in ((torch.float32, 1e-4, 0.0),
-                              (torch.bfloat16, 2e-2, 2e-2)):
+                              (torch.bfloat16, BF16_TOL, BF16_TOL)):
         for nb, case in ((B, "mixed"), (B, "dead"),
                          (SERVER_CAPACITY, "mixed")):
-            cache, q2, kc2, vc2, age, stage, sage = attend_inputs(
+            cache, q2, kc2, vc2, age, sage, stage = attend_inputs(
                 dtype, case, seed=1 if case == "mixed" else 2, nb=nb)
             for staged in (True, False):
                 st = (stage, sage) if staged else (None, None)
@@ -145,6 +219,103 @@ def phase_a() -> float:
     return worst_main
 
 
+def phase_a_int8() -> float:
+    """int8-cache attend (K3 frozen-scale fold, K4 row scales) vs plain
+    at the serving shapes; returns the max abs error of their staged
+    bodies (float units)."""
+    from vap_realtime_tpu_torch.ops.cuda.attend import (
+        attend_pair, attend_pair_plain,
+    )
+
+    worst = 0.0
+    for nb, case in ((B, "mixed"), (B, "dead"), (SERVER_CAPACITY, "mixed")):
+        cache, q2, kc2, vc2, age, sage, stage, sc, ssc = attend_inputs_int8(
+            case, seed=3 if case == "mixed" else 4, nb=nb)
+        folded = fold_global(q2, kc2, vc2)
+        for body in ("K3", "K4"):
+            for staged in (True, False):
+                st = (stage, sage) if staged else (None, None)
+                err = 0.0
+                for ph in range(P):
+                    kw = dict(pair_base=2 * ph, num_heads=H)
+                    if body == "K3":
+                        args, unit = (cache, *folded, age, *st), CODE_SCALE
+                    else:
+                        args, unit = (cache, q2, kc2, vc2, age, *st), 1.0
+                        kw.update(scale=sc[:, ph], stage_scale=(
+                            ssc[:, :, ph] if staged else None))
+                    got = attend_pair(*args, **kw)
+                    want = attend_pair_plain(*args, **kw)
+                    err = max(err, _compare(
+                        got, want, unit, f"{body} B={nb} {case} "
+                        f"staged={staged} phase {ph}"))
+                    if case == "dead":
+                        check(torch.equal(got, args[3]),
+                              f"{body} all-DEAD rows: output must equal "
+                              f"v_cur")
+                print(f"[a] attend_pair int8 {body} bf16 B={nb} {case:5s} "
+                      f"{'staged' if staged else 'ring  '} 7 phases: "
+                      f"max |kernel - plain| {err:.3e} (float units; atol "
+                      f"{BF16_TOL:g}, rtol {BF16_TOL:g})", flush=True)
+                if staged:
+                    worst = max(worst, err)
+        del cache, stage
+    torch.cuda.empty_cache()
+    return worst
+
+
+def norm_inputs(seed: int, Tn: int):
+    """A conv output of the serving shape (2B, C, Tn) with per-channel
+    offsets, and a (C, 1) affine, made on the card from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    x = rn(2 * B, C, Tn) * 2 + rn(1, C, 1)
+    return x, 1 + 0.3 * rn(C, 1), 0.2 * rn(C, 1)
+
+
+def phase_a_norm() -> float:
+    """channel_norm_relu (K6) vs plain at every layer's serving shape;
+    returns the max abs error in bf16."""
+    from vap_realtime_tpu_torch.ops.basic import channel_norm
+    from vap_realtime_tpu_torch.ops.cuda.channorm import (
+        channel_norm_relu, channel_norm_relu_plain,
+    )
+
+    worst = 0.0
+    for Tn in NORM_T:
+        x32, w, b = norm_inputs(5, Tn)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            got = channel_norm_relu(x, w, b)
+            want = channel_norm_relu_plain(x, w, b).float()
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == x.shape
+                  and torch.isfinite(got).all().item(),
+                  f"channel_norm_relu output {dtype} T={Tn}")
+            d = (got.float() - want).abs()
+            if dtype == torch.float32:
+                tol = 1e-5
+            else:
+                y = channel_norm(x.float(), torch.ones_like(w),
+                                 torch.zeros_like(b))
+                tol = 2 ** -6 * (w.abs() * y.abs()) + 2 ** -7 * want.abs() \
+                    + 1e-6
+                worst = max(worst, d.max().item())
+                del y
+            check(bool((d <= tol).all()),
+                  f"channel_norm_relu vs plain {dtype} T={Tn}: max |d| "
+                  f"{d.max().item():.3e}")
+            print(f"[a] channel_norm_relu {str(dtype)[6:]} "
+                  f"({2 * B}, {C}, {Tn}): max |kernel - plain| "
+                  f"{d.max().item():.3e} ("
+                  + ("atol 1e-5" if dtype == torch.float32 else
+                     "one bf16 step per rounding point") + ")", flush=True)
+            del got, want, d
+        del x32
+    torch.cuda.empty_cache()
+    return worst
+
+
 def fast_inputs(cfg, n_streams, frames, seed, device, dtype):
     g = torch.Generator(device=device).manual_seed(seed)
     x = 0.1 * torch.randn(frames, n_streams, 2, cfg.frame_shift,
@@ -152,173 +323,295 @@ def fast_inputs(cfg, n_streams, frames, seed, device, dtype):
     return x.to(dtype)
 
 
-def phase_b(cfg, params_np):
-    """The full-width fast staged step on the card."""
-    from vap_realtime_tpu_torch.ops.cuda.attend import attend_pair
+def run_steps(p, cfg, nb, frames, dtype, device, config, attend_impl,
+              active=None):
+    """fast_step over `frames` with a fresh staged state of `config`
+    (CONFIGS); returns the (F, nb, ...) stacked p_now, p_future, vad."""
     from vap_realtime_tpu_torch.runtime import incremental as inc
+
+    kw = CONFIGS[config]
+    st = inc.init_fast_state(cfg, nb, dtype, staged=True, device=device,
+                             **kw)
+    res = []
+    for f in range(frames.shape[0]):
+        act = None if active is None else active(f)
+        st, o = inc.fast_step(p, st, frames[f], cfg, act, slots="staged",
+                              attend_impl=attend_impl,
+                              conv_impl=kw.get("conv_impl", "conv"))
+        res.append(torch.stack([o["p_now"], o["p_future"], o["vad"]])
+                   .float())
+    return torch.stack(res)
+
+
+def phase_b(cfg, params_np):
+    """The full-width fast staged step on the card, in every
+    configuration."""
+    from vap_realtime_tpu_torch.ops.cuda.attend import attend_pair
+    from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
     from vap_realtime_tpu_torch.weights.convert import params_to_torch
 
-    # small input, float32: the card (kernel) equals the CPU path
+    # small input, float32: the card (kernels) equals the CPU path
     nb, nf = 3, 12
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        p = params_to_torch(params_np, dev)
-        st = inc.init_fast_state(cfg, nb, staged=True, device=dev)
-        frames = fast_inputs(cfg, nb, nf, 5, "cpu", torch.float32).to(dev)
-        res = []
-        for f in range(nf):
-            act = torch.tensor([True, f % 2 == 0, f % 3 != 0], device=dev)
-            st, o = inc.fast_step(p, st, frames[f], cfg, act,
-                                  slots="staged", attend_impl="kernel")
-            res.append(torch.stack([o["p_now"], o["p_future"], o["vad"]])
-                       .cpu())
-        outs[dev] = torch.stack(res)
-    d = (outs["cuda"] - outs["cpu"]).abs().max().item()
-    check(d <= 1e-4, f"f32 card vs CPU path: max |d| {d:.3e} > 1e-4")
-    print(f"[b] full width f32, B={nb}, {nf} frames, card vs CPU path: "
-          f"max |d| {d:.3e} (atol 1e-4)", flush=True)
+    p32 = {dev: params_to_torch(params_np, dev) for dev in ("cpu", "cuda")}
+    frames = fast_inputs(cfg, nb, nf, 5, "cpu", torch.float32)
+    for config in CONFIGS:
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            act = lambda f: torch.tensor([True, f % 2 == 0, f % 3 != 0],
+                                         device=dev)
+            outs[dev] = run_steps(p32[dev], cfg, nb, frames.to(dev),
+                                  torch.float32, dev, config, "kernel",
+                                  act).cpu()
+        d = (outs["cuda"] - outs["cpu"]).abs().max().item()
+        check(d <= 1e-4, f"f32 {config} card vs CPU path: max |d| {d:.3e}")
+        print(f"[b] full width f32 {config}, B={nb}, {nf} frames, card vs "
+              f"CPU path: max |d| {d:.3e} (atol 1e-4)", flush=True)
+    del p32
 
-    # serving size, bf16: kernel vs plain attend, 7 launches per step
+    # serving size, bf16: kernels vs plain versions, launches per step
     p = params_to_torch(params_np, "cuda", torch.bfloat16)
     nf = 17
     frames = fast_inputs(cfg, B, nf, 6, "cuda", torch.bfloat16)
     idx = torch.arange(B, device="cuda")
-    runs = {}
-    for impl in ("kernel", "plain"):
-        st = inc.init_fast_state(cfg, B, torch.bfloat16, staged=True,
-                                 device="cuda")
-        attend_pair.launches = 0
-        res = []
-        for f in range(nf):
-            act = (idx + f) % 7 != 0
-            st, o = inc.fast_step(p, st, frames[f], cfg, act,
-                                  slots="staged", attend_impl=impl)
-            res.append(o["p_now"].float())
+    act = lambda f: (idx + f) % 7 != 0
+    for config in CONFIGS:
+        normk = config == "normk"
+        attend_pair.launches = channel_norm_relu.launches = 0
+        pk = run_steps(p, cfg, B, frames, torch.bfloat16, "cuda", config,
+                       "kernel", act)[:, 0]
         torch.cuda.synchronize()
-        want = 7 * nf if impl == "kernel" else 0
-        check(attend_pair.launches == want,
-              f"{impl} run: {attend_pair.launches} attend launches, "
-              f"expected {want}")
-        runs[impl] = torch.stack(res)
-        del st
-    pk = runs["kernel"]
-    check(pk.shape == (nf, B, 2) and torch.isfinite(pk).all().item(),
-          "p_now shape / finiteness")
-    check(((pk >= 0) & (pk <= 1.0 + 1e-2)).all().item(), "p_now in [0, 1]")
-    d = (pk - runs["plain"]).abs().max().item()
-    check(d <= 2e-2, f"bf16 kernel vs plain step: max |d p_now| {d:.3e}")
-    print(f"[b] full width bf16, B={B}, {nf} frames (2 merges): kernel vs "
-          f"plain attend max |d p_now| {d:.3e} (atol 2e-2); "
-          f"{7 * nf} launches = 7/step", flush=True)
+        check(attend_pair.launches == 7 * nf,
+              f"{config}: {attend_pair.launches} attend launches, expected "
+              f"{7 * nf}")
+        want_cn = 5 * nf if normk else 0
+        check(channel_norm_relu.launches == want_cn,
+              f"{config}: {channel_norm_relu.launches} channel_norm_relu "
+              f"launches, expected {want_cn}")
+        # the plain versions: attend_pair_plain, and for normk the conv
+        # path's ChannelNorm + ReLU (channel_norm_relu_plain's ops)
+        plain = "bf16" if normk else config
+        pp = run_steps(p, cfg, B, frames, torch.bfloat16, "cuda", plain,
+                       "plain", act)[:, 0]
+        check(attend_pair.launches == 7 * nf
+              and channel_norm_relu.launches == want_cn,
+              f"{config}: the plain run launched a kernel")
+        check(pk.shape == (nf, B, 2) and torch.isfinite(pk).all().item(),
+              f"{config}: p_now shape / finiteness")
+        check(((pk >= 0) & (pk <= 1.0 + 1e-2)).all().item(),
+              f"{config}: p_now in [0, 1]")
+        d = (pk - pp).abs().max().item()
+        check(d <= 2e-2, f"bf16 {config} kernels vs plain step: max |d "
+                         f"p_now| {d:.3e}")
+        print(f"[b] full width bf16 {config}, B={B}, {nf} frames (2 "
+              f"merges): kernels vs plain max |d p_now| {d:.3e} (atol "
+              f"2e-2); {attend_pair.launches} attend launches = 7/step, "
+              f"{channel_norm_relu.launches} channel_norm_relu launches = "
+              f"{5 if normk else 0}/step", flush=True)
+        del pk, pp
+        torch.cuda.empty_cache()
     return p, frames
 
 
+def attend_bound(es: int, staged: bool, row_scales: bool = False):
+    """Bytes each input is read once / output written once, and float32
+    operations, of one attend launch at B, T, S (cache element size
+    es bytes, bf16 q / k_cur / v_cur / out)."""
+    nbytes = B * T * 4 * D * es + 4 * B * 2 * D * 2 + B * T * 4
+    rows = T
+    if staged:
+        nbytes += S * B * 4 * D * es + S * B * 4
+        rows += S
+    if row_scales:
+        nbytes += B * T * 4 + (S * B * 4 if staged else 0)
+    return bound(nbytes, B * 2 * rows * D * 5), nbytes
+
+
+def sdpa_fn(plane, stage_ph, q2, kc2, vc2, age, sage):
+    """One scaled_dot_product_attention call over the same (2B, H, 1, L)
+    problem as one attend launch of a phase: plane (B, T, 4D) and
+    stage_ph (S, B, 4D) or None, bf16 float-unit rows; the ring + staged
+    + current k/v gathered into SDPA's layout, the AliBi/validity bias as
+    an additive float mask.  The port never calls it."""
+    from vap_realtime_tpu_torch.models.transformer import alibi_slopes
+
+    nb, Dh = q2.shape[0], D // H
+    kv = plane.reshape(nb, T, 2, 2, D)
+    ages = [age]
+    if stage_ph is not None:
+        kv = torch.cat([kv, stage_ph.reshape(S, nb, 2, 2, D).transpose(0, 1)],
+                       1)
+        ages.append(sage.T)
+    kv = kv.transpose(1, 2)                          # (B, 2, L-1, 2, D)
+    L = kv.shape[2] + 1
+
+    def heads(x):                                    # (B, 2, L, D) -> SDPA
+        return x.reshape(nb, 2, L, H, Dh).permute(0, 1, 3, 2, 4).reshape(
+            2 * nb, H, L, Dh).contiguous()
+
+    k_all = heads(torch.cat([kv[:, :, :, 0], kc2[:, :, None]], 2))
+    v_all = heads(torch.cat([kv[:, :, :, 1], vc2[:, :, None]], 2))
+    slopes = torch.tensor(alibi_slopes(H), device="cuda")
+    ages = torch.cat(ages + [torch.zeros(nb, 1, device="cuda")], 1)
+    bias = torch.where(ages[:, None, :] < 1e8, -ages[:, None, :]
+                       * slopes[None, :, None], float("-inf"))  # (B, H, L)
+    mask = bias[:, None].expand(nb, 2, H, L).reshape(
+        2 * nb, H, 1, L).to(q2.dtype)
+    q_s = q2.reshape(2 * nb, H, 1, Dh).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(q_s, k_all, v_all, attn_mask=mask,
+                        scale=D ** -0.5).reshape(nb, 2, D)
+
+
 def phase_d(cfg, p_bf16, frames, gpu):
-    """Times on the card; returns the kernel's numbers for the JSON line."""
+    """Times on the card; returns the kernels' numbers for the JSON
+    line."""
     from vap_realtime_tpu_torch.ops.cuda.attend import (
         attend_pair, attend_pair_plain,
+    )
+    from vap_realtime_tpu_torch.ops.cuda.channorm import (
+        channel_norm_relu, channel_norm_relu_plain,
     )
     from vap_realtime_tpu_torch.profile_step import cuda_ms
     from vap_realtime_tpu_torch.runtime import incremental as inc
 
-    dt = torch.bfloat16
-    cache, q2, kc2, vc2, age, stage, sage = attend_inputs(dt, "mixed", 3)
-    es = 2
-    nbytes = (B * T * 4 * D * es + S * B * 4 * D * es   # plane + stage slice
-              + 3 * B * 2 * D * es + B * T * 4 + S * B * 4
-              + B * 2 * D * es)                         # out
-    flops = B * 2 * (T + S) * D * 5                     # sub, fma; fma (v)
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S) * 1e3
-    bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
-                >= flops / F32_FLOP_PER_S else "operations")
-    ph = iter(range(10 ** 9))
-    kern = lambda st: attend_pair(cache, q2, kc2, vc2, age, *st,
-                                  pair_base=2 * (next(ph) % P), num_heads=H)
-    ms = cuda_ms(lambda: kern((stage, sage)), reps=70, warm=7)
-    ms_ring = cuda_ms(lambda: kern((None, None)), reps=70, warm=7)
-    plain_ms = cuda_ms(lambda: attend_pair_plain(
-        cache, q2, kc2, vc2, age, stage, sage, pair_base=2, num_heads=H),
-        reps=7, warm=2)
-    ring_bytes = nbytes - S * B * 4 * D * es - S * B * 4
-    print(f"[d] attend_pair bf16 staged (K2), B={B} T={T} S={S}: "
-          f"{ms:.4f} ms/launch, bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{nbytes / 1e9:.3f} GB at 3.35 TB/s) = "
-          f"{100 * bound_ms / ms:.1f}% of bound | {gpu}", flush=True)
-    print(f"[d] attend_pair bf16 ring-only (K1): {ms_ring:.4f} ms/launch, "
-          f"bound {ring_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms | {gpu}",
+    bodies = {}
+
+    def time_body(name, call, plain, lib, staged, es, row_scales, unit):
+        """ms/launch (rotating over the 7 phases), plain ms, library ms;
+        `call(ph)` / `plain(ph)` run phase ph, `lib()` the yardstick and
+        returns its output in float units, checked against the kernel."""
+        ph = iter(range(10 ** 9))
+        ms = cuda_ms(lambda: call(next(ph) % P), reps=70, warm=7)
+        plain_ms = cuda_ms(lambda: plain(1), reps=7, warm=2)
+        (bound_ms, bound_by), nbytes = attend_bound(es, staged, row_scales)
+        library_ms = cuda_ms(lib, reps=20, warm=3)
+        d_lib = (lib().float() - call(1).float() * unit).abs().max().item()
+        bodies[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms)
+        print(f"[d] attend_pair {name}, B={B} T={T}"
+              f"{f' S={S}' if staged else ''}: {ms:.4f} ms/launch, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB at "
+              f"3.35 TB/s) = {100 * bound_ms / ms:.1f}% of bound; plain "
+              f"{plain_ms:.4f} ms; scaled_dot_product_attention yardstick "
+              f"{library_ms:.4f} ms (max |sdpa - kernel| {d_lib:.3e}) | "
+              f"{gpu}", flush=True)
+
+    # K1 / K2: the bf16 cache
+    cache, q2, kc2, vc2, age, sage, stage = attend_inputs(
+        torch.bfloat16, "mixed", 3)
+    for name, staged in (("K2 bf16 staged", True), ("K1 bf16 ring", False)):
+        st = (stage, sage) if staged else (None, None)
+        run = lambda ph, fn=attend_pair, st=st: fn(
+            cache, q2, kc2, vc2, age, *st, pair_base=2 * ph, num_heads=H)
+        plain = lambda ph, st=st: attend_pair_plain(
+            cache, q2, kc2, vc2, age, *st, pair_base=2 * ph, num_heads=H)
+        lib = sdpa_fn(cache[:, 1], stage[:, :, 4 * D:8 * D] if staged
+                      else None, q2, kc2, vc2, age, sage)
+        time_body(name, run, plain, lib, staged, 2, False, 1.0)
+        del lib
+    del cache, stage
+    torch.cuda.empty_cache()
+
+    # K3 / K4: the int8 cache; the yardstick runs on the dequantised rows
+    cache, q2, kc2, vc2, age, sage, stage, sc, ssc = attend_inputs_int8(
+        "mixed", 3)
+    folded = fold_global(q2, kc2, vc2)
+    bf = torch.bfloat16
+    plane_g = (cache[:, 1].float() * CODE_SCALE).to(bf)
+    stage_g = (stage[:, :, 4 * D:8 * D].float() * CODE_SCALE).to(bf)
+    plane_r = (cache[:, 1].float() * sc[:, 1, :, None]).to(bf)
+    stage_r = (stage[:, :, 4 * D:8 * D].float() * ssc[:, :, 1, None]).to(bf)
+    for name, staged in (("K3 int8 global staged", True),
+                         ("K3 int8 global ring", False),
+                         ("K4 int8 row staged", True),
+                         ("K4 int8 row ring", False)):
+        st = (stage, sage) if staged else (None, None)
+        if name.startswith("K3"):
+            def run(ph, fn=attend_pair, st=st):
+                return fn(cache, *folded, age, *st, pair_base=2 * ph,
+                          num_heads=H)
+            lib = sdpa_fn(plane_g, stage_g if staged else None, q2, kc2,
+                          vc2, age, sage)
+            unit, rows = CODE_SCALE, False
+        else:
+            def run(ph, fn=attend_pair, st=st, staged=staged):
+                return fn(cache, q2, kc2, vc2, age, *st, scale=sc[:, ph],
+                          stage_scale=ssc[:, :, ph] if staged else None,
+                          pair_base=2 * ph, num_heads=H)
+            lib = sdpa_fn(plane_r, stage_r if staged else None, q2, kc2,
+                          vc2, age, sage)
+            unit, rows = 1.0, True
+        plain = lambda ph, run=run: run(ph, attend_pair_plain)
+        time_body(name, run, plain, lib, staged, 1, rows, unit)
+        del lib
+    del cache, stage, plane_g, stage_g, plane_r, stage_r
+    torch.cuda.empty_cache()
+
+    # K6 at each conv layer's serving shape, bf16
+    layers = {}
+    for Tn in NORM_T:
+        x32, w, b = norm_inputs(6, Tn)
+        x, w, b = x32.to(bf), w.to(bf), b.to(bf)
+        del x32
+        ms = cuda_ms(lambda: channel_norm_relu(x, w, b), reps=50, warm=5)
+        plain_ms = cuda_ms(lambda: channel_norm_relu_plain(x, w, b), reps=10)
+        n = x.numel()
+        bound_ms, bound_by = bound(2 * n * 2 + 2 * C * 2, 10 * n)
+        layers[Tn] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        print(f"[d] channel_norm_relu bf16 ({2 * B}, {C}, {Tn}): {ms:.4f} "
+              f"ms/launch, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{4 * n / 1e9:.3f} GB at 3.35 TB/s) = "
+              f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.4f} ms"
+              f" | {gpu}", flush=True)
+        del x
+    torch.cuda.empty_cache()
+    norm = {k: sum(v[k] for v in layers.values())
+            for k in ("ms", "plain_ms", "bound_ms")}
+    print(f"[d] channel_norm_relu, the 5 launches of a normk step: "
+          f"{norm['ms']:.4f} ms, bound {norm['bound_ms']:.4f} ms, plain "
+          f"{norm['plain_ms']:.4f} ms; no single PyTorch call computes it "
+          f"(layer_norm and group_norm use the biased variance) | {gpu}",
           flush=True)
-    print(f"[d] attend_pair_plain bf16 staged: {plain_ms:.4f} ms/call | "
-          f"{gpu}", flush=True)
 
-    # yardstick: one SDPA call over the same (B*2, H, 1, T+S+1) problem,
-    # phase 1: the ring + staged + current k/v gathered into SDPA's
-    # layout, the AliBi/validity bias as an additive float mask
-    L, Dh, ph1 = T + S + 1, D // H, 1
-    col = ph1 * 4 * D
-
-    def heads(x):                                   # (B, 2, L, D) -> SDPA
-        return x.reshape(B, 2, L, H, Dh).permute(0, 1, 3, 2, 4).reshape(
-            2 * B, H, L, Dh).contiguous()
-
-    # phase plane columns: [set][k|v][D]
-    kv = torch.cat([cache[:, ph1].reshape(B, T, 2, 2, D),
-                    stage[:, :, col:col + 4 * D].reshape(S, B, 2, 2, D)
-                    .transpose(0, 1)], 1).transpose(1, 2)  # (B, 2, L-1, 2, D)
-    k_all = heads(torch.cat([kv[:, :, :, 0], kc2[:, :, None]], 2))
-    v_all = heads(torch.cat([kv[:, :, :, 1], vc2[:, :, None]], 2))
-    del kv
-    slopes = torch.tensor(inc.alibi_slopes(H), device="cuda")
-    ages = torch.cat([age, sage.T, torch.zeros(B, 1, device="cuda")], 1)
-    bias = torch.where(ages[:, None, :] < 1e8, -ages[:, None, :]
-                       * slopes[None, :, None], float("-inf"))  # (B, H, L)
-    mask = bias[:, None].expand(B, 2, H, L).reshape(2 * B, H, 1, L).to(dt)
-    q_s = q2.reshape(2 * B, H, 1, Dh).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fn = lambda: sdpa(q_s, k_all, v_all, attn_mask=mask,
-                          scale=D ** -0.5)
-    library_ms = cuda_ms(lib_fn, reps=20, warm=3)
-    d_lib = (lib_fn().reshape(B, 2, D).float() - attend_pair(
-        cache, q2, kc2, vc2, age, stage, sage, pair_base=2 * ph1,
-        num_heads=H).float()).abs().max().item()
-    print(f"[d] library yardstick scaled_dot_product_attention bf16 "
-          f"(2B, H, 1, {L}) + float mask: {library_ms:.4f} ms/call "
-          f"(max |sdpa - kernel| {d_lib:.3e}) | {gpu}", flush=True)
-    del cache, stage, k_all, v_all, mask
-    torch.cuda.empty_cache()
-
-    # the fast staged step at serving size (kernel attend)
-    st = inc.init_fast_state(cfg, B, dt, staged=True, device="cuda")
+    # the fast staged step at serving size (kernels), every configuration
     steps = 24
-    for f in range(steps + 4):
-        if f == 4:
-            torch.cuda.synchronize()
-            t0 = time.time()
-        st, o = inc.fast_step(p_bf16, st, frames[f % frames.shape[0]], cfg,
-                              slots="staged", attend_impl="kernel")
-    torch.cuda.synchronize()
-    step_ms = (time.time() - t0) * 1e3 / steps
-    streams = B * (1e3 / cfg.frame_hz) / step_ms
-    print(f"[d] fast staged step bf16, B={B}, kernel attend: "
-          f"{step_ms:.3f} ms/step (host clock, {steps} steps incl. 3 "
-          f"merges) -> {streams:.0f} realtime streams per card at "
-          f"{cfg.frame_hz} Hz | {gpu}", flush=True)
-    del st
-    torch.cuda.empty_cache()
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    for config, kw in CONFIGS.items():
+        st = inc.init_fast_state(cfg, B, bf, staged=True, device="cuda", **kw)
+        for f in range(steps + 4):
+            if f == 4:
+                torch.cuda.synchronize()
+                t0 = time.time()
+            st, o = inc.fast_step(p_bf16, st, frames[f % frames.shape[0]],
+                                  cfg, slots="staged", attend_impl="kernel",
+                                  conv_impl=kw.get("conv_impl", "conv"))
+        torch.cuda.synchronize()
+        step_ms = (time.time() - t0) * 1e3 / steps
+        streams = B * (1e3 / cfg.frame_hz) / step_ms
+        print(f"[d] fast staged step bf16 {config}, B={B}, kernels: "
+              f"{step_ms:.3f} ms/step (host clock, {steps} steps incl. 3 "
+              f"merges) -> {streams:.0f} realtime streams per card at "
+              f"{cfg.frame_hz} Hz | {gpu}", flush=True)
+        del st
+        torch.cuda.empty_cache()
+    return bodies, dict(norm, bound_by="bytes", library_ms=None,
+                        layers=layers)
 
 
-def phase_c(cfg, params_np):
-    """The native server on the card: 8 loopback connections."""
+def phase_c(cfg, params_np, quant_cache=False, conv_impl="conv"):
+    """The native server on the card: 8 loopback connections.  Returns
+    (attend launches, channel_norm_relu launches) of the run."""
     from vap_realtime_tpu_torch.io import wire
     from vap_realtime_tpu_torch.ops.cuda.attend import attend_pair
+    from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
     from vap_realtime_tpu_torch.runtime.arena import StreamArena
     from vap_realtime_tpu_torch.runtime.server_native import NativeVapServer
     from vap_realtime_tpu_torch.weights.synthetic import synthetic_audio
 
     arena = StreamArena(cfg, params_np, capacity=SERVER_CAPACITY,
-                        dtype=torch.bfloat16,
-                        wire_dtype=np.int16, device="cuda")
+                        dtype=torch.bfloat16, quant_cache=quant_cache,
+                        conv_impl=conv_impl, wire_dtype=np.int16,
+                        device="cuda")
     arena.warmup()
     srv = NativeVapServer(arena, port=0, wire_int16=True)
     n_conn, hops = 8, 100                            # 1 s of audio each
@@ -360,6 +653,7 @@ def phase_c(cfg, params_np):
             rd.join(timeout=30)
 
     attend_pair.launches = 0                         # main path: zero ...
+    channel_norm_relu.launches = 0
     ticker = threading.Thread(target=srv.serve_forever)
     ticker.start()
     clients = [threading.Thread(target=client, args=(i,))
@@ -373,12 +667,17 @@ def phase_c(cfg, params_np):
         srv.stop()
         ticker.join(timeout=10)
     launches = attend_pair.launches                  # ... and read
+    cn_launches = channel_norm_relu.launches
     check(not ticker.is_alive() and not any(c.is_alive() for c in clients),
           "server or client threads did not stop")
     ticks = srv.tick_stats["n"]
     check(launches == 7 * ticks and launches > 0,
           f"{launches} attend launches over {ticks} server ticks "
           f"(expected 7 per tick)")
+    per_tick = 5 if conv_impl == "normk" else 0
+    check(cn_launches == per_tick * ticks,
+          f"{cn_launches} channel_norm_relu launches over {ticks} server "
+          f"ticks (expected {per_tick} per tick)")
     shift = cfg.frame_shift
     skipped = 0
     for i, res in enumerate(results):
@@ -400,12 +699,15 @@ def phase_c(cfg, params_np):
             check(pn.shape == (2,) and np.isfinite(pn).all()
                   and abs(pn.sum() - 1) < 2e-2,
                   f"connection {i} result {j}: p_now {pn}")
-    print(f"[c] native server, capacity 64, bf16, int16 wire: "
+    what = (f"quant_cache={quant_cache!r}, conv_impl={conv_impl!r}"
+            if quant_cache or conv_impl != "conv" else "bf16 cache")
+    print(f"[c] native server ({what}), capacity {SERVER_CAPACITY}, bf16, "
+          f"int16 wire: "
           f"{[len(r) for r in results]} results on {n_conn} connections "
           f"({skipped} frames skipped), {ticks} ticks, {launches} attend "
-          f"launches (7 per tick)",
-          flush=True)
-    return launches
+          f"launches (7 per tick), {cn_launches} channel_norm_relu launches "
+          f"({per_tick} per tick)", flush=True)
+    return launches, cn_launches
 
 
 def main() -> int:
@@ -424,20 +726,30 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     build()
-    max_err = phase_a()
+    err_main = phase_a()
+    err_int8 = phase_a_int8()
+    err_norm = phase_a_norm()
     cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
     params_np = synthetic_params(cfg.frame_hz)
     p_bf16, frames = phase_b(cfg, params_np)
-    times = phase_d(cfg, p_bf16, frames, gpu)
+    bodies, norm = phase_d(cfg, p_bf16, frames, gpu)
     del p_bf16, frames
-    launches = phase_c(cfg, params_np)
+    launches, _ = phase_c(cfg, params_np)
+    launches_q8g, cn_launches = phase_c(cfg, params_np, "global", "normk")
 
     print(gpu, flush=True)
-    print(json.dumps({"kernels": [dict(
-        name="attend_pair", route="cuda",
-        source="vap_realtime_tpu_torch/csrc/attend_pair.cu",
-        replaces="vap_realtime_tpu/ops/pallas/attend.py:454",
-        launches=launches, max_abs_err=max_err, **times)]}), flush=True)
+    print(json.dumps({"kernels": [
+        dict(name="attend_pair", route="cuda",
+             source="vap_realtime_tpu_torch/csrc/attend_pair.cu",
+             replaces="vap_realtime_tpu/ops/pallas/attend.py:454",
+             launches=launches + launches_q8g,
+             max_abs_err=max(err_main, err_int8),
+             **bodies["K2 bf16 staged"], bodies=bodies),
+        dict(name="channel_norm_relu", route="cuda",
+             source="vap_realtime_tpu_torch/csrc/channel_norm_relu.cu",
+             replaces="vap_realtime_tpu/ops/pallas/channorm.py:43",
+             launches=cn_launches, max_abs_err=err_norm, **norm),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,202 +1,362 @@
 // Twin single-query attention of one layer phase over the phase-major KV
 // cache, for Hopper (sm_90a).  Hand-written replacement of the TPU kernel
-// `fused_attend_pair` (vap_realtime_tpu/ops/pallas/attend.py:454), both of
-// its float bodies: `_kernel_pair` (ring rows only) and `_kernel_pair_st`
-// (ring rows + the S staged rows of the frame-major stage).
+// `fused_attend_pair` (vap_realtime_tpu/ops/pallas/attend.py:454), all of
+// the bodies the serving step reaches:
+//   K1 `_kernel_pair` (ring rows only) and K2 `_kernel_pair_st` (ring rows
+//      + the S staged rows of the frame-major stage), float caches;
+//   K3 the same bodies on an int8 cache and stage (quant="global": the
+//      frozen per-stream scales are folded into q, k_cur, v_cur and the
+//      output by the caller, so the body is K1/K2 on code values);
+//   K4 `_kernel_pair_q` / `_kernel_pair_stq`: an int8 cache and stage with
+//      one float32 scale per row (quant="row").
 //
 // What it computes, for stream b, twin set s, phase p (one block each):
 //   q'    = q * log2(e) / sqrt(D)                  (prescaled by the caller)
-//   arg_r = sum_{d in head h} (k_r,d - kc_d) q'_d - age_r * m_h
+//   K1-K3: arg_r = sum_{d in head h} (k_r,d - kc_d) q'_d - age_r * m_h
+//   K4:    arg_r = sc_r * sum_h k_r,d q'_d - age_r * m_h - sum_h kc_d q'_d
 //   w_r   = exp2(min(arg_r, 86)),   m_h = 2^(-8(h+1)/H) * log2(e)
-//   out   = (sum_r w_r v_r + v_cur) / (sum_r w_r + 1)
+//   out   = (sum_r w_r u_r v_r + v_cur) / (sum_r w_r + 1),
+//           u_r = sc_r for K4, else 1
 // over the T ring rows of cache[b, p, :, 2sD:(2s+2)D] and, when a stage
 // is given, the S staged rows stage[i, b, p*4D + 2sD : ...].  The softmax
 // is shifted by the CURRENT position's score, so the current weight is
 // exactly 1, no running max is needed and the denominator is >= 1 (no
 // NaN even when every row is dead).  Dead rows carry age = 1e9: their
-// argument is <= -5.6e6 and exp2 underflows to exactly 0.
+// argument is <= -5.6e6 and exp2 underflows to exactly 0.  With row
+// scales the denominator sums the UNSCALED weights (the scale dequantises
+// the value, not the probability), as in the TPU kernel.
 //
 // Design (a simple, right first version): one block of H warps per
-// (stream, twin set); warp h owns head h (Dh = 64 = 32 lanes x 2), each
-// lane loads two adjacent elements (one 4-byte bf16x2 or 8-byte float2),
-// so a warp reads one contiguous 128/256-byte run of a k or v row.  The
-// head sum is a butterfly of __shfl_xor_sync.  Rows are processed kUnroll
-// at a time with their loads issued first, which keeps several rows in
-// flight per warp.  All arithmetic accumulates in float32.
+// (stream, twin set); warp h owns head h (Dh = 64).  Each lane loads V
+// adjacent elements of a row as one 4- or 8-byte vector: V = 2 for float
+// and bf16 caches (float2 / bf16x2), so the 32 lanes of a warp cover one
+// row's 64 head columns, one 128/256-byte run; V = 4 for int8 (char4), so
+// 16 lanes cover a row and a warp takes TWO rows per load, two 64-byte
+// runs (with one row per warp an int8 load moved 64 bytes per warp
+// instruction, and the kernel ran at a quarter of its bound).  The head
+// sum is a butterfly of __shfl_xor_sync over the lanes of one row; the
+// row groups of a warp keep their own partial sums and combine them with
+// one more butterfly at the end.  Four row steps are processed at a time
+// with their loads issued first, which keeps several rows in flight per
+// warp.  The cache element type (float, bf16, int8) is a template
+// parameter separate from the q/out type; int8 codes are converted to
+// float32 in registers, so the dequantised cache never exists in memory.
+// All arithmetic accumulates in float32.
 //
-// Bound on the H100 (3.35 TB/s HBM): memory.  At B=4096, T=50, S=8, bf16,
-// one launch must read the phase plane 4096*50*1024*2 B = 419 MB and the
-// stage slice 8*4096*1024*2 B = 67 MB, ~0.49 GB: ~0.145 ms per launch,
-// ~1.0 ms for the 7 launches of a step.  The FLOPs (~6 per element) are
-// negligible.  Reaching that bound (TMA bulk copies, deeper pipelining) is
-// later work; chip_smoke.py measures how far this version is from it.
+// Bound on the H100 (3.35 TB/s HBM): memory.  At B=4096, T=50, S=8 one
+// launch must read the phase plane and the stage slice once: bf16 419 +
+// 67 MB (~0.15 ms); int8 210 + 34 MB plus the row scales (~0.078 ms).  The
+// FLOPs (~6 per element) are negligible.  Reaching that bound (TMA bulk
+// copies, deeper pipelining) is later work; chip_smoke.py measures how
+// far this version is from it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kClamp = 86.f;
 constexpr float kDead = 1e9f;
-constexpr int kUnroll = 4;
 
-template <typename T>
-struct Pair;
+constexpr int kDh = 64;     // head width: D = 64 * H
+constexpr int kUnroll = 4;  // row steps whose loads are issued together
+
+// V consecutive elements of a row <-> V floats.
+template <typename T, int V>
+struct Vec;
 
 template <>
-struct Pair<float> {
-  static __device__ __forceinline__ float2 load(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
+struct Vec<float, 2> {
+  static __device__ __forceinline__ void load(const float* p, float* f) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    f[0] = v.x;
+    f[1] = v.y;
   }
-  static __device__ __forceinline__ void store(float* p, float2 v) {
-    *reinterpret_cast<float2*>(p) = v;
+  static __device__ __forceinline__ void store(float* p, const float* f) {
+    *reinterpret_cast<float2*>(p) = make_float2(f[0], f[1]);
   }
 };
 
 template <>
-struct Pair<__nv_bfloat16> {
-  static __device__ __forceinline__ float2 load(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+struct Vec<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float* f) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
   }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float2 v) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
+  static __device__ __forceinline__ void store(float* p, const float* f) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
   }
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <>
+struct Vec<__nv_bfloat16, 2> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* f) {
+    const float2 v =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    f[0] = v.x;
+    f[1] = v.y;
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* f) {
+    *reinterpret_cast<__nv_bfloat162*>(p) =
+        __float22bfloat162_rn(make_float2(f[0], f[1]));
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float* f) {
+    Vec<__nv_bfloat16, 2>::load(p, f);
+    Vec<__nv_bfloat16, 2>::load(p + 2, f + 2);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* f) {
+    Vec<__nv_bfloat16, 2>::store(p, f);
+    Vec<__nv_bfloat16, 2>::store(p + 2, f + 2);
+  }
+};
+
+template <>
+struct Vec<int8_t, 4> {  // int8 codes: exact in float32 (and in bf16)
+  static __device__ __forceinline__ void load(const int8_t* p, float* f) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    f[0] = static_cast<float>(c.x);
+    f[1] = static_cast<float>(c.y);
+    f[2] = static_cast<float>(c.z);
+    f[3] = static_cast<float>(c.w);
+  }
+};
+
+// Sum over the L lanes of one row group (aligned groups of L lanes).
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = L / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// Running state of one lane: the two output accumulators and the
-// softmax denominator (identical on all lanes of a warp).
+// Running state of one lane: the softmax denominator of its row group's
+// rows (identical on the group's lanes) and its V output accumulators.
+template <int V>
 struct Acc {
-  float denom, o0, o1;
+  float denom, o[V];
 };
 
-// Folds rows [0, n) of a strided row sequence into `acc`: row r's k pair
-// lives at k + r * stride, its v pair D elements later, its age at
-// ages[r * age_stride].
-template <typename T>
-__device__ __forceinline__ void fold_rows(Acc& acc, const T* __restrict__ k,
-                                          size_t stride, int D,
-                                          const float* __restrict__ ages,
-                                          size_t age_stride, int n,
-                                          float2 q, float2 kc, float m) {
-  for (int r0 = 0; r0 < n; r0 += kUnroll) {
-    float2 kk[kUnroll], vv[kUnroll];
-    float ag[kUnroll];
+// One strided sequence of rows: row r's k vector lives at k + r * stride,
+// its v vector D elements later, its age at ages[r * age_stride] and (row
+// scales only) its scale at scales[r * scale_stride].
+template <typename C>
+struct Rows {
+  const C* k;
+  size_t stride;
+  const float* ages;
+  size_t age_stride;
+  const float* scales;
+  size_t scale_stride;
+  int n;
+};
+
+// Folds rows [0, n) into `acc`: row group g of the warp takes rows
+// g, g + R, g + 2R, ...  kScale: per-row dequant scales with the explicit
+// current score s_cur (K4); otherwise the current score is folded into
+// the shift as (k - kc) . q (K1-K3).
+template <typename C, int V, bool kScale>
+__device__ __forceinline__ void fold_rows(Acc<V>& acc, const Rows<C>& rows,
+                                          int D, int group, const float* q,
+                                          const float* kc, float s_cur,
+                                          float m) {
+  constexpr int L = kDh / V;   // lanes per row
+  constexpr int R = 32 / L;    // rows per warp load
+  for (int r0 = 0; r0 < rows.n; r0 += kUnroll * R) {
+    float kk[kUnroll][V], vv[kUnroll][V];
+    float ag[kUnroll], sc[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int r = r0 + u;
-      if (r < n) {
-        const T* row = k + static_cast<size_t>(r) * stride;
-        kk[u] = Pair<T>::load(row);
-        vv[u] = Pair<T>::load(row + D);
-        ag[u] = ages[static_cast<size_t>(r) * age_stride];
+      const int r = r0 + u * R + group;
+      if (r < rows.n) {
+        const C* row = rows.k + static_cast<size_t>(r) * rows.stride;
+        Vec<C, V>::load(row, kk[u]);
+        Vec<C, V>::load(row + D, vv[u]);
+        ag[u] = rows.ages[static_cast<size_t>(r) * rows.age_stride];
+        sc[u] = kScale ? rows.scales[static_cast<size_t>(r) *
+                                     rows.scale_stride]
+                       : 1.f;
       } else {  // past the end: a dead row, weight exactly 0
-        kk[u] = kc;
-        vv[u] = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          kk[u][i] = kScale ? 0.f : kc[i];
+          vv[u][i] = 0.f;
+        }
         ag[u] = kDead;
+        sc[u] = 0.f;
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      float p = (kk[u].x - kc.x) * q.x;
-      p = fmaf(kk[u].y - kc.y, q.y, p);
-      p = warp_sum(p);
-      const float w = exp2f(fminf(fmaf(-ag[u], m, p), kClamp));
+      float p = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        p = fmaf(kScale ? kk[u][i] : kk[u][i] - kc[i], q[i], p);
+      p = group_sum<L>(p);
+      if constexpr (kScale) p = p * sc[u] - s_cur;
+      float w = exp2f(fminf(fmaf(-ag[u], m, p), kClamp));
       acc.denom += w;
-      acc.o0 = fmaf(w, vv[u].x, acc.o0);
-      acc.o1 = fmaf(w, vv[u].y, acc.o1);
+      if constexpr (kScale) w *= sc[u];  // dequantise the value
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc.o[i] = fmaf(w, vv[u][i], acc.o[i]);
     }
   }
 }
 
+// Launch arguments: untyped pointers, element strides.
+struct Args {
+  const void* cache;
+  const void* q;
+  const void* k_cur;
+  const void* v_cur;
+  const float* age;          // (B, T)
+  const float* scale;        // row scales of the phase, stream b at b*scale_b
+  long long scale_b;
+  const void* stage;         // (S, B, P*4D) or nullptr
+  const float* stage_age;    // (S, B)
+  const float* stage_scale;  // row i of stream b at i*sscale_s + b*sscale_b
+  long long sscale_s, sscale_b;
+  void* out;
+  int B, P, T, D, H, S, phase;
+};
+
 // grid: 2*B blocks (block = b*2 + s); block: 32*H threads.
-template <typename T>
-__global__ void attend_pair_kernel(const T* __restrict__ cache,
-                                   const T* __restrict__ q,
-                                   const T* __restrict__ k_cur,
-                                   const T* __restrict__ v_cur,
-                                   const float* __restrict__ age,
-                                   const T* __restrict__ stage,
-                                   const float* __restrict__ stage_age,
-                                   T* __restrict__ out, int B, int P,
-                                   int T_rows, int D, int H, int S,
-                                   int phase) {
+template <typename Q, typename C, bool kScale>
+__global__ void attend_pair_kernel(const Args a) {
+  constexpr int V = sizeof(C) == 1 ? 4 : 2;  // elements per lane
+  constexpr int L = kDh / V;                 // lanes per row
   const int b = blockIdx.x >> 1;
   const int s = blockIdx.x & 1;
   const int h = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int d = h * (D / H) + 2 * lane;  // column inside the set's D
+  const int group = lane / L;                // row group within the warp
+  const int D = a.D;
+  const int d = h * kDh + V * (lane % L);    // column inside the set's D
   const size_t D4 = 4 * static_cast<size_t>(D);
 
   // q, k_cur, v_cur, out: (B, 2, D) contiguous
   const size_t io = (static_cast<size_t>(b) * 2 + s) * D + d;
-  const float2 qv = Pair<T>::load(q + io);
-  const float2 kcv = Pair<T>::load(k_cur + io);
-  const float2 vcv = Pair<T>::load(v_cur + io);
-  const float m = exp2f(-8.f * static_cast<float>(h + 1) / H) * kLog2e;
+  float qv[V], kcv[V], vcv[V];
+  Vec<Q, V>::load(static_cast<const Q*>(a.q) + io, qv);
+  Vec<Q, V>::load(static_cast<const Q*>(a.k_cur) + io, kcv);
+  Vec<Q, V>::load(static_cast<const Q*>(a.v_cur) + io, vcv);
+  const float m = exp2f(-8.f * static_cast<float>(h + 1) / a.H) * kLog2e;
+  float s_cur = 0.f;
+  if constexpr (kScale) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) s_cur = fmaf(kcv[i], qv[i], s_cur);
+    s_cur = group_sum<L>(s_cur);
+  }
 
-  Acc acc{1.f, vcv.x, vcv.y};  // the current position: weight exactly 1
+  // the current position (weight exactly 1) is counted by row group 0
+  Acc<V> acc;
+  acc.denom = group == 0 ? 1.f : 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc.o[i] = group == 0 ? vcv[i] : 0.f;
 
   // ring rows: plane ((b*P + phase)*T + t)*4D, set s at column 2sD
-  const T* ring = cache + (static_cast<size_t>(b) * P + phase) * T_rows * D4 +
-                  2 * static_cast<size_t>(s) * D + d;
-  fold_rows<T>(acc, ring, D4, D, age + static_cast<size_t>(b) * T_rows, 1,
-               T_rows, qv, kcv, m);
+  const C* cache = static_cast<const C*>(a.cache);
+  Rows<C> ring{cache + (static_cast<size_t>(b) * a.P + a.phase) * a.T * D4 +
+                   2 * static_cast<size_t>(s) * D + d,
+               D4,
+               a.age + static_cast<size_t>(b) * a.T,
+               1,
+               kScale ? a.scale + b * a.scale_b : nullptr,
+               1,
+               a.T};
+  fold_rows<C, V, kScale>(acc, ring, D, group, qv, kcv, s_cur, m);
 
-  if (stage != nullptr) {
+  if (a.stage != nullptr) {
     // staged rows: stage (S, B, P*4D), row i of stream b at
     // (i*B + b)*P*4D + phase*4D; ages (S, B)
-    const T* st = stage + static_cast<size_t>(b) * P * D4 + phase * D4 +
-                  2 * static_cast<size_t>(s) * D + d;
-    fold_rows<T>(acc, st, static_cast<size_t>(B) * P * D4, D, stage_age + b,
-                 static_cast<size_t>(B), S, qv, kcv, m);
+    const C* stage = static_cast<const C*>(a.stage);
+    Rows<C> st{stage + static_cast<size_t>(b) * a.P * D4 + a.phase * D4 +
+                   2 * static_cast<size_t>(s) * D + d,
+               static_cast<size_t>(a.B) * a.P * D4,
+               a.stage_age + b,
+               static_cast<size_t>(a.B),
+               kScale ? a.stage_scale + b * a.sscale_b : nullptr,
+               static_cast<size_t>(a.sscale_s),
+               a.S};
+    fold_rows<C, V, kScale>(acc, st, D, group, qv, kcv, s_cur, m);
   }
-  Pair<T>::store(out + io, make_float2(acc.o0 / acc.denom,
-                                       acc.o1 / acc.denom));
+
+  // combine the row groups of the warp
+#pragma unroll
+  for (int o = L; o < 32; o <<= 1) {
+    acc.denom += __shfl_xor_sync(0xffffffffu, acc.denom, o);
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      acc.o[i] += __shfl_xor_sync(0xffffffffu, acc.o[i], o);
+  }
+  if (group == 0) {
+    float out[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = acc.o[i] / acc.denom;
+    Vec<Q, V>::store(static_cast<Q*>(a.out) + io, out);
+  }
 }
 
-template <typename T>
-void launch(const void* cache, const void* q, const void* k_cur,
-            const void* v_cur, const float* age, const void* stage,
-            const float* stage_age, void* out, int B, int P, int T_rows,
-            int D, int H, int S, int phase, cudaStream_t stream) {
-  attend_pair_kernel<T><<<2 * B, 32 * H, 0, stream>>>(
-      static_cast<const T*>(cache), static_cast<const T*>(q),
-      static_cast<const T*>(k_cur), static_cast<const T*>(v_cur), age,
-      static_cast<const T*>(stage), stage_age, static_cast<T*>(out), B, P,
-      T_rows, D, H, S, phase);
+template <typename Q, typename C, bool kScale>
+int launch(const Args& a, cudaStream_t stream) {
+  attend_pair_kernel<Q, C, kScale><<<2 * a.B, 32 * a.H, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Q>
+int dispatch(int cache_dtype, const Args& a, cudaStream_t stream) {
+  if (cache_dtype == 2)
+    return a.scale != nullptr ? launch<Q, int8_t, true>(a, stream)
+                              : launch<Q, int8_t, false>(a, stream);
+  return launch<Q, Q, false>(a, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  stage == nullptr (or S == 0) gives
-// the ring-only body.  Returns the launch's cudaError_t (0 = success).
-extern "C" int attend_pair_launch(int dtype, const void* cache, const void* q,
-                                  const void* k_cur, const void* v_cur,
-                                  const float* age, const void* stage,
-                                  const float* stage_age, void* out, int B,
-                                  int P, int T_rows, int D, int H, int S,
-                                  int phase, void* stream) {
-  if (H <= 0 || H > 32 || D != 64 * H || B <= 0 || T_rows <= 0 ||
-      phase < 0 || phase >= P || S < 0)
+// dtype (q, k_cur, v_cur, out): 0 = float32, 1 = bfloat16.  cache_dtype
+// (cache and stage): the same as dtype, or 2 = int8.  scale == nullptr:
+// no row scales (float caches, or int8 with the scales folded outside);
+// otherwise int8 only, and with a stage stage_scale is required.  stage
+// == nullptr (or S == 0) gives the ring-only body.  Returns the launch's
+// cudaError_t (0 = success).
+extern "C" int attend_pair_launch(
+    int dtype, int cache_dtype, const void* cache, const void* q,
+    const void* k_cur, const void* v_cur, const float* age,
+    const float* scale, long long scale_b, const void* stage,
+    const float* stage_age, const float* stage_scale, long long sscale_s,
+    long long sscale_b, void* out, int B, int P, int T_rows, int D, int H,
+    int S, int phase, void* stream) {
+  if (H <= 0 || H > 32 || D != kDh * H || B <= 0 || T_rows <= 0 ||
+      phase < 0 || phase >= P || S < 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) stage = nullptr;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    launch<float>(cache, q, k_cur, v_cur, age, stage, stage_age, out, B, P,
-                  T_rows, D, H, S, phase, st);
-  else if (dtype == 1)
-    launch<__nv_bfloat16>(cache, q, k_cur, v_cur, age, stage, stage_age, out,
-                          B, P, T_rows, D, H, S, phase, st);
-  else
+  const bool int8 = cache_dtype == 2;
+  if (!int8 && cache_dtype != dtype)  // float caches: the q dtype
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (scale != nullptr &&
+      (!int8 || (stage != nullptr) != (stage_scale != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (scale == nullptr) stage_scale = nullptr;
+  const Args a{cache,     q,           k_cur,    v_cur,    age,
+               scale,     scale_b,     stage,    stage_age, stage_scale,
+               sscale_s,  sscale_b,    out,      B,        P,
+               T_rows,    D,           H,        S,        phase};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? dispatch<float>(cache_dtype, a, st)
+                    : dispatch<__nv_bfloat16>(cache_dtype, a, st);
 }

@@ -1,15 +1,19 @@
 """Twin single-query KV-step attention: CUDA kernel wrapper + plain version.
 
 `attend_pair` replaces the TPU kernel `fused_attend_pair`
-(vap_realtime_tpu/ops/pallas/attend.py:454) on the float caches, both of
-its bodies: `_kernel_pair` (ring rows only, `slots="stream"/"global"`)
-and `_kernel_pair_st` (ring + staged rows, the `slots="staged"` serving
-default).  The kernel is `vap_realtime_tpu_torch/csrc/attend_pair.cu`,
-hand-written for Hopper; see its header for the design.
+(vap_realtime_tpu/ops/pallas/attend.py:454) in every form the serving
+step reaches: the float bodies `_kernel_pair` (K1, ring rows only,
+`slots="stream"/"global"`) and `_kernel_pair_st` (K2, ring + staged rows,
+the `slots="staged"` serving default); the same bodies on int8 codes (K3,
+`quant="global"`: the frozen scales are folded into q, k_cur, v_cur and
+the output by the caller); and the per-row-scale bodies `_kernel_pair_q`
+/ `_kernel_pair_stq` (K4, `quant="row"`).  The kernel is
+`vap_realtime_tpu_torch/csrc/attend_pair.cu`, hand-written for Hopper;
+see its header for the design.
 
-Bound on the H100: memory.  At B=4096, T=50, S=8, bf16 one launch reads
-~0.49 GB (phase plane 419 MB + stage slice 67 MB): ~0.145 ms at 3.35 TB/s,
-~1.0 ms for the 7 launches of a serving step.
+Bound on the H100: memory.  At B=4096, T=50, S=8 one launch reads the
+phase plane and the stage slice: bf16 ~0.49 GB (~0.145 ms at 3.35 TB/s),
+int8 ~0.25 GB (~0.078 ms); 7 launches per serving step.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs `attend_pair_plain`, the same math in plain PyTorch (the
@@ -49,56 +53,83 @@ def _slopes(H: int, device) -> Tensor:
     return torch.exp2(-8.0 * (h + 1.0) / H) * LOG2E
 
 
+def _fold(k: Tensor, v: Tensor, q: Tensor, kc: Tensor, age: Tensor,
+          sc: Optional[Tensor], m: Tensor, H: int):
+    """One row sequence of one twin set: k, v (B, L, D) in q's dtype; q,
+    kc (B, D); age (B, L); sc (B, L) row scales or None.  Returns the
+    sum of the unnormalised weights (B, H) and of the weighted values
+    (B, H, Dh), both float32."""
+    B, L, D = k.shape
+    Dh = D // H
+    if sc is None:
+        # the current score folds into the shift: (k - kc) . q = s - s_cur
+        s = ((k - kc[:, None]) * q[:, None]).float().view(B, L, H, Dh).sum(-1)
+        arg = s - age[..., None] * m
+    else:
+        # row scales dequantise the cached score only: explicit s_cur
+        s = (k * q[:, None]).float().view(B, L, H, Dh).sum(-1) * sc[..., None]
+        s_cur = (kc * q).float().view(B, H, Dh).sum(-1)
+        arg = s - age[..., None] * m - s_cur[:, None]
+    w = torch.exp2(torch.clamp(arg, max=86.0))              # (B, L, H)
+    denom = w.sum(1)
+    if sc is not None:
+        w = w * sc[..., None]           # fold the value dequant into w
+    out = (w.to(q.dtype)[..., None] * v.view(B, L, H, Dh)).float().sum(1)
+    return denom, out
+
+
 def attend_pair_plain(cache: Tensor, q2: Tensor, k_cur2: Tensor,
                       v_cur2: Tensor, age: Tensor,
                       stage: Optional[Tensor] = None,
                       stage_age: Optional[Tensor] = None, *,
+                      scale: Optional[Tensor] = None,
+                      stage_scale: Optional[Tensor] = None,
                       pair_base: int, num_heads: int = 4) -> Tensor:
     """Plain PyTorch version of the kernel: the v4 softmax of the TPU
     kernel's `_attend_math` (ops/pallas/attend.py:55), with its rounding
-    points — `(k - kc) * q` in the state dtype, head sums and softmax in
-    float32, `w.to(v.dtype) * v` in the state dtype, value sums in float32.
+    points — cache codes cast to q's dtype, `(k - kc) * q` (or, with row
+    scales, `k * q` and `kc * q`) in that dtype, head sums and softmax in
+    float32, the denominator over the UNSCALED weights, `w * scale`
+    rounded to q's dtype before `* v`, value sums in float32, v_cur added
+    with weight 1.
 
-    cache (B, P, T, 4D); q2/k_cur2/v_cur2 (B, 2, D); age (B, T) float32,
-    DEAD for invalid rows; stage (S, B, P*4D) and stage_age (S, B) float32
-    for the staged slot policy, or None.  Returns (B, 2, D).
+    cache (B, P, T, 4D) float32 / bf16 / int8; q2/k_cur2/v_cur2 (B, 2, D);
+    age (B, T) float32, DEAD for invalid rows; stage (S, B, P*4D) and
+    stage_age (S, B) float32 for the staged slot policy, or None.  scale
+    (B, T) and stage_scale (S, B) float32: the per-row dequant scales of
+    THIS phase (int8 cache, quant="row"), or None.  Returns (B, 2, D) in
+    q's dtype.
     """
     B, P, T, D4 = cache.shape
     D = q2.shape[-1]
     H = num_heads
-    Dh = D // H
     ph = pair_base // 2
-    dtype = cache.dtype
+    dtype = q2.dtype
     q2 = _prescale(q2)
     m = _slopes(H, cache.device)                            # (H,)
     outs = []
     for s in range(2):
         q, kc, vc = q2[:, s], k_cur2[:, s], v_cur2[:, s]      # (B, D)
-        k = cache[:, ph, :, 2 * s * D:(2 * s + 1) * D]      # (B, T, D)
-        v = cache[:, ph, :, (2 * s + 1) * D:(2 * s + 2) * D]
-        # the current score folds into the shift: (k - kc) . q = s - s_cur
-        sc = ((k - kc[:, None]) * q[:, None]).float().view(B, T, H, Dh)
-        w = torch.exp2(torch.clamp(sc.sum(-1) - age[:, :, None] * m,
-                                   max=86.0))               # (B, T, H)
-        denom = w.sum(1) + 1.0                              # (B, H)
-        out = (w.to(dtype)[..., None] * v.view(B, T, H, Dh)).float().sum(1)
-        out = out + vc.float().view(B, H, Dh)               # w_cur == 1
+        k = cache[:, ph, :, 2 * s * D:(2 * s + 1) * D].to(dtype)  # (B, T, D)
+        v = cache[:, ph, :, (2 * s + 1) * D:(2 * s + 2) * D].to(dtype)
+        w_sum, out = _fold(k, v, q, kc, age, scale, m, H)
+        denom = w_sum + 1.0                                 # w_cur == 1
+        out = out + vc.float().view(B, H, -1)
         if stage is not None:
-            S = stage.shape[0]
             col = ph * D4 + 2 * s * D
-            ks = stage[:, :, col:col + D]                   # (S, B, D)
-            vs = stage[:, :, col + D:col + 2 * D]
-            sc2 = ((ks - kc[None]) * q[None]).float().view(S, B, H, Dh)
-            w2 = torch.exp2(torch.clamp(
-                sc2.sum(-1) - stage_age[:, :, None] * m, max=86.0))
-            denom = denom + w2.sum(0)
-            out = out + (w2.to(dtype)[..., None]
-                         * vs.view(S, B, H, Dh)).float().sum(0)
+            ks = stage[:, :, col:col + D].transpose(0, 1).to(dtype)
+            vs = stage[:, :, col + D:col + 2 * D].transpose(0, 1).to(dtype)
+            w_sum, out_st = _fold(
+                ks, vs, q, kc, stage_age.T, None if stage_scale is None
+                else stage_scale.T, m, H)
+            denom = denom + w_sum
+            out = out + out_st
         outs.append((out / denom[..., None]).reshape(B, D).to(dtype))
     return torch.stack(outs, dim=1)
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT8 = 2  # cache / stage element code of an int8 cache
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,8 +138,9 @@ def _lib() -> ctypes.CDLL:
     lib = load("attend_pair")
     fn = lib.attend_pair_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [I, I, P, P, P, P, P, P, L, P, P, P, L, L, P,
+                   I, I, I, I, I, I, I, P]
     return lib
 
 
@@ -119,28 +151,39 @@ def _check(cond: bool, msg: str) -> None:
 
 def attend_pair(cache: Tensor, q2: Tensor, k_cur2: Tensor, v_cur2: Tensor,
                 age: Tensor, stage: Optional[Tensor] = None,
-                stage_age: Optional[Tensor] = None, *, pair_base: int,
+                stage_age: Optional[Tensor] = None, *,
+                scale: Optional[Tensor] = None,
+                stage_scale: Optional[Tensor] = None, pair_base: int,
                 num_heads: int = 4) -> Tensor:
     """TWO single-query attentions (the twin channels / towers of one
     layer phase) over ONE contiguous cache plane, in one launch.
 
-    Same argument meaning as the TPU `fused_attend_pair` (float caches):
-    set s of q2/k_cur2/v_cur2 reads cache pair `pair_base + s`, i.e. phase
-    pair_base // 2, columns [2sD, (2s+2)D).  Stage ages are (S, B) float32
-    (the TPU kernel took them lane-broadcast in the state dtype, a Mosaic
-    layout constraint).  Ages and liveness are computed by the caller.
+    Same argument meaning as the TPU `fused_attend_pair`: set s of
+    q2/k_cur2/v_cur2 reads cache pair `pair_base + s`, i.e. phase
+    pair_base // 2, columns [2sD, (2s+2)D).  A float cache has q's dtype;
+    an int8 cache holds codes, read as they are (quant="global", scales
+    folded by the caller) or dequantised by `scale` (B, T) and, with a
+    stage, `stage_scale` (S, B): float32 row scales of this phase, which
+    may be strided views (the last dim of `scale` contiguous).  Stage ages
+    are (S, B) float32 (the TPU kernel took them lane-broadcast in the
+    state dtype, a Mosaic layout constraint).  Ages and liveness are
+    computed by the caller.
     """
     if cache.device.type == "cpu":
         return attend_pair_plain(cache, q2, k_cur2, v_cur2, age, stage,
-                                 stage_age, pair_base=pair_base,
-                                 num_heads=num_heads)
+                                 stage_age, scale=scale,
+                                 stage_scale=stage_scale,
+                                 pair_base=pair_base, num_heads=num_heads)
     _check(cache.device.type == "cuda",
            f"unsupported device {cache.device}")
     B, P, T, D4 = cache.shape
     D = q2.shape[-1]
     H = num_heads
-    dtype = cache.dtype
-    _check(dtype in _DTYPES, f"cache dtype {dtype} (float32 / bfloat16)")
+    dtype = q2.dtype
+    _check(dtype in _DTYPES, f"q dtype {dtype} (float32 / bfloat16)")
+    int8 = cache.dtype == torch.int8
+    _check(int8 or cache.dtype == dtype,
+           f"cache dtype {cache.dtype}: q's dtype {dtype} or int8")
     _check(D4 == 4 * D and D == 64 * H and 0 < H <= 32,
            f"needs D = 64 * heads and a (.., 4D) cache; got D={D}, H={H}, "
            f"cache {tuple(cache.shape)}")
@@ -155,8 +198,9 @@ def attend_pair(cache: Tensor, q2: Tensor, k_cur2: Tensor, v_cur2: Tensor,
     S = 0
     if stage is not None:
         S = stage.shape[0]
-        _check(tuple(stage.shape) == (S, B, P * D4) and stage.dtype == dtype,
-               f"stage must be (S, {B}, {P * D4}) {dtype}")
+        _check(tuple(stage.shape) == (S, B, P * D4)
+               and stage.dtype == cache.dtype,
+               f"stage must be (S, {B}, {P * D4}) {cache.dtype}")
         _check(stage_age is not None and tuple(stage_age.shape) == (S, B)
                and stage_age.dtype == torch.float32,
                "stage_age must be (S, B) float32")
@@ -164,15 +208,34 @@ def attend_pair(cache: Tensor, q2: Tensor, k_cur2: Tensor, v_cur2: Tensor,
     for t in tensors:
         _check(t.device == cache.device, "all tensors on one device")
         _check(t.is_contiguous(), "all tensors contiguous")
+    strides = [0, 0, 0]
+    if scale is not None:
+        _check(int8, "row scales need an int8 cache")
+        _check(tuple(scale.shape) == (B, T) and scale.dtype == torch.float32
+               and scale.stride(1) == 1 and scale.device == cache.device,
+               "scale must be (B, T) float32, last dim contiguous")
+        _check((stage_scale is not None) == bool(S),
+               "row scales with a stage need stage_scale, and only then")
+        strides[0] = scale.stride(0)
+        if S:
+            _check(tuple(stage_scale.shape) == (S, B)
+                   and stage_scale.dtype == torch.float32
+                   and stage_scale.device == cache.device,
+                   "stage_scale must be (S, B) float32")
+            strides[1:] = stage_scale.stride()
+    else:
+        _check(stage_scale is None, "stage_scale needs scale")
     q2 = _prescale(q2)
     out = torch.empty((B, 2, D), dtype=dtype, device=cache.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(cache.device):
         rc = _lib().attend_pair_launch(
-            _DTYPES[dtype], cache.data_ptr(), q2.data_ptr(),
-            k_cur2.data_ptr(), v_cur2.data_ptr(), age.data_ptr(),
-            stage.data_ptr() if S else None,
-            stage_age.data_ptr() if S else None, out.data_ptr(),
-            B, P, T, D, H, S, pair_base // 2,
+            _DTYPES[dtype], _INT8 if int8 else _DTYPES[dtype],
+            cache.data_ptr(), q2.data_ptr(), k_cur2.data_ptr(),
+            v_cur2.data_ptr(), age.data_ptr(), ptr(scale), strides[0],
+            ptr(stage) if S else None, ptr(stage_age) if S else None,
+            ptr(stage_scale) if S else None, strides[1], strides[2],
+            out.data_ptr(), B, P, T, D, H, S, pair_base // 2,
             torch.cuda.current_stream(cache.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"attend_pair: kernel launch failed, "

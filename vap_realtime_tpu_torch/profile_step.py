@@ -1,10 +1,13 @@
 """Where the fast staged serving step's time goes on the card.
 
     python -m vap_realtime_tpu_torch.profile_step [--batch 4096] [--steps 16]
+        [--quant_cache row|global] [--conv_impl conv|normk]
 
 Full-width model (vap, 20 Hz, 2.5 s context, synthetic weights), bf16,
-staged slots, kernel attend, all streams active.  Prints, each beside the
-card's name and power limit:
+staged slots, kernel attend, all streams active; the cache is bf16 or,
+with --quant_cache, int8 (per-row or frozen per-stream scales), and the
+encoder's ChannelNorm runs as PyTorch ops (conv) or through the one-pass
+kernel (normk).  Prints, each beside the card's name and power limit:
 
 - ms/step of the whole step (host clock around synchronized steps), of
   the encoder alone (CUDA events) and of the 7 attend launches of a step
@@ -23,7 +26,9 @@ import time
 import torch
 
 from vap_realtime_tpu_torch.config import VapConfig
-from vap_realtime_tpu_torch.models.encoder import encode_chunk_streaming
+from vap_realtime_tpu_torch.models.encoder import (
+    CONV_IMPLS, encode_chunk_streaming,
+)
 from vap_realtime_tpu_torch.runtime import incremental as inc
 from vap_realtime_tpu_torch.weights.convert import params_to_torch
 from vap_realtime_tpu_torch.weights.synthetic import synthetic_params
@@ -54,22 +59,27 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
+                    choices=["row", "global"])
+    ap.add_argument("--conv_impl", choices=list(CONV_IMPLS), default="conv")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
     B, n, dt = args.batch, args.steps, torch.bfloat16
+    quant, conv_impl = args.quant_cache, args.conv_impl
     gpu = gpu_line()
     cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
     p = params_to_torch(synthetic_params(cfg.frame_hz), "cuda", dt)
     g = torch.Generator(device="cuda").manual_seed(0)
     frames = (0.1 * torch.randn(8, B, 2, cfg.frame_shift, generator=g,
                                 device="cuda")).to(dt)
-    st = inc.init_fast_state(cfg, B, dt, staged=True, device="cuda")
+    st = inc.init_fast_state(cfg, B, dt, staged=True, device="cuda",
+                             quant=quant, conv_impl=conv_impl)
 
     def step(i):
         nonlocal st
         st, out = inc.fast_step(p, st, frames[i % 8], cfg, slots="staged",
-                                attend_impl="kernel")
+                                attend_impl="kernel", conv_impl=conv_impl)
         return out
 
     for i in range(4):
@@ -85,17 +95,22 @@ def main(argv=None) -> None:
     h0 = torch.zeros(2 * B, cfg.dim, device="cuda", dtype=dt)
     enc_ms = cuda_ms(lambda: encode_chunk_streaming(
         p["encoder"], frames[0].reshape(2 * B, -1), conv, h0, h0,
-        cfg.downsample_kernel), n)
+        cfg.downsample_kernel, conv_impl), n)
     kv = st.kv
     T = cfg.context_frames
     q2 = torch.randn(B, 2, cfg.dim, device="cuda", generator=g).to(dt)
     age = torch.randint(1, T, (B, T), device="cuda", generator=g).float()
     sage = torch.randint(1, T, (inc.STAGE_S, B), device="cuda",
                          generator=g).float()
+    row = kv.quant == "row"
     att_ms = cuda_ms(lambda: [inc.attend_pair(
-        kv.cache, q2, q2, q2, age, kv.stage, sage, pair_base=2 * ph,
-        num_heads=cfg.num_heads) for ph in range(7)], n)
-    print(f"[profile] B={B} bf16 fast staged step: {step_ms:.3f} ms/step; "
+        kv.cache, q2, q2, q2, age, kv.stage, sage,
+        scale=kv.scale[:, ph] if row else None,
+        stage_scale=kv.stage_scale[:, :, ph] if row else None,
+        pair_base=2 * ph, num_heads=cfg.num_heads) for ph in range(7)], n)
+    what = f"cache {f'int8 {quant}' if quant else 'bf16'}, {conv_impl}"
+    print(f"[profile] B={B} bf16 fast staged step ({what}): "
+          f"{step_ms:.3f} ms/step; "
           f"encoder {enc_ms:.3f} ms; 7 attend launches {att_ms:.3f} ms; "
           f"trunk rest {step_ms - enc_ms - att_ms:.3f} ms | {gpu}",
           flush=True)

@@ -37,7 +37,9 @@ def resolve_device(device=None) -> torch.device:
 def _reset_slot(state: incremental.FastState, mask: torch.Tensor) -> None:
     """In place: zero the recurrent state and validity counters of every
     slot where `mask` ((B,) bool) is set, in one fixed-shape pass.  The
-    cache and stage rows stay: their stamps are invalidated."""
+    cache and stage rows stay: their stamps are invalidated.  Per-row
+    scales stay too (read only for live rows); the frozen scales of
+    quant="global" are zeroed, so the next stream calibrates anew."""
     m2 = mask.repeat_interleave(2).view(-1, 1, 1)   # conv tails per channel
     for v in state.conv.values():
         v.masked_fill_(m2, 0)
@@ -48,6 +50,8 @@ def _reset_slot(state: incremental.FastState, mask: torch.Tensor) -> None:
     kv.stamp.masked_fill_(mask.view(-1, 1), -1)
     if kv.stage_stamp is not None:
         kv.stage_stamp.masked_fill_(mask.view(1, -1), -1)
+    if kv.quant == "global":
+        kv.scale.masked_fill_(mask.view(-1, 1, 1, 1), 0)
 
 
 class StreamArena:
@@ -56,10 +60,15 @@ class StreamArena:
     def __init__(self, cfg: VapConfig, params, capacity: int = 64,
                  path: str = "fast", dtype=torch.float32,
                  slots: str = "staged", attend_impl: str = "kernel",
-                 wire_dtype=np.float32, conv_chunks: int = 1,
+                 quant_cache=False, wire_dtype=np.float32,
+                 conv_impl: str = "conv", conv_chunks: int = 1,
                  device=None):
         """params: the params pytree with numpy (or array-like) leaves;
         cast to `dtype` on `device` (None = CUDA).
+
+        quant_cache: False, True / "row" (int8 cache, per-row scales) or
+        "global" (int8 cache, per-stream frozen scales).  conv_impl:
+        "conv" or "normk" (the ChannelNorm+ReLU kernel in the encoder).
 
         wire_dtype: dtype of the chunks fed to step() — np.float32
         (normalized audio) or np.int16 (raw samples, normalized /32768
@@ -73,6 +82,7 @@ class StreamArena:
         self.dtype = dtype
         self.slots = slots
         self.attend_impl = attend_impl
+        self.conv_impl = conv_impl
         self.conv_chunks = conv_chunks
         self.wire_dtype = wire_dtype
         self.device = resolve_device(device)
@@ -80,7 +90,8 @@ class StreamArena:
         self.chunk_samples = cfg.frame_shift
         self.params = params_to_torch(params, self.device, dtype)
         self.state = incremental.init_fast_state(
-            cfg, capacity, dtype, slots == "staged", self.device)
+            cfg, capacity, dtype, slots == "staged", self.device,
+            quant=quant_cache, conv_impl=conv_impl)
         self._free: List[int] = list(range(capacity))
         self._active: Dict[int, bool] = {}
         self._lock = threading.Lock()
@@ -136,7 +147,8 @@ class StreamArena:
         self.state, out = incremental.fast_step(
             self.params, self.state, x, self.cfg, self._upload(act),
             slots=self.slots, attend_impl=self.attend_impl,
-            conv_chunks=self.conv_chunks, merge=merge)
+            conv_impl=self.conv_impl, conv_chunks=self.conv_chunks,
+            merge=merge)
         return out
 
     def warmup(self) -> None:

@@ -1,9 +1,9 @@
 """Incremental streaming step — per-frame KV-cache append, single-query
 attention, no full-context recompute (the fast serving path).
 
-Port of `vap_realtime_tpu/runtime/incremental.py` (float caches): the same
-phase-major cache layout, per-stream stamps, slot policies and staged
-merge, so that states compare one to one with the JAX package.
+Port of `vap_realtime_tpu/runtime/incremental.py`: the same phase-major
+cache layout, per-stream stamps, slot policies, staged merge and int8
+cache modes, so that states compare one to one with the JAX package.
 
 - ALL per-frame K/V vectors (28 for 1 channel layer + 3 stereo layers)
   live in ONE phase-major cache (B, P=7, T, 4*D): each layer phase's twin
@@ -14,6 +14,9 @@ merge, so that states compare one to one with the JAX package.
   the end of the step.
 - Ages are `count - stamp` in each stream's own frame timeline, so a
   frozen stream's rows do not age; dead rows carry age DEAD.
+- The cache is the state dtype, or int8 codes (half the bytes) with
+  per-row scales (`quant="row"`) or per-stream scales frozen at the
+  stream's first active frame (`quant="global"`).
 
 PyTorch idiom: the step updates its state IN PLACE and returns it — the
 cache and the stage are written with indexed in-place stores (no
@@ -34,7 +37,7 @@ import torch
 
 from vap_realtime_tpu_torch.config import VapConfig
 from vap_realtime_tpu_torch.models.encoder import (
-    encode_chunk_streaming, init_conv_stream_state,
+    check_conv_impl, encode_chunk_streaming, init_conv_stream_state,
 )
 from vap_realtime_tpu_torch.models.transformer import alibi_slopes, combinator
 from vap_realtime_tpu_torch.models.vap import heads_forward, probs_from_outputs
@@ -49,6 +52,12 @@ Tensor = torch.Tensor
 STAGE_S = 8  # staged-slot policy: frames buffered between ring merges
 
 ATTEND_IMPLS = ("kernel", "plain", "einsum")
+QUANT_MODES = (False, True, "row", "global")
+
+# quant="global" headroom: the per-stream scale freezes at MARGIN x the
+# first active frame's max-abs (per phase x k/v column group); later rows
+# that exceed it saturate at +-127 instead of rescaling history.
+QG_MARGIN = 1.5
 
 
 def cache_layout(cfg: VapConfig) -> List[str]:
@@ -68,11 +77,43 @@ def cache_layout(cfg: VapConfig) -> List[str]:
     return names
 
 
+def quantize_rows(rows: Tensor) -> Tuple[Tensor, Tensor]:
+    """Symmetric int8 quantisation over the last axis (quant="row"):
+    rows (..., 4D) -> (int8 rows, (...,) float32 max-abs/127 scales).
+    torch.round rounds half to even, as jnp.round does."""
+    f = rows.float()
+    sc = torch.clamp(f.abs().amax(-1) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(f / sc[..., None]), -127, 127)
+    return q.to(torch.int8), sc
+
+
+def quantize_rows_global(rows: Tensor, gscale: Tensor, active: Tensor
+                         ) -> Tuple[Tensor, Tensor]:
+    """int8 quantisation with per-(stream, phase, k/v group) FROZEN scales
+    (quant="global"); the attend folds them outside the kernel.
+
+    rows (B, P, 4D) fresh K/V rows; gscale (B, P, 1, 4) current scales
+    (0 = not yet set); active (B,) bool.  A stream's scales are set once,
+    on its first active frame (slot resets zero them), at QG_MARGIN x
+    that frame's per-group max-abs / 127; every write clamps.  Returns
+    (int8 rows (B, P, 4D), updated gscale)."""
+    B, P, D4 = rows.shape
+    f = rows.float().reshape(B, P, 4, D4 // 4)
+    amax = f.abs().amax(-1)[:, :, None, :]                 # (B, P, 1, 4)
+    fresh = torch.clamp(amax * (QG_MARGIN / 127.0), min=1e-8)
+    gs = torch.where((gscale == 0) & active[:, None, None, None], fresh,
+                     gscale)
+    sc = torch.where(gs == 0, 1.0, gs)                     # safe divide
+    q = torch.clamp(torch.round(f / sc.transpose(2, 3)), -127, 127)
+    return q.to(torch.int8).reshape(B, P, D4), gs
+
+
 @dataclass
 class KVState:
     """Fused-KV streaming state (see the module docstring).
 
-    cache:  (B, P, T, 4*D) phase-major K/V rows.
+    cache:  (B, P, T, 4*D) phase-major K/V rows (int8 codes when
+            quantised).
     lstm_h/lstm_c: (B, 2, D) encoder context-net state.
     count:  (B,) int32 frames seen per stream.
     stamp:  (B, T) int32 `count` at which each ring row was written,
@@ -82,6 +123,13 @@ class KVState:
             (S, B, P*4D) frame-major staged rows (stage[i] holds tick
             g = i mod S); stage_stamp (S, B) the stream's `count` at
             staging, -1 = invalid (frozen tick, or merged).
+    scale:  int8 cache only (else None); its ndim names the mode.
+            quant="row": (B, P, T) float32 per-row max-abs/127 scales;
+            quant="global": (B, P, 1, 4) float32 per-(stream, phase,
+            k/v column group) scales frozen at the stream's first active
+            frame, 0 = not yet set.
+    stage_scale: (S, B, P) row scales of the staged rows, quant="row"
+            with the staged policy only (else None).
     """
 
     cache: Tensor
@@ -92,11 +140,26 @@ class KVState:
     step: int
     stage: Optional[Tensor] = None
     stage_stamp: Optional[Tensor] = None
+    scale: Optional[Tensor] = None
+    stage_scale: Optional[Tensor] = None
+
+    @property
+    def quant(self) -> Any:
+        """False, "row" or "global", read from the scales' ndim."""
+        if self.scale is None:
+            return False
+        return "global" if self.scale.dim() == 4 else "row"
 
 
 def init_kv_state(cfg: VapConfig, batch: int = 1, dtype=torch.float32,
-                  staged: bool = False, device=None) -> KVState:
-    """staged=True adds the (S, B, P*4D) stage that slots="staged" needs."""
+                  staged: bool = False, device=None, *,
+                  quant: Any = False) -> KVState:
+    """staged=True adds the (S, B, P*4D) stage that slots="staged" needs.
+
+    quant: False (a `dtype` cache) | True / "row" (int8 cache, per-row
+    scales) | "global" (int8 cache, per-stream frozen scales)."""
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant {quant!r} not in {QUANT_MODES}")
     D, T = cfg.dim, cfg.context_frames
     P = len(cache_layout(cfg)) // 4
     S = STAGE_S
@@ -107,16 +170,27 @@ def init_kv_state(cfg: VapConfig, batch: int = 1, dtype=torch.float32,
             f"staged slots need context_frames >= {S} (got {T}); use "
             f"slots='stream' for tiny-context configs")
     kw = dict(dtype=dtype, device=device)
+    ckw = dict(dtype=torch.int8 if quant else dtype, device=device)
     i32 = dict(dtype=torch.int32, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    scale = stage_scale = None
+    if quant == "global":
+        scale = torch.zeros((batch, P, 1, 4), **f32)
+    elif quant:
+        scale = torch.zeros((batch, P, T), **f32)
+        if staged:
+            stage_scale = torch.zeros((S, batch, P), **f32)
     return KVState(
-        cache=torch.zeros((batch, P, T, 4 * D), **kw),
+        cache=torch.zeros((batch, P, T, 4 * D), **ckw),
         lstm_h=torch.zeros((batch, 2, D), **kw),
         lstm_c=torch.zeros((batch, 2, D), **kw),
         count=torch.zeros((batch,), **i32),
         stamp=torch.full((batch, T), -1, **i32),
         step=0,
-        stage=torch.zeros((S, batch, P * 4 * D), **kw) if staged else None,
+        stage=torch.zeros((S, batch, P * 4 * D), **ckw) if staged else None,
         stage_stamp=torch.full((S, batch), -1, **i32) if staged else None,
+        scale=scale,
+        stage_scale=stage_scale,
     )
 
 
@@ -160,17 +234,28 @@ def _einsum_attend(state: KVState, q: Tensor, k_cur: Tensor, v_cur: Tensor,
     rows when `staged`) + the current position, in einsum form (the JAX
     package's `attend`, incremental.py:486-576).  q, k_cur, v_cur:
     (B, D); bias: (B, H, L) additive AliBi/validity bias of the L read
-    rows."""
+    rows.  An int8 cache is dequantised on load to the state dtype."""
     B, D = q.shape
     Dh = D // H
     dtype = state.lstm_h.dtype
     ph, ko = slot_k // 4, (slot_k % 4) * D
+    quant = state.quant
 
     def load(off):
         x = state.cache[:, ph, :, off:off + D]             # (B, T, D)
+        if quant == "row":
+            x = (x.float() * state.scale[:, ph, :, None]).to(dtype)
+        elif quant == "global":
+            x = (x.float() * state.scale[:, ph, 0, off // D, None, None]
+                 ).to(dtype)
         if staged:
             col = 4 * D * ph + off
             y = state.stage[:, :, col:col + D]               # (S, B, D)
+            if quant == "row":
+                y = (y.float() * state.stage_scale[:, :, ph, None]).to(dtype)
+            elif quant == "global":
+                y = (y.float() * state.scale[None, :, ph, 0, off // D, None]
+                     ).to(dtype)
             x = torch.cat([x, y.transpose(0, 1)], dim=1)
         return x
 
@@ -213,6 +298,8 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
     layout = cache_layout(cfg)
     P = len(layout) // 4
     dtype = state.lstm_h.dtype
+    quant = state.quant
+    row = quant == "row"
     g = state.step
     staged = slots == "staged"
     if staged and state.stage is None:
@@ -252,6 +339,10 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
             -torch.where(live_cat, age_cat, 0.0)[:, None, :]
             * slopes[None, :, None], float("-inf"))        # (B, H, L)
 
+    if quant == "global":
+        # the frozen scales, 0 (not yet set) read as 1
+        gscale_safe = torch.where(state.scale == 0, 1.0, state.scale)
+
     def attend2(q2, k2, v2, pair_base):
         """Twin attentions of one phase; set s reads pair pair_base + s."""
         if attend_impl == "einsum":
@@ -260,9 +351,31 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
                                2 * (pair_base + s), bias, H, staged)
                 for s in (0, 1)], dim=1)
         fn = attend_pair if attend_impl == "kernel" else attend_pair_plain
+        ph = pair_base // 2
+        stage = state.stage if staged else None
+        if quant == "global":
+            # frozen-scale fold: the kernel sees a scale-free int8
+            # problem — q rides c_k (scores of dequantised K == scores of
+            # codes against q * c_k), k_cur / v_cur ride 1/c so the
+            # current position lands in code units, the output scales
+            # back by c_v (JAX incremental.py:449-472).  Each fold is one
+            # kernel: float32 math (the scales are float32), the result
+            # rounded to the state dtype, as the JAX package's casts.
+            c = gscale_safe[:, ph, 0]                          # (B, 4)
+            ck, cv = c[:, 0::2, None], c[:, 1::2, None]        # (B, 2, 1)
+            fold = lambda op, x, c: op(x, c, out=torch.empty(
+                x.shape, dtype=dtype, device=x.device))
+            out = fn(state.cache, fold(torch.mul, q2, ck),
+                     fold(torch.div, k2, ck), fold(torch.div, v2, cv),
+                     age_f, stage, age_st_f, pair_base=pair_base,
+                     num_heads=H)
+            return torch.mul(out, cv, out=out)
         return fn(state.cache, q2.to(dtype).contiguous(),
                   k2.to(dtype).contiguous(), v2.to(dtype).contiguous(),
-                  age_f, state.stage if staged else None, age_st_f,
+                  age_f, stage, age_st_f,
+                  scale=state.scale[:, ph] if row else None,
+                  stage_scale=(state.stage_scale[:, :, ph]
+                               if row and staged else None),
                   pair_base=pair_base, num_heads=H)
 
     def ffn(x, layer):
@@ -314,14 +427,24 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
     # --- the frame's single cache write: rows (B, P, 4D) phase-major
     rows = torch.stack(
         [torch.cat([new_vecs[n] for n in layout[4 * ph:4 * ph + 4]], dim=-1)
-         for ph in range(P)], dim=1).to(dtype)
-    # stamps ride the same row writer as a (B, 1, T, 1) view
+         for ph in range(P)], dim=1)
+    if quant == "row":
+        rows, scale_new = quantize_rows(rows)                  # (B, P)
+    elif quant == "global":
+        # frozen scales: no per-row scale state in any slot policy
+        rows, state.scale = quantize_rows_global(rows, state.scale, active)
+    else:
+        rows = rows.to(dtype)
+    # stamps and row scales ride the same row writer as (B, 1|P, T, 1)
+    # views
     stamp4 = state.stamp.view(B, 1, T, 1)
     if staged:
         S = state.stage.shape[0]
         si = g % S
         state.stage[si] = rows.reshape(B, -1)
         state.stage_stamp[si] = torch.where(active, state.count, -1)
+        if row:
+            state.stage_scale[si] = scale_new
         do_merge = ((g + 1) % STAGE_S == 0 if merge == "auto"
                     else merge == "force")
         if do_merge:
@@ -333,12 +456,18 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
                                 state.stage.view(S, B, P, -1), idx, valid)
             _scatter_rows_multi(stamp4, state.stage_stamp.view(S, B, 1, 1),
                                 idx, valid)
+            if row:
+                _scatter_rows_multi(state.scale[..., None],
+                                    state.stage_scale[..., None], idx, valid)
             state.stage_stamp.fill_(-1)
     elif slots == "stream":
         # per-stream ring position; a frozen tick touches nothing
         idx = torch.remainder(state.count, T)
         _scatter_rows(state.cache, rows, idx, active)
         _scatter_rows(stamp4, state.count.view(B, 1, 1), idx, active)
+        if row:
+            _scatter_rows(state.scale[..., None], scale_new[..., None], idx,
+                          active)
     elif slots == "global":
         # one scalar slot for all streams; frozen streams keep their row
         t = g % T
@@ -346,6 +475,9 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
         state.cache[:, :, t] = torch.where(keep, rows, state.cache[:, :, t])
         state.stamp[:, t] = torch.where(active, state.count,
                                         state.stamp[:, t])
+        if row:
+            state.scale[:, :, t] = torch.where(active.view(B, 1), scale_new,
+                                               state.scale[:, :, t])
     else:
         raise ValueError(f"unknown slots policy {slots!r}")
 
@@ -375,9 +507,14 @@ class FastState:
 
 
 def init_fast_state(cfg: VapConfig, batch: int = 1, dtype=torch.float32,
-                    staged: bool = False, device=None) -> FastState:
+                    staged: bool = False, device=None, *,
+                    quant: Any = False, conv_impl: str = "conv"
+                    ) -> FastState:
+    """quant: see `init_kv_state`; conv_impl: see `fast_step` (both
+    ported forms share one conv state layout)."""
+    check_conv_impl(conv_impl)
     return FastState(
-        kv=init_kv_state(cfg, batch, dtype, staged, device),
+        kv=init_kv_state(cfg, batch, dtype, staged, device, quant=quant),
         conv=init_conv_stream_state(batch * 2, cfg.encoder_dim, dtype,
                                     device))
 
@@ -385,16 +522,19 @@ def init_fast_state(cfg: VapConfig, batch: int = 1, dtype=torch.float32,
 def fast_step(params: Params, state: FastState, new: Tensor,
               cfg: VapConfig, active: Optional[Tensor] = None,
               slots: str = "global", attend_impl: str = "einsum",
-              conv_chunks: int = 1, merge: str = "auto"
+              conv_impl: str = "conv", conv_chunks: int = 1,
+              merge: str = "auto"
               ) -> Tuple[FastState, Dict[str, Tensor]]:
     """One fast-path frame: new (B, 2, 16000//frame_hz) FRESH samples
     (no 320-sample overlap) -> probabilities.  Updates `state` in place
     and returns it with the outputs.
 
     active: (B,) bool; streams without a fresh frame this tick are FROZEN
-    (state untouched; their outputs are to be ignored).  conv_chunks > 1
-    runs the encoder over that many sequential sub-batches (smaller
-    transient activations; identical numerics).
+    (state untouched; their outputs are to be ignored).  conv_impl:
+    "conv" (PyTorch convs + ChannelNorm) or "normk" (the ChannelNorm+ReLU
+    kernel between the convs); see `encode_chunk_streaming`.
+    conv_chunks > 1 runs the encoder over that many sequential
+    sub-batches (smaller transient activations; identical numerics).
     """
     B = new.shape[0]
     D = cfg.dim
@@ -412,7 +552,8 @@ def fast_step(params: Params, state: FastState, new: Tensor,
     parts = [encode_chunk_streaming(
         enc, flat[i * n:(i + 1) * n],
         {name: c[i * n:(i + 1) * n] for name, c in state.conv.items()},
-        h0[i * n:(i + 1) * n], c0[i * n:(i + 1) * n], cfg.downsample_kernel)
+        h0[i * n:(i + 1) * n], c0[i * n:(i + 1) * n], cfg.downsample_kernel,
+        conv_impl)
         for i in range(k)]
     # the embedding enters the trunk in the state dtype (as in JAX)
     e = torch.cat([p[0] for p in parts]).reshape(B, 2, D).to(dtype)
@@ -431,13 +572,13 @@ def fast_step(params: Params, state: FastState, new: Tensor,
 
 def run_frames_fast(params: Params, state: FastState, frames: Tensor,
                     cfg: VapConfig, slots: str = "global",
-                    attend_impl: str = "einsum"):
+                    attend_impl: str = "einsum", conv_impl: str = "conv"):
     """fast_step over (F, B, 2, frame_shift) frames; returns (state,
     {name: (F, B, ...)}) like the JAX package's lax.scan."""
     outs: Dict[str, List[Tensor]] = {}
     for f in range(frames.shape[0]):
         state, o = fast_step(params, state, frames[f], cfg, slots=slots,
-                             attend_impl=attend_impl)
+                             attend_impl=attend_impl, conv_impl=conv_impl)
         for name, v in o.items():
             outs.setdefault(name, []).append(v)
     return state, {name: torch.stack(v) for name, v in outs.items()}

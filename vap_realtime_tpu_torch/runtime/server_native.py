@@ -9,7 +9,8 @@ the fast engine path.
 
 Run (on the card):
     python -m vap_realtime_tpu_torch.runtime.server_native \
-        --synthetic_weights --capacity 4096 --bf16 --wire_int16
+        --synthetic_weights --capacity 4096 --bf16 --wire_int16 \
+        [--quant_cache global]
 """
 
 from __future__ import annotations
@@ -135,7 +136,7 @@ class NativeVapServer:
             time.sleep(0.01)
 
 
-def main(argv: Optional[list] = None):
+def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--checkpoint_npz", default=None)
     ap.add_argument("--synthetic_weights", action="store_true")
@@ -158,27 +159,36 @@ def main(argv: Optional[list] = None):
                     default="kernel",
                     help="'kernel' = the hand-written CUDA attend kernel; "
                          "'einsum' = plain PyTorch einsum attention")
+    ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
+                    choices=["row", "global"],
+                    help="int8 KV cache: bare flag or 'row' = per-row "
+                         "scales; 'global' = per-stream frozen scales")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--wire_int16", action="store_true",
                     help="accept int16 hop packets (4x lower bandwidth)")
     args = ap.parse_args(argv)
+    if not (args.checkpoint_npz or args.synthetic_weights):
+        ap.error("give --checkpoint_npz or --synthetic_weights")
+    return args
 
+
+def main(argv: Optional[list] = None):
+    args = parse_args(argv)
     cfg = VapConfig(frame_hz=args.vap_process_rate,
                     context_len_sec=args.context_len_sec, mode=args.mode)
     if args.synthetic_weights:
         from vap_realtime_tpu_torch.weights.synthetic import synthetic_params
         params = synthetic_params(cfg.frame_hz, mode=args.mode)
-    elif args.checkpoint_npz:
+    else:
         from vap_realtime_tpu_torch.weights.convert import load_pytree_npz
         params = load_pytree_npz(args.checkpoint_npz)
-    else:
-        ap.error("give --checkpoint_npz or --synthetic_weights")
 
     arena = StreamArena(cfg, params, capacity=args.capacity,
                         path=args.engine_path,
                         dtype=torch.bfloat16 if args.bf16 else torch.float32,
                         slots=args.slots, attend_impl=args.attend_impl,
+                        quant_cache=args.quant_cache,
                         conv_chunks=args.conv_chunks,
                         wire_dtype=np.int16 if args.wire_int16
                         else np.float32, device=args.device)
