@@ -25,29 +25,49 @@ Phases (any failed check raises, so the script exits non-zero):
            (8192, 256, T), T = 160, 40, 20, 10, 5: float32 at atol 1e-5;
            bf16 within one bf16 rounding step at each of its three
            rounding points, |d| <= 2^-6 |w y| + 2^-7 |out| + 1e-6 (y the
-           float32 normalised value).
-  (b)    The full-width fast staged step (vap, 20 Hz, 2.5 s context,
-         synthetic weights) in four configurations: the bf16 cache, the
-         int8 cache with frozen scales (quant="global") and with row
-         scales (quant="row"), and conv_impl="normk".  Each on a small
-         input in float32 on the card equals the CPU path (which the CPU
-         tests hold against the JAX package) at atol 1e-4; each at B=4096
-         bf16 over 17 frames (two merges) with the kernels equals the same
-         step with the plain versions (p_now atol 2e-2), and the launch
-         counters rise by exactly 7 attend launches per step and 5
-         channel_norm_relu launches per normk step.
+           float32 normalised value);
+         - conv_stack_fused (K7) on 8192 channel-streams x 800 samples,
+           three frames, each carrying its own state: float32 at atol 1e-4
+           (TF32 off); bf16 within four bf16 steps, |d| <= 2^-6 (1 +
+           |plain|) (both accumulate in float32 in other orders, and a
+           value moved across a rounding boundary travels on through the
+           later layers); the new carries too (c0 bit-equal);
+         - the compact attend (K10) at B=4096 and 64, all 7 phases, ring
+           rows: float32 (atol 1e-4), bf16, int8 with row scales and
+           int8 codes under the frozen-scale fold (atol/rtol 2e-2 in float
+           units), mixed live/DEAD and all-DEAD (output == v_cur);
+         - lstm_scan (K5) at (8192, 5, 256): float32 at atol 1e-5, bf16
+           outputs within one bf16 step (rtol 2^-7, atol 1e-5).
+  (b)    The full-width fast step (vap, 20 Hz, 2.5 s context, synthetic
+         weights) in six configurations: staged slots with the bf16
+         cache, the int8 cache with frozen scales (quant="global") and
+         with row scales (quant="row"), conv_impl="normk" and
+         conv_impl="fused"; and "compact": slots="stream" with
+         attend_impl="kernel3".  Each on a small input in float32 on the
+         card equals the CPU path (which the CPU tests hold against the
+         JAX package) at atol 1e-4; each at B=4096 bf16 over 17 frames
+         with the kernels equals the same step with the plain versions
+         (p_now atol 2e-2), and the launch counters rise by exactly 7
+         attend launches per step (K1-K4, or K10 for compact), 5
+         channel_norm_relu launches per normk step and 1 conv_stack_fused
+         launch per fused step.
   (d)    Times with CUDA events after warm-up, each beside the card's name
          and power limit: each kernel body's ms per launch and its bound,
          its plain version, one PyTorch call over the same problem as a
          yardstick where one exists (scaled_dot_product_attention on the
-         dequantised bf16 rows; the port never calls it), and the fast
-         step's ms/step at B=4096 for the four configurations.
-  (c)    The main path through its user entry point, twice: the native
-         server (capacity 64, bf16, int16 wire) answers 8 loopback
-         connections streaming 1 s of synthetic audio each (>= 15 results
-         on each), first with the bf16 cache, then with
-         StreamArena(quant_cache="global", conv_impl="normk"); the launch
-         counters are zeroed just before each run and read just after.
+         dequantised bf16 rows, torch.nn.LSTM on cuDNN; the port never
+         calls them; K7 has none, so the `conv` and `normk` stacks' times
+         stand beside it), and the fast step's ms/step at B=4096 for the
+         six configurations.
+  (c)    The main paths through their user entry points: the native server
+         (capacity 64, bf16, int16 wire) answers 8 loopback connections
+         streaming 1 s of synthetic audio each (>= 15 results on each),
+         three times: the bf16 cache; StreamArena(quant_cache="global",
+         conv_impl="normk"); StreamArena(conv_impl="fused",
+         slots="stream", attend_impl="kernel3").  The launch counters are
+         zeroed just before each run and read just after.  Then
+         VapEngine(path="fast", conv_impl="fused") takes a few
+         process_batch calls on the card.
 
 The last lines: the card's name and power limit, one JSON line listing
 each kernel, and {"ok": true, "device": {...}}.
@@ -56,6 +76,7 @@ each kernel, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import socket
 import sys
@@ -70,11 +91,20 @@ C, NORM_T = 256, (160, 40, 20, 10, 5)   # conv output channels and lengths
 SERVER_CAPACITY = 64
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
+BF16_FLOP_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
 BF16_TOL = 2e-2                    # attend, bf16: atol and rtol
 CODE_SCALE = 3.0 / 127             # int8 scale of rows with max-abs ~3
-# the step's configurations: init_fast_state / fast_step keywords
+L_NEW = 800                        # fresh samples per frame at 20 Hz
+# the step's configurations: quant / conv_impl for init_fast_state and
+# fast_step; slots (default "staged") and attend_impl (default "kernel")
 CONFIGS = {"bf16": {}, "q8g": dict(quant="global"), "q8": dict(quant="row"),
-           "normk": dict(conv_impl="normk")}
+           "normk": dict(conv_impl="normk"), "fused": dict(conv_impl="fused"),
+           "compact": dict(slots="stream", attend_impl="kernel3")}
+STEP_CONFIGS = tuple(CONFIGS)      # phases (b) and (d)
+# the server runs' arenas (phase (c)) add two combinations
+CONFIGS.update(q8g_normk=dict(quant="global", conv_impl="normk"),
+               fused_compact=dict(conv_impl="fused", slots="stream",
+                                  attend_impl="kernel3"))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -82,10 +112,79 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S):
     """The least time on the card: (ms, "bytes" or "operations")."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def config_kw(config: str, plain: bool = False):
+    """(init_fast_state keywords, fast_step keywords) of a configuration;
+    plain=True swaps the kernels for their plain versions: the attend's
+    ("plain" / "plain3"), the conv path's ChannelNorm + ReLU for normk
+    (channel_norm_relu_plain's ops), and, for fused, the plain stack
+    (through `plain_fused`)."""
+    kw = CONFIGS[config]
+    slots = kw.get("slots", "staged")
+    conv = kw.get("conv_impl", "conv")
+    impl = kw.get("attend_impl", "kernel")
+    if plain:
+        impl = {"kernel": "plain", "kernel3": "plain3"}[impl]
+        conv = "conv" if conv == "normk" else conv
+    return (dict(staged=slots == "staged", quant=kw.get("quant", False),
+                 conv_impl=conv),
+            dict(slots=slots, attend_impl=impl, conv_impl=conv))
+
+
+@contextlib.contextmanager
+def plain_fused(on: bool = True):
+    """While on, conv_impl="fused" runs conv_stack_fused_plain instead of
+    the kernel (the comparisons on the card only; the port has no such
+    switch)."""
+    from vap_realtime_tpu_torch.ops.cuda import encoder as enc
+
+    kernel = enc.conv_stack_fused
+    if on:
+        enc.conv_stack_fused = enc.conv_stack_fused_plain
+    try:
+        yield
+    finally:
+        enc.conv_stack_fused = kernel
+
+
+def zero_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    from vap_realtime_tpu_torch.ops.cuda.attend import attend_pair
+    from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
+    from vap_realtime_tpu_torch.ops.cuda.encoder import conv_stack_fused
+    from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_scan
+
+    attend_pair.launches = attend_pair.compact_launches = 0
+    channel_norm_relu.launches = conv_stack_fused.launches = 0
+    lstm_scan.launches = 0
+
+
+def counts() -> dict:
+    """Every kernel's launch counter."""
+    from vap_realtime_tpu_torch.ops.cuda.attend import attend_pair
+    from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
+    from vap_realtime_tpu_torch.ops.cuda.encoder import conv_stack_fused
+    from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_scan
+
+    return {"attend": attend_pair.launches,
+            "compact": attend_pair.compact_launches,
+            "norm": channel_norm_relu.launches,
+            "fused": conv_stack_fused.launches, "lstm": lstm_scan.launches}
+
+
+def per_step(config: str) -> dict:
+    """Kernel launches one fast step of a configuration makes."""
+    kw = CONFIGS[config]
+    compact = kw.get("attend_impl") == "kernel3"
+    conv = kw.get("conv_impl", "conv")
+    return {"attend": 0 if compact else 7, "compact": 7 if compact else 0,
+            "norm": 5 if conv == "normk" else 0,
+            "fused": 1 if conv == "fused" else 0, "lstm": 0}
 
 
 def build() -> None:
@@ -316,6 +415,170 @@ def phase_a_norm() -> float:
     return worst
 
 
+def fused_inputs(seed: int, dtype):
+    """Serving-shaped K7 inputs on the card: 2B channel-streams, three
+    frames of fresh samples, random carries (post-ReLU-like rows), and
+    the synthetic encoder's packed weights in `dtype`."""
+    from vap_realtime_tpu_torch.ops.cuda.encoder import (
+        TAIL_KS, pack_fused_params,
+    )
+    from vap_realtime_tpu_torch.weights.convert import params_to_torch
+    from vap_realtime_tpu_torch.weights.synthetic import synthetic_params
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    N = 2 * B
+    enc = params_to_torch(synthetic_params(20)["encoder"], "cuda", dtype)
+    carries = tuple(rn(N, k - s, C).abs().to(dtype) for k, s in TAIL_KS)
+    news = [(0.1 * rn(N, L_NEW)).to(dtype) for _ in range(3)]
+    return (0.1 * rn(N, 5)).to(dtype), news, carries, \
+        pack_fused_params(enc, dtype), enc
+
+
+def phase_a_fused() -> float:
+    """conv_stack_fused (K7) vs plain at the serving shape, three frames
+    each carrying its own state; returns the max abs error in bf16."""
+    from vap_realtime_tpu_torch.ops.cuda.encoder import (
+        conv_stack_fused, conv_stack_fused_plain,
+    )
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        c0, news, carries, packed, _ = fused_inputs(8, dtype)
+        st_k = st_p = (c0, *carries)
+        err = 0.0
+        for f, new in enumerate(news):
+            zk, st_k = conv_stack_fused(st_k[0], new, st_k[1:], *packed)
+            zp, st_p = conv_stack_fused_plain(st_p[0], new, st_p[1:],
+                                              *packed)
+            torch.cuda.synchronize()
+            check(zk.dtype == dtype and zk.shape == (2 * B, 5, C)
+                  and torch.isfinite(zk).all().item(),
+                  f"conv_stack_fused output {dtype} frame {f}")
+            check(torch.equal(st_k[0], st_p[0]),
+                  f"conv_stack_fused carry c0 {dtype} frame {f}")
+            for name, got, want in [("z", zk, zp)] + [
+                    (f"c{i}", a, b) for i, (a, b) in
+                    enumerate(zip(st_k[1:], st_p[1:]), start=1)]:
+                d = (got.float() - want.float()).abs()
+                tol = (1e-4 if dtype == torch.float32
+                       else 2 ** -6 * (1 + want.float().abs()))
+                check(bool((d <= tol).all()),
+                      f"conv_stack_fused vs plain {dtype} frame {f} {name}: "
+                      f"max |d| {d.max().item():.3e}")
+                err = max(err, d.max().item())
+        print(f"[a] conv_stack_fused {str(dtype)[6:]} ({2 * B} x {L_NEW}), 3 "
+              f"frames: max |kernel - plain| over z and carries {err:.3e} ("
+              + ("atol 1e-4" if dtype == torch.float32 else
+                 "|d| <= 2^-6 (1 + |plain|)") + ")", flush=True)
+        if dtype == torch.bfloat16:
+            worst = err
+        del news, carries
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_a_compact() -> float:
+    """The compact attend (K10) vs plain at the serving shapes, ring rows:
+    float32, bf16, int8 row scales, int8 under the frozen-scale fold;
+    returns the max abs error of the bf16 and int8 bodies (float
+    units)."""
+    from vap_realtime_tpu_torch.ops.cuda.attend import (
+        attend_pair, attend_pair_plain,
+    )
+
+    worst = 0.0
+    for nb, case in ((B, "mixed"), (B, "dead"), (SERVER_CAPACITY, "mixed")):
+        seed = 9 if case == "mixed" else 10
+        for body in ("float32", "bf16", "int8 row", "int8 global"):
+            if body.startswith("int8"):
+                cache, q2, kc2, vc2, age, _, _, sc, _ = attend_inputs_int8(
+                    case, seed, nb)
+            else:
+                dt = torch.float32 if body == "float32" else torch.bfloat16
+                cache, q2, kc2, vc2, age, _, _ = attend_inputs(dt, case,
+                                                               seed, nb)
+            err = 0.0
+            for ph in range(P):
+                kw = dict(pair_base=2 * ph, num_heads=H, impl="compact")
+                args, unit = (cache, q2, kc2, vc2, age), 1.0
+                if body == "int8 row":
+                    kw["scale"] = sc[:, ph]
+                elif body == "int8 global":
+                    args, unit = (cache, *fold_global(q2, kc2, vc2),
+                                  age), CODE_SCALE
+                got = attend_pair(*args, **kw)
+                want = attend_pair_plain(*args, **kw)
+                if body == "float32":
+                    torch.cuda.synchronize()
+                    d = (got - want).abs().max().item()
+                    check(d <= 1e-4 and torch.isfinite(got).all().item(),
+                          f"compact float32 {case} phase {ph}: max |d| "
+                          f"{d:.3e}")
+                else:
+                    d = _compare(got, want, unit, f"compact {body} B={nb} "
+                                 f"{case} phase {ph}")
+                if case == "dead":
+                    check(torch.equal(got, args[3]),
+                          f"compact {body} all-DEAD rows: output must equal "
+                          f"v_cur")
+                err = max(err, d)
+            print(f"[a] attend_pair compact (K10) {body} B={nb} {case:5s} "
+                  f"ring 7 phases: max |kernel - plain| {err:.3e} ("
+                  + ("atol 1e-4" if body == "float32" else
+                     f"float units; atol {BF16_TOL:g}, rtol {BF16_TOL:g}")
+                  + ")", flush=True)
+            if body != "float32":
+                worst = max(worst, err)
+            del cache
+    torch.cuda.empty_cache()
+    return worst
+
+
+def lstm_inputs(seed: int, dtype):
+    """(8192, 5, 256) LSTM scan inputs on the card: gates, h0, c0 in
+    `dtype`; W_hh^T (256, 1024) and b_hh in float32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    N, Hh = 2 * B, C
+    return ((0.5 * rn(N, 5, 4 * Hh)).to(dtype), (0.1 * rn(N, Hh)).to(dtype),
+            (0.1 * rn(N, Hh)).to(dtype), rn(Hh, 4 * Hh) / Hh ** 0.5,
+            0.06 * rn(4 * Hh))
+
+
+def phase_a_lstm() -> float:
+    """lstm_scan (K5) vs plain at (8192, 5, 256); returns the max abs
+    error in bf16."""
+    from vap_realtime_tpu_torch.ops.cuda.lstm import (
+        lstm_scan, lstm_scan_plain,
+    )
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        args = lstm_inputs(11, dtype)
+        got = lstm_scan(*args)
+        want = lstm_scan_plain(*args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, a, b in zip(("ys", "h_T", "c_T"), got, want):
+            check(a.dtype == dtype and a.shape == b.shape
+                  and torch.isfinite(a).all().item(),
+                  f"lstm_scan {name} {dtype}")
+            d = (a.float() - b.float()).abs()
+            tol = (1e-5 if dtype == torch.float32
+                   else 2 ** -7 * b.float().abs() + 1e-5)
+            check(bool((d <= tol).all()), f"lstm_scan vs plain {dtype} "
+                  f"{name}: max |d| {d.max().item():.3e}")
+            err = max(err, d.max().item())
+        print(f"[a] lstm_scan {str(dtype)[6:]} ({2 * B}, 5, {C}): max "
+              f"|kernel - plain| {err:.3e} ("
+              + ("atol 1e-5" if dtype == torch.float32 else
+                 "rtol 2^-7, atol 1e-5") + ")", flush=True)
+        if dtype == torch.bfloat16:
+            worst = err
+    return worst
+
+
 def fast_inputs(cfg, n_streams, frames, seed, device, dtype):
     g = torch.Generator(device=device).manual_seed(seed)
     x = 0.1 * torch.randn(frames, n_streams, 2, cfg.frame_shift,
@@ -323,45 +586,41 @@ def fast_inputs(cfg, n_streams, frames, seed, device, dtype):
     return x.to(dtype)
 
 
-def run_steps(p, cfg, nb, frames, dtype, device, config, attend_impl,
+def run_steps(p, cfg, nb, frames, dtype, device, config, plain=False,
               active=None):
-    """fast_step over `frames` with a fresh staged state of `config`
-    (CONFIGS); returns the (F, nb, ...) stacked p_now, p_future, vad."""
+    """fast_step over `frames` with a fresh state of `config` (CONFIGS),
+    through the kernels or (plain=True) their plain versions; returns the
+    (F, nb, ...) stacked p_now, p_future, vad."""
     from vap_realtime_tpu_torch.runtime import incremental as inc
 
-    kw = CONFIGS[config]
-    st = inc.init_fast_state(cfg, nb, dtype, staged=True, device=device,
-                             **kw)
+    init_kw, step_kw = config_kw(config, plain)
+    st = inc.init_fast_state(cfg, nb, dtype, device=device, **init_kw)
     res = []
-    for f in range(frames.shape[0]):
-        act = None if active is None else active(f)
-        st, o = inc.fast_step(p, st, frames[f], cfg, act, slots="staged",
-                              attend_impl=attend_impl,
-                              conv_impl=kw.get("conv_impl", "conv"))
-        res.append(torch.stack([o["p_now"], o["p_future"], o["vad"]])
-                   .float())
+    with plain_fused(plain and step_kw["conv_impl"] == "fused"):
+        for f in range(frames.shape[0]):
+            act = None if active is None else active(f)
+            st, o = inc.fast_step(p, st, frames[f], cfg, act, **step_kw)
+            res.append(torch.stack([o["p_now"], o["p_future"], o["vad"]])
+                       .float())
     return torch.stack(res)
 
 
 def phase_b(cfg, params_np):
-    """The full-width fast staged step on the card, in every
-    configuration."""
-    from vap_realtime_tpu_torch.ops.cuda.attend import attend_pair
-    from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
+    """The full-width fast step on the card, in every configuration."""
     from vap_realtime_tpu_torch.weights.convert import params_to_torch
 
     # small input, float32: the card (kernels) equals the CPU path
     nb, nf = 3, 12
     p32 = {dev: params_to_torch(params_np, dev) for dev in ("cpu", "cuda")}
     frames = fast_inputs(cfg, nb, nf, 5, "cpu", torch.float32)
-    for config in CONFIGS:
+    for config in STEP_CONFIGS:
         outs = {}
         for dev in ("cpu", "cuda"):
             act = lambda f: torch.tensor([True, f % 2 == 0, f % 3 != 0],
                                          device=dev)
             outs[dev] = run_steps(p32[dev], cfg, nb, frames.to(dev),
-                                  torch.float32, dev, config, "kernel",
-                                  act).cpu()
+                                  torch.float32, dev, config,
+                                  active=act).cpu()
         d = (outs["cuda"] - outs["cpu"]).abs().max().item()
         check(d <= 1e-4, f"f32 {config} card vs CPU path: max |d| {d:.3e}")
         print(f"[b] full width f32 {config}, B={nb}, {nf} frames, card vs "
@@ -374,27 +633,18 @@ def phase_b(cfg, params_np):
     frames = fast_inputs(cfg, B, nf, 6, "cuda", torch.bfloat16)
     idx = torch.arange(B, device="cuda")
     act = lambda f: (idx + f) % 7 != 0
-    for config in CONFIGS:
-        normk = config == "normk"
-        attend_pair.launches = channel_norm_relu.launches = 0
+    for config in STEP_CONFIGS:
+        zero_counts()
         pk = run_steps(p, cfg, B, frames, torch.bfloat16, "cuda", config,
-                       "kernel", act)[:, 0]
+                       active=act)[:, 0]
         torch.cuda.synchronize()
-        check(attend_pair.launches == 7 * nf,
-              f"{config}: {attend_pair.launches} attend launches, expected "
-              f"{7 * nf}")
-        want_cn = 5 * nf if normk else 0
-        check(channel_norm_relu.launches == want_cn,
-              f"{config}: {channel_norm_relu.launches} channel_norm_relu "
-              f"launches, expected {want_cn}")
-        # the plain versions: attend_pair_plain, and for normk the conv
-        # path's ChannelNorm + ReLU (channel_norm_relu_plain's ops)
-        plain = "bf16" if normk else config
-        pp = run_steps(p, cfg, B, frames, torch.bfloat16, "cuda", plain,
-                       "plain", act)[:, 0]
-        check(attend_pair.launches == 7 * nf
-              and channel_norm_relu.launches == want_cn,
-              f"{config}: the plain run launched a kernel")
+        want = {k: v * nf for k, v in per_step(config).items()}
+        got = counts()
+        check(got == want, f"{config}: launches {got}, expected {want}")
+        pp = run_steps(p, cfg, B, frames, torch.bfloat16, "cuda", config,
+                       plain=True, active=act)[:, 0]
+        check(counts() == want, f"{config}: the plain run launched a "
+                                f"kernel")
         check(pk.shape == (nf, B, 2) and torch.isfinite(pk).all().item(),
               f"{config}: p_now shape / finiteness")
         check(((pk >= 0) & (pk <= 1.0 + 1e-2)).all().item(),
@@ -402,11 +652,9 @@ def phase_b(cfg, params_np):
         d = (pk - pp).abs().max().item()
         check(d <= 2e-2, f"bf16 {config} kernels vs plain step: max |d "
                          f"p_now| {d:.3e}")
-        print(f"[b] full width bf16 {config}, B={B}, {nf} frames (2 "
-              f"merges): kernels vs plain max |d p_now| {d:.3e} (atol "
-              f"2e-2); {attend_pair.launches} attend launches = 7/step, "
-              f"{channel_norm_relu.launches} channel_norm_relu launches = "
-              f"{5 if normk else 0}/step", flush=True)
+        print(f"[b] full width bf16 {config}, B={B}, {nf} frames: kernels "
+              f"vs plain max |d p_now| {d:.3e} (atol 2e-2); launches "
+              f"{got} = {per_step(config)} per step", flush=True)
         del pk, pp
         torch.cuda.empty_cache()
     return p, frames
@@ -474,20 +722,22 @@ def phase_d(cfg, p_bf16, frames, gpu):
     from vap_realtime_tpu_torch.profile_step import cuda_ms
     from vap_realtime_tpu_torch.runtime import incremental as inc
 
-    bodies = {}
+    bodies, compact = {}, {}
 
-    def time_body(name, call, plain, lib, staged, es, row_scales, unit):
-        """ms/launch (rotating over the 7 phases), plain ms, library ms;
-        `call(ph)` / `plain(ph)` run phase ph, `lib()` the yardstick and
-        returns its output in float units, checked against the kernel."""
+    def time_body(name, call, plain, lib, staged, es, row_scales, unit,
+                  into=bodies):
+        """ms/launch (rotating over the 7 phases), plain ms, library ms
+        into `into[name]`; `call(ph)` / `plain(ph)` run phase ph, `lib()`
+        the yardstick and returns its output in float units, checked
+        against the kernel."""
         ph = iter(range(10 ** 9))
         ms = cuda_ms(lambda: call(next(ph) % P), reps=70, warm=7)
         plain_ms = cuda_ms(lambda: plain(1), reps=7, warm=2)
         (bound_ms, bound_by), nbytes = attend_bound(es, staged, row_scales)
         library_ms = cuda_ms(lib, reps=20, warm=3)
         d_lib = (lib().float() - call(1).float() * unit).abs().max().item()
-        bodies[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=library_ms)
+        into[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
         print(f"[d] attend_pair {name}, B={B} T={T}"
               f"{f' S={S}' if staged else ''}: {ms:.4f} ms/launch, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB at "
@@ -509,7 +759,14 @@ def phase_d(cfg, p_bf16, frames, gpu):
                       else None, q2, kc2, vc2, age, sage)
         time_body(name, run, plain, lib, staged, 2, False, 1.0)
         del lib
-    del cache, stage
+    # K10: the compact body on the same bf16 ring
+    run = lambda ph, fn=attend_pair: fn(
+        cache, q2, kc2, vc2, age, pair_base=2 * ph, num_heads=H,
+        impl="compact")
+    lib = sdpa_fn(cache[:, 1], None, q2, kc2, vc2, age, sage)
+    time_body("K10 bf16 ring", run, lambda ph: run(ph, attend_pair_plain),
+              lib, False, 2, False, 1.0, compact)
+    del cache, stage, lib
     torch.cuda.empty_cache()
 
     # K3 / K4: the int8 cache; the yardstick runs on the dequantised rows
@@ -544,6 +801,24 @@ def phase_d(cfg, p_bf16, frames, gpu):
         plain = lambda ph, run=run: run(ph, attend_pair_plain)
         time_body(name, run, plain, lib, staged, 1, rows, unit)
         del lib
+    # K10 on the int8 ring: the frozen-scale fold and row scales
+    for name, rows in (("K10 int8 global ring", False),
+                       ("K10 int8 row ring", True)):
+        if rows:
+            def run(ph, fn=attend_pair):
+                return fn(cache, q2, kc2, vc2, age, scale=sc[:, ph],
+                          pair_base=2 * ph, num_heads=H, impl="compact")
+            lib, unit = sdpa_fn(plane_r, None, q2, kc2, vc2, age,
+                                sage), 1.0
+        else:
+            def run(ph, fn=attend_pair):
+                return fn(cache, *folded, age, pair_base=2 * ph,
+                          num_heads=H, impl="compact")
+            lib, unit = sdpa_fn(plane_g, None, q2, kc2, vc2, age,
+                                sage), CODE_SCALE
+        time_body(name, run, lambda ph, run=run: run(ph, attend_pair_plain),
+                  lib, False, 1, rows, unit, compact)
+        del lib
     del cache, stage, plane_g, stage_g, plane_r, stage_r
     torch.cuda.empty_cache()
 
@@ -574,44 +849,147 @@ def phase_d(cfg, p_bf16, frames, gpu):
           f"(layer_norm and group_norm use the biased variance) | {gpu}",
           flush=True)
 
-    # the fast staged step at serving size (kernels), every configuration
+    fused = time_fused(p_bf16, frames, gpu)
+    lstm = time_lstm(p_bf16, gpu)
+
+    # the fast step at serving size (kernels), every configuration
     steps = 24
-    for config, kw in CONFIGS.items():
-        st = inc.init_fast_state(cfg, B, bf, staged=True, device="cuda", **kw)
+    for config in STEP_CONFIGS:
+        init_kw, step_kw = config_kw(config)
+        st = inc.init_fast_state(cfg, B, bf, device="cuda", **init_kw)
         for f in range(steps + 4):
             if f == 4:
                 torch.cuda.synchronize()
                 t0 = time.time()
             st, o = inc.fast_step(p_bf16, st, frames[f % frames.shape[0]],
-                                  cfg, slots="staged", attend_impl="kernel",
-                                  conv_impl=kw.get("conv_impl", "conv"))
+                                  cfg, **step_kw)
         torch.cuda.synchronize()
         step_ms = (time.time() - t0) * 1e3 / steps
         streams = B * (1e3 / cfg.frame_hz) / step_ms
-        print(f"[d] fast staged step bf16 {config}, B={B}, kernels: "
-              f"{step_ms:.3f} ms/step (host clock, {steps} steps incl. 3 "
-              f"merges) -> {streams:.0f} realtime streams per card at "
-              f"{cfg.frame_hz} Hz | {gpu}", flush=True)
+        print(f"[d] fast {step_kw['slots']} step bf16 {config}, B={B}, "
+              f"kernels: {step_ms:.3f} ms/step (host clock, {steps} steps"
+              f"{' incl. 3 merges' if init_kw['staged'] else ''}) -> "
+              f"{streams:.0f} realtime streams per card at {cfg.frame_hz} "
+              f"Hz | {gpu}", flush=True)
         del st
         torch.cuda.empty_cache()
-    return bodies, dict(norm, bound_by="bytes", library_ms=None,
-                        layers=layers)
+    return (bodies, dict(norm, bound_by="bytes", library_ms=None,
+                         layers=layers), compact, fused, lstm)
 
 
-def phase_c(cfg, params_np, quant_cache=False, conv_impl="conv"):
-    """The native server on the card: 8 loopback connections.  Returns
-    (attend launches, channel_norm_relu launches) of the run."""
+def time_fused(p_bf16, frames, gpu) -> dict:
+    """K7 at the serving shape in bf16: ms per launch, its bound, the
+    plain version, and the `conv` and `normk` stacks over the same
+    frame (no single PyTorch call computes the stack)."""
+    from vap_realtime_tpu_torch.models.encoder import (
+        cpc_conv_stack_streaming, cpc_conv_stack_streaming_normk,
+    )
+    from vap_realtime_tpu_torch.ops.cuda.encoder import (
+        TAIL_KS, conv_stack_fused, conv_stack_fused_plain,
+        init_conv_stream_state_fused, pack_fused_params, tail_lens,
+    )
+    from vap_realtime_tpu_torch.profile_step import cuda_ms
+
+    bf = torch.bfloat16
+    N = 2 * B
+    enc = p_bf16["encoder"]
+    st = init_conv_stream_state_fused(N, dtype=bf, device="cuda")
+    new = frames[0].reshape(N, L_NEW)
+    w0, wts, aux = pack_fused_params(enc, bf)
+    args = (st["c0"][:, 0], new, tuple(st[f"c{i}"] for i in range(1, 5)),
+            w0, wts, aux)
+    ms = cuda_ms(lambda: conv_stack_fused(*args), reps=10, warm=2)
+    plain_ms = cuda_ms(lambda: conv_stack_fused_plain(*args), reps=3)
+    conv_ms = cuda_ms(lambda: cpc_conv_stack_streaming(enc, new, st), 10)
+    normk_ms = cuda_ms(lambda: cpc_conv_stack_streaming_normk(enc, new, st),
+                       10)
+    T0 = L_NEW // 5
+    flops = 2 * N * C * (T0 * 10 + sum(
+        t_out * k * C for (k, _), (_, t_out) in zip(TAIL_KS,
+                                                    tail_lens(T0))))
+    carry = (5 + sum(k - s for k, s in TAIL_KS) * C) * 2
+    nbytes = (N * (L_NEW * 2 + 2 * carry + 5 * C * 2)
+              + (w0.numel() + sum(w.numel() for w in wts)) * 2
+              + aux.numel() * 4)
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    print(f"[d] conv_stack_fused bf16 ({N} x {L_NEW}): {ms:.4f} ms/launch, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e12:.3f} TFLOP "
+          f"at 989 TFLOP/s bf16; {nbytes / 1e9:.3f} GB) = "
+          f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.4f} ms; "
+          f"no single PyTorch call: the conv stack (cuDNN convs + plain "
+          f"ChannelNorm) {conv_ms:.4f} ms, the normk stack {normk_ms:.4f} "
+          f"ms | {gpu}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, conv_stack_ms=conv_ms,
+                normk_stack_ms=normk_ms)
+
+
+def time_lstm(p_bf16, gpu) -> dict:
+    """K5 at (8192, 5, 256), bf16 gates and state (the encoder's dtype):
+    ms per launch, its bound, the plain version; lstm_fused (input
+    projection + scan) against torch.nn.LSTM on cuDNN over the same
+    problem (the yardstick; the port never calls it)."""
+    from vap_realtime_tpu_torch.ops.cuda.lstm import (
+        lstm_fused, lstm_scan, lstm_scan_plain,
+    )
+    from vap_realtime_tpu_torch.profile_step import cuda_ms
+
+    bf = torch.bfloat16
+    N, Hh, Tn = 2 * B, C, 5
+    g = p_bf16["encoder"]["lstm"]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(N, Tn, Hh, generator=gen, device="cuda").to(bf)
+    h0 = (0.1 * torch.randn(N, Hh, generator=gen, device="cuda")).to(bf)
+    c0 = (0.1 * torch.randn(N, Hh, generator=gen, device="cuda")).to(bf)
+    gi = torch.matmul(x, g["w_ih"].T) + g["b_ih"]
+    scan = (gi, h0, c0, g["w_hh"].T, g["b_hh"])
+    ms = cuda_ms(lambda: lstm_scan(*scan), reps=20, warm=3)
+    plain_ms = cuda_ms(lambda: lstm_scan_plain(*scan), reps=5)
+    fused_ms = cuda_ms(lambda: lstm_fused(x, h0, c0, g["w_ih"], g["w_hh"],
+                                          g["b_ih"], g["b_hh"]), reps=20)
+    net = torch.nn.LSTM(Hh, Hh, batch_first=True).to("cuda", bf)
+    with torch.no_grad():
+        for name, attr in (("w_ih", "weight_ih_l0"), ("w_hh", "weight_hh_l0"),
+                           ("b_ih", "bias_ih_l0"), ("b_hh", "bias_hh_l0")):
+            getattr(net, attr).copy_(g[name])
+        net.flatten_parameters()
+        lib = lambda: net(x, (h0[None], c0[None]))
+        library_ms = cuda_ms(lib, reps=20, warm=3)
+        d = (lib()[0].float()
+             - lstm_fused(x, h0, c0, g["w_ih"], g["w_hh"], g["b_ih"],
+                          g["b_hh"])[0].float()).abs().max().item()
+    flops = 2 * N * Tn * Hh * 4 * Hh
+    nbytes = (gi.numel() * 2 + 4 * N * Hh * 2 + Hh * 4 * Hh * 4 + 4 * Hh * 4
+              + N * Tn * Hh * 2)
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"[d] lstm_scan bf16 ({N}, {Tn}, {Hh}): {ms:.4f} ms/launch, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP at 67 "
+          f"TFLOP/s float32) = {100 * bound_ms / ms:.1f}% of bound; plain "
+          f"{plain_ms:.4f} ms; lstm_fused (projection + scan) "
+          f"{fused_ms:.4f} ms vs torch.nn.LSTM (cuDNN) {library_ms:.4f} ms "
+          f"(max |nn.LSTM - lstm_fused| {d:.3e}) | {gpu}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                lstm_fused_ms=fused_ms)
+
+
+def phase_c(cfg, params_np, config="bf16"):
+    """The native server on the card, with the arena of a configuration
+    (CONFIGS): 8 loopback connections.  Returns the kernels' launches
+    over the run."""
     from vap_realtime_tpu_torch.io import wire
-    from vap_realtime_tpu_torch.ops.cuda.attend import attend_pair
-    from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
     from vap_realtime_tpu_torch.runtime.arena import StreamArena
     from vap_realtime_tpu_torch.runtime.server_native import NativeVapServer
     from vap_realtime_tpu_torch.weights.synthetic import synthetic_audio
 
+    kw = CONFIGS[config]
     arena = StreamArena(cfg, params_np, capacity=SERVER_CAPACITY,
-                        dtype=torch.bfloat16, quant_cache=quant_cache,
-                        conv_impl=conv_impl, wire_dtype=np.int16,
-                        device="cuda")
+                        dtype=torch.bfloat16,
+                        quant_cache=kw.get("quant", False),
+                        conv_impl=kw.get("conv_impl", "conv"),
+                        slots=kw.get("slots", "staged"),
+                        attend_impl=kw.get("attend_impl", "kernel"),
+                        wire_dtype=np.int16, device="cuda")
     arena.warmup()
     srv = NativeVapServer(arena, port=0, wire_int16=True)
     n_conn, hops = 8, 100                            # 1 s of audio each
@@ -652,8 +1030,7 @@ def phase_c(cfg, params_np, quant_cache=False, conv_impl="conv"):
                 time.sleep(0.01)
             rd.join(timeout=30)
 
-    attend_pair.launches = 0                         # main path: zero ...
-    channel_norm_relu.launches = 0
+    zero_counts()                                    # main path: zero ...
     ticker = threading.Thread(target=srv.serve_forever)
     ticker.start()
     clients = [threading.Thread(target=client, args=(i,))
@@ -666,18 +1043,14 @@ def phase_c(cfg, params_np, quant_cache=False, conv_impl="conv"):
     finally:
         srv.stop()
         ticker.join(timeout=10)
-    launches = attend_pair.launches                  # ... and read
-    cn_launches = channel_norm_relu.launches
+    launches = counts()                              # ... and read
     check(not ticker.is_alive() and not any(c.is_alive() for c in clients),
           "server or client threads did not stop")
     ticks = srv.tick_stats["n"]
-    check(launches == 7 * ticks and launches > 0,
-          f"{launches} attend launches over {ticks} server ticks "
-          f"(expected 7 per tick)")
-    per_tick = 5 if conv_impl == "normk" else 0
-    check(cn_launches == per_tick * ticks,
-          f"{cn_launches} channel_norm_relu launches over {ticks} server "
-          f"ticks (expected {per_tick} per tick)")
+    want = {k: v * ticks for k, v in per_step(config).items()}
+    check(launches == want and ticks > 0,
+          f"{launches} launches over {ticks} server ticks (expected "
+          f"{per_step(config)} per tick)")
     shift = cfg.frame_shift
     skipped = 0
     for i, res in enumerate(results):
@@ -699,15 +1072,39 @@ def phase_c(cfg, params_np, quant_cache=False, conv_impl="conv"):
             check(pn.shape == (2,) and np.isfinite(pn).all()
                   and abs(pn.sum() - 1) < 2e-2,
                   f"connection {i} result {j}: p_now {pn}")
-    what = (f"quant_cache={quant_cache!r}, conv_impl={conv_impl!r}"
-            if quant_cache or conv_impl != "conv" else "bf16 cache")
-    print(f"[c] native server ({what}), capacity {SERVER_CAPACITY}, bf16, "
-          f"int16 wire: "
+    print(f"[c] native server ({config}: {kw or 'bf16 cache'}), capacity "
+          f"{SERVER_CAPACITY}, bf16, int16 wire: "
           f"{[len(r) for r in results]} results on {n_conn} connections "
-          f"({skipped} frames skipped), {ticks} ticks, {launches} attend "
-          f"launches (7 per tick), {cn_launches} channel_norm_relu launches "
-          f"({per_tick} per tick)", flush=True)
-    return launches, cn_launches
+          f"({skipped} frames skipped), {ticks} ticks, launches {launches} "
+          f"= {per_step(config)} per tick", flush=True)
+    return launches
+
+
+def phase_e(cfg, params_np) -> None:
+    """VapEngine(path="fast", conv_impl="fused") on the card: a few
+    process_batch calls of 64 streams in bf16; each runs one K7 and 7 K2
+    launches and gives finite probabilities."""
+    from vap_realtime_tpu_torch.runtime.engine import VapEngine
+
+    eng = VapEngine(cfg, params=params_np, path="fast", batch=64,
+                    dtype=torch.bfloat16, conv_impl="fused", device="cuda")
+    eng.warmup()
+    rs = np.random.RandomState(13)
+    zero_counts()
+    n = 4
+    for _ in range(n):
+        out = eng.process_batch(
+            (0.1 * rs.randn(64, 2, eng.chunk_samples)).astype(np.float32))
+        pn = out["p_now"]
+        check(pn.shape == (64, 2) and np.isfinite(pn).all()
+              and (np.abs(pn.sum(-1) - 1) < 2e-2).all(),
+              f"VapEngine p_now {pn[:2]}")
+    got = counts()
+    want = {k: v * n for k, v in per_step("fused").items()}
+    check(got == want, f"VapEngine launches {got}, expected {want}")
+    print(f"[c] VapEngine(path='fast', conv_impl='fused'), 64 streams, bf16: "
+          f"{n} process_batch calls, launches {got}, p_now finite and "
+          f"summing to 1", flush=True)
 
 
 def main() -> int:
@@ -729,26 +1126,45 @@ def main() -> int:
     err_main = phase_a()
     err_int8 = phase_a_int8()
     err_norm = phase_a_norm()
+    err_fused = phase_a_fused()
+    err_compact = phase_a_compact()
+    err_lstm = phase_a_lstm()
     cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
     params_np = synthetic_params(cfg.frame_hz)
     p_bf16, frames = phase_b(cfg, params_np)
-    bodies, norm = phase_d(cfg, p_bf16, frames, gpu)
+    bodies, norm, compact, fused, lstm = phase_d(cfg, p_bf16, frames, gpu)
     del p_bf16, frames
-    launches, _ = phase_c(cfg, params_np)
-    launches_q8g, cn_launches = phase_c(cfg, params_np, "global", "normk")
+    torch.cuda.empty_cache()
+    run_bf16 = phase_c(cfg, params_np, "bf16")
+    run_q8g = phase_c(cfg, params_np, "q8g_normk")
+    run_fused = phase_c(cfg, params_np, "fused_compact")
+    phase_e(cfg, params_np)
 
     print(gpu, flush=True)
+    src = "vap_realtime_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
-        dict(name="attend_pair", route="cuda",
-             source="vap_realtime_tpu_torch/csrc/attend_pair.cu",
+        dict(name="attend_pair", route="cuda", source=src + "attend_pair.cu",
              replaces="vap_realtime_tpu/ops/pallas/attend.py:454",
-             launches=launches + launches_q8g,
+             launches=run_bf16["attend"] + run_q8g["attend"],
              max_abs_err=max(err_main, err_int8),
              **bodies["K2 bf16 staged"], bodies=bodies),
         dict(name="channel_norm_relu", route="cuda",
-             source="vap_realtime_tpu_torch/csrc/channel_norm_relu.cu",
+             source=src + "channel_norm_relu.cu",
              replaces="vap_realtime_tpu/ops/pallas/channorm.py:43",
-             launches=cn_launches, max_abs_err=err_norm, **norm),
+             launches=run_q8g["norm"], max_abs_err=err_norm, **norm),
+        dict(name="attend_compact", route="cuda",
+             source=src + "attend_pair.cu",
+             replaces="vap_realtime_tpu/ops/pallas/attend.py:282",
+             launches=run_fused["compact"], max_abs_err=err_compact,
+             **compact["K10 bf16 ring"], bodies=compact),
+        dict(name="conv_stack_fused", route="cuda",
+             source=src + "conv_stack_fused.cu",
+             replaces="vap_realtime_tpu/ops/pallas/encoder.py:291",
+             launches=run_fused["fused"], max_abs_err=err_fused, **fused),
+        # off the serving path, as in the JAX package: 0 launches there
+        dict(name="lstm_scan", route="cuda", source=src + "lstm_scan.cu",
+             replaces="vap_realtime_tpu/ops/pallas/lstm.py:48",
+             launches=run_fused["lstm"], max_abs_err=err_lstm, **lstm),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -153,16 +153,38 @@ def test_fast_step_normk_matches_jax():
 
 
 @pytest.mark.parametrize("conv_impl", ["fused", "blocked", "nope"])
-def test_unported_conv_impl_raises(conv_impl):
-    """"fused" / "blocked" name the queue they wait in and never run
-    "conv" instead; an unknown name raises too."""
+def test_unported_conv_impl_raises(conv_impl, monkeypatch):
+    """Every conv_impl of the JAX package is ported now: "fused" and
+    "blocked" run their own stack and never the "conv" stack instead
+    (which raises here), with the same conv state layout; an unknown
+    name still raises."""
     tc = tcfg.VapConfig(**NARROW)
-    match = "K7" if conv_impl != "nope" else "not in"
-    with pytest.raises(ValueError, match=match):
-        tinc.init_fast_state(tc, 1, conv_impl=conv_impl)
-    st = tinc.init_fast_state(tc, 1)
     _, jp = _params()
-    with pytest.raises(ValueError, match=match):
-        tinc.fast_step(params_to_torch(jp), st,
-                       torch.zeros(1, 2, tc.frame_shift), tc,
-                       conv_impl=conv_impl)
+    tp = params_to_torch(jp)
+    new = torch.zeros(1, 2, tc.frame_shift)
+    if conv_impl == "nope":
+        with pytest.raises(ValueError, match="not in"):
+            tinc.init_fast_state(tc, 1, conv_impl=conv_impl)
+        with pytest.raises(ValueError, match="not in"):
+            tinc.fast_step(tp, tinc.init_fast_state(tc, 1), new, tc,
+                           conv_impl=conv_impl)
+        return
+    calls = []
+
+    def refuse(*args):
+        raise AssertionError("the conv stack ran")
+
+    def fused(params, x, state):
+        # the fused kernel is written for 256 channels: at this narrow
+        # width the call is recorded and served by the blocked stack
+        calls.append(tuple(x.shape))
+        return tenc.cpc_conv_stack_streaming_blocked(params, x, state)
+
+    monkeypatch.setattr(tenc, "cpc_conv_stack_streaming", refuse)
+    monkeypatch.setattr(tenc, "cpc_conv_stack_streaming_fused", fused)
+    st = tinc.init_fast_state(tc, 1, conv_impl=conv_impl)
+    layout = lambda s: {k: tuple(v.shape) for k, v in s.conv.items()}
+    assert layout(st) == layout(tinc.init_fast_state(tc, 1))
+    st, out = tinc.fast_step(tp, st, new, tc, conv_impl=conv_impl)
+    assert torch.isfinite(out["p_now"]).all()
+    assert calls == ([(2, tc.frame_shift)] if conv_impl == "fused" else [])

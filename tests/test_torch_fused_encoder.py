@@ -1,0 +1,267 @@
+"""PyTorch port: the fused conv stack (`conv_impl="fused"`, K7) and the
+blocked stack against the JAX package — the kernel's plain version
+against the TPU kernel (Pallas in interpret mode), the fused and blocked
+streaming stacks, the fast staged step and the arena with
+conv_impl="fused"."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vap_realtime_tpu import config as jcfg
+from vap_realtime_tpu.models import encoder as jenc
+from vap_realtime_tpu.models.vap import init_vap_params
+from vap_realtime_tpu.ops.pallas import encoder as jfused
+from vap_realtime_tpu.runtime import incremental as jinc
+from vap_realtime_tpu.runtime.arena import StreamArena as JaxArena
+from vap_realtime_tpu_torch import config as tcfg
+from vap_realtime_tpu_torch.models import encoder as tenc
+from vap_realtime_tpu_torch.ops.cuda import encoder as tfused
+from vap_realtime_tpu_torch.runtime import incremental as tinc
+from vap_realtime_tpu_torch.runtime.arena import StreamArena
+from vap_realtime_tpu_torch.weights.convert import params_to_torch
+
+# the fused kernel is written for the encoder's 256 channels; a short
+# context and one stereo layer keep the trunk small
+SMALL = dict(dim=256, encoder_dim=256, num_heads=4, frame_hz=20,
+             context_len_sec=1.0, cross_layers=1)
+T_ = torch.as_tensor
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Keep PyTorch to one CPU thread while this file runs: the suite runs
+    several files at once, and timing-sensitive socket tests share the
+    machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _params():
+    jc = jcfg.VapConfig(**SMALL)
+    init = jax.jit(init_vap_params, static_argnums=1)
+    return jc, jax.tree_util.tree_map(np.asarray,
+                                      init(jax.random.PRNGKey(4), jc))
+
+
+def _frames(n, f, seed):
+    rs = np.random.RandomState(seed)
+    return [(0.1 * rs.randn(n, 800)).astype(np.float32) for _ in range(f)]
+
+
+def _random_carries(n, seed, dtype=np.float32):
+    """Non-zero carries, so the first frame already reads them."""
+    rs = np.random.RandomState(seed)
+    st = {"c0": 0.1 * rs.randn(n, 1, 5)}
+    for i, (k, s) in enumerate(jfused.TAIL_KS, start=1):
+        st[f"c{i}"] = np.abs(rs.randn(n, k - s, 256))
+    return {k: v.astype(dtype) for k, v in st.items()}
+
+
+@pytest.mark.parametrize("mode", ["merge8", "taps20"])
+def test_fused_plain_matches_pallas_kernel_f32(mode):
+    """cpc_conv_stack_streaming_fused (CPU: the kernel's plain version)
+    against the TPU kernel in interpret mode, 3 frames with carried
+    state: features and every carry to atol 2e-5 (tests/test_pallas.py:
+    238-245)."""
+    _, jp = _params()
+    enc_j, enc_t = jp["encoder"], params_to_torch(jp["encoder"])
+    n = 4
+    st_np = _random_carries(n, 1)
+    st_j = {k: jnp.asarray(v) for k, v in st_np.items()}
+    st_t = {k: T_(v) for k, v in st_np.items()}
+    for f, new in enumerate(_frames(n, 3, 2)):
+        z_j, st_j = jfused.cpc_conv_stack_streaming_fused(
+            enc_j, jnp.asarray(new), st_j, mode=mode)
+        z_t, st_t = tfused.cpc_conv_stack_streaming_fused(enc_t, T_(new),
+                                                          st_t)
+        np.testing.assert_allclose(z_t.numpy(), np.asarray(z_j), atol=2e-5,
+                                   err_msg=f"{mode} features frame {f}")
+        for k in st_j:
+            np.testing.assert_allclose(st_t[k].numpy(), np.asarray(st_j[k]),
+                                       atol=2e-5, err_msg=f"{k} frame {f}")
+
+
+def test_fused_plain_matches_pallas_kernel_bf16():
+    """The same in bf16 (activations, carries and conv weights bf16; bias
+    and norm stats float32): both accumulate bf16 products in float32 and
+    round the same ops to bf16, so they differ only where float32 sums
+    taken in another order move a value across a bf16 rounding boundary,
+    and such a flip travels on through the later layers.  Held at atol
+    and rtol 2^-6 (two bf16 steps at 1); measured max |d| 2^-6 over
+    3 x 4 x 5 x 256 features (one bf16 step at a value in [2, 4)),
+    carries c0 exact."""
+    _, jp = _params()
+    enc_j = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.bfloat16),
+                                   jp["encoder"])
+    enc_t = params_to_torch(jp["encoder"], dtype=torch.bfloat16)
+    n = 4
+    st_np = _random_carries(n, 3)
+    st_j = {k: jnp.asarray(v, jnp.bfloat16) for k, v in st_np.items()}
+    st_t = {k: T_(v).to(torch.bfloat16) for k, v in st_np.items()}
+    for f, new in enumerate(_frames(n, 3, 4)):
+        z_j, st_j = jfused.cpc_conv_stack_streaming_fused(
+            enc_j, jnp.asarray(new, jnp.bfloat16), st_j)
+        z_t, st_t = tfused.cpc_conv_stack_streaming_fused(
+            enc_t, T_(new).to(torch.bfloat16), st_t)
+        assert z_t.dtype == torch.bfloat16
+        want = np.asarray(z_j.astype(jnp.float32))
+        np.testing.assert_allclose(z_t.float().numpy(), want, atol=2 ** -6,
+                                   rtol=2 ** -6, err_msg=f"frame {f}")
+        np.testing.assert_array_equal(
+            st_t["c0"].float().numpy(),
+            np.asarray(st_j["c0"].astype(jnp.float32)))
+        for k in ("c1", "c2", "c3", "c4"):
+            np.testing.assert_allclose(
+                st_t[k].float().numpy(),
+                np.asarray(st_j[k].astype(jnp.float32)), atol=2 ** -6,
+                rtol=2 ** -6, err_msg=f"{k} frame {f}")
+
+
+@pytest.mark.parametrize("impl", ["fused", "blocked"])
+def test_stack_matches_port_conv_stack_f32(impl):
+    """The fused and blocked stacks against the port's own `conv` stack in
+    float32, 3 frames with carries: features and carries to atol 2e-5."""
+    _, jp = _params()
+    enc = params_to_torch(jp["encoder"])
+    stack = {"fused": tfused.cpc_conv_stack_streaming_fused,
+             "blocked": tenc.cpc_conv_stack_streaming_blocked}[impl]
+    st_np = _random_carries(3, 5)
+    st_a = {k: T_(v) for k, v in st_np.items()}
+    st_b = {k: T_(v) for k, v in st_np.items()}
+    for f, new in enumerate(_frames(3, 3, 6)):
+        z_a, st_a = stack(enc, T_(new), st_a)
+        z_b, st_b = tenc.cpc_conv_stack_streaming(enc, T_(new), st_b)
+        np.testing.assert_allclose(z_a.numpy(), z_b.numpy(), atol=2e-5,
+                                   err_msg=f"{impl} frame {f}")
+        for k in st_b:
+            np.testing.assert_allclose(st_a[k].numpy(), st_b[k].numpy(),
+                                       atol=2e-5, err_msg=f"{k} frame {f}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blocked_matches_jax(dtype):
+    """cpc_conv_stack_streaming_blocked against the JAX function, 3
+    frames with carries.  float32: atol 1e-5.  bf16 (conv0 an NCW conv
+    rounded to bf16, the later matmuls float32-accumulated, the affine in
+    float32): atol and rtol 2^-6, as the fused bf16 check."""
+    _, jp = _params()
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = getattr(torch, dtype)
+    enc_j = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jd),
+                                   jp["encoder"])
+    enc_t = params_to_torch(jp["encoder"], dtype=td)
+    st_np = _random_carries(4, 7)
+    st_j = {k: jnp.asarray(v, jd) for k, v in st_np.items()}
+    st_t = {k: T_(v).to(td) for k, v in st_np.items()}
+    tol = dict(atol=1e-5) if dtype == "float32" else dict(atol=2 ** -6,
+                                                          rtol=2 ** -6)
+    for f, new in enumerate(_frames(4, 3, 8)):
+        z_j, st_j = jenc.cpc_conv_stack_streaming_blocked(
+            enc_j, jnp.asarray(new, jd), st_j)
+        z_t, st_t = tenc.cpc_conv_stack_streaming_blocked(
+            enc_t, T_(new).to(td), st_t)
+        assert z_t.dtype == td
+        np.testing.assert_allclose(
+            z_t.float().numpy(), np.asarray(z_j.astype(jnp.float32)),
+            err_msg=f"frame {f}", **tol)
+        for k in st_j:
+            np.testing.assert_allclose(
+                st_t[k].float().numpy(),
+                np.asarray(st_j[k].astype(jnp.float32)),
+                err_msg=f"{k} frame {f}", **tol)
+
+
+def test_fast_step_fused_matches_jax():
+    """fast_step(conv_impl="fused", slots="staged", attend_impl="kernel")
+    against JAX fast_step(conv_impl="fused", attend_impl="pallas"), both
+    TPU kernels in interpret mode, 12 frames past a merge with mixed
+    activity: p_now / p_future / vad to atol 1e-4, stamps equal, conv
+    carries to atol 1e-5."""
+    jc, jp = _params()
+    tc = tcfg.VapConfig(**SMALL)
+    tp = params_to_torch(jp)
+    Bs = 3
+    jstep = jax.jit(functools.partial(jinc.fast_step, cfg=jc, slots="staged",
+                                      attend_impl="pallas",
+                                      conv_impl="fused"))
+    js = jinc.init_fast_state(jc, Bs, staged=True, conv_impl="fused")
+    ts = tinc.init_fast_state(tc, Bs, staged=True, conv_impl="fused")
+    rs = np.random.RandomState(9)
+    for f in range(12):
+        new = (0.1 * rs.randn(Bs, 2, jc.frame_shift)).astype(np.float32)
+        act = np.array([True, f % 2 == 0, f % 3 != 0])
+        js, jo = jstep(jp, js, jnp.asarray(new), active=jnp.asarray(act))
+        ts, to = tinc.fast_step(tp, ts, T_(new), tc, T_(act), slots="staged",
+                                attend_impl="kernel", conv_impl="fused")
+        for k in ("p_now", "p_future", "vad"):
+            np.testing.assert_allclose(to[k].numpy(), np.asarray(jo[k]),
+                                       atol=1e-4, err_msg=f"{k} frame {f}")
+        np.testing.assert_array_equal(ts.kv.stamp.numpy(),
+                                      np.asarray(js.kv.stamp))
+        for k in js.conv:
+            np.testing.assert_allclose(ts.conv[k].numpy(),
+                                       np.asarray(js.conv[k]), atol=1e-5,
+                                       err_msg=f"{k} frame {f}")
+
+
+def test_arena_fused_matches_jax_arena():
+    """StreamArena(conv_impl="fused") against the JAX arena with the same
+    lifecycle (add, partial ticks, a slot reset): every served output to
+    atol 1e-4."""
+    jc, jp = _params()
+    ja = JaxArena(jc, jp, capacity=3, path="fast", attend_impl="pallas",
+                  conv_impl="fused")
+    ta = StreamArena(tcfg.VapConfig(**SMALL), jp, capacity=3, path="fast",
+                     conv_impl="fused", device="cpu")
+    ja.warmup()
+    ta.warmup()
+    slots = [ja.add_stream() for _ in range(2)]
+    assert [ta.add_stream() for _ in range(2)] == slots
+    rs = np.random.RandomState(10)
+    for tick in range(10):
+        if tick == 6:
+            ja.reset_slots([slots[1]])
+            ta.reset_slots([slots[1]])
+        feed = [s for i, s in enumerate(slots) if (tick + i) % 3 != 1]
+        chunks = {s: (0.1 * rs.randn(2, ta.chunk_samples))
+                  .astype(np.float32) for s in feed}
+        out_j, out_t = ja.step(chunks), ta.step(chunks)
+        for s in feed:
+            for k in ("p_now", "p_future", "vad"):
+                np.testing.assert_allclose(out_t[s][k], out_j[s][k],
+                                           atol=1e-4,
+                                           err_msg=f"{k} slot {s} tick {tick}")
+
+
+def test_wrapper_cpu_dispatch_and_checks():
+    """On CPU tensors the wrapper is the plain version and launches
+    nothing; any other non-CUDA device raises instead of falling back;
+    packed operands are cached per params and dtype."""
+    _, jp = _params()
+    enc = params_to_torch(jp["encoder"])
+    packed = tfused.pack_fused_params(enc, torch.float32)
+    assert tfused.pack_fused_params(enc, torch.float32) is packed
+    st = {k: T_(v) for k, v in _random_carries(2, 11).items()}
+    new = T_(_frames(2, 1, 12)[0])
+    args = (st["c0"][:, 0], new, tuple(st[f"c{i}"] for i in range(1, 5)),
+            *packed)
+    before = tfused.conv_stack_fused.launches
+    got, want = (tfused.conv_stack_fused(*args),
+                 tfused.conv_stack_fused_plain(*args))
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    assert tfused.conv_stack_fused.launches == before
+    meta = lambda t: t.to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfused.conv_stack_fused(meta(args[0]), meta(new),
+                                tuple(map(meta, args[2])),
+                                *map(meta, packed[:1]),
+                                tuple(map(meta, packed[1])), meta(packed[2]))

@@ -1,0 +1,84 @@
+"""PyTorch port: the fused LSTM scan (K5) against the JAX package — the
+kernel's plain version against the TPU kernel (`lstm_pallas`, Pallas in
+interpret mode) and against the port's own `ops.basic.lstm`."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vap_realtime_tpu.ops.pallas.lstm import lstm_pallas
+from vap_realtime_tpu_torch.ops.basic import lstm
+from vap_realtime_tpu_torch.ops.cuda.lstm import (
+    lstm_fused, lstm_scan, lstm_scan_plain,
+)
+
+T_ = torch.as_tensor
+
+
+def _inputs(seed=1, B=8, T=5, H=256):
+    """tests/test_pallas.py:46-56: x, h0, c0 ~ 0.1 N(0, 1), weights and
+    biases U(+-1/sqrt(H))."""
+    rs = np.random.RandomState(seed)
+    f = lambda *s: (0.1 * rs.randn(*s)).astype(np.float32)
+    u = lambda *s: rs.uniform(-1 / np.sqrt(H), 1 / np.sqrt(H),
+                              s).astype(np.float32)
+    return (f(B, T, H), f(B, H), f(B, H), u(4 * H, H), u(4 * H, H),
+            u(4 * H), u(4 * H))
+
+
+def test_lstm_fused_matches_pallas_and_basic():
+    """lstm_fused (CPU: the scan's plain version) against lstm_pallas in
+    interpret mode and against ops.basic.lstm, B=8, T=5, H=256: ys, h_T
+    and c_T to atol 1e-5 (tests/test_pallas.py:61-63)."""
+    args = _inputs()
+    want = lstm_pallas(*map(jnp.asarray, args), interpret=True)
+    got = lstm_fused(*map(T_, args))
+    ref = lstm(*map(T_, args))
+    for name, g, w, r in zip(("ys", "h_T", "c_T"), got, want, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   err_msg=f"{name} vs lstm_pallas")
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-5,
+                                   err_msg=f"{name} vs ops.basic.lstm")
+
+
+@pytest.mark.parametrize("gi_dtype,h_dtype", [("bfloat16", "bfloat16"),
+                                              ("bfloat16", "float32"),
+                                              ("float32", "bfloat16")])
+def test_scan_dtype_contract(gi_dtype, h_dtype):
+    """ys come out in gi's dtype, h_T and c_T in h0's, the math in float32
+    (the TPU kernel's contract): against lstm_scan in interpret mode on
+    the same bf16-rounded inputs, to one bf16 step (rtol 2^-7, atol
+    1e-5)."""
+    from vap_realtime_tpu.ops.pallas.lstm import lstm_scan as jax_scan
+
+    x, h0, c0, w_ih, w_hh, b_ih, b_hh = _inputs(seed=2)
+    gi = x @ w_ih.T + b_ih
+    gd, hd = getattr(torch, gi_dtype), getattr(torch, h_dtype)
+    jd = {"bfloat16": jnp.bfloat16, "float32": jnp.float32}
+    got = lstm_scan(T_(gi).to(gd), T_(h0).to(hd), T_(c0).to(hd),
+                    T_(w_hh).T, T_(b_hh))
+    want = jax_scan(jnp.asarray(gi, jd[gi_dtype]),
+                    jnp.asarray(h0, jd[h_dtype]),
+                    jnp.asarray(c0, jd[h_dtype]), jnp.asarray(w_hh).T,
+                    jnp.asarray(b_hh), interpret=True)
+    assert [t.dtype for t in got] == [gd, hd, hd]
+    for name, g, w in zip(("ys", "h_T", "c_T"), got, want):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)),
+                                   rtol=2 ** -7, atol=1e-5, err_msg=name)
+
+
+def test_wrapper_cpu_dispatch_and_checks():
+    """On CPU tensors the wrapper is the plain version and launches
+    nothing; any other non-CUDA device raises instead of falling back."""
+    x, h0, c0, w_ih, w_hh, b_ih, b_hh = map(T_, _inputs(seed=3, B=3))
+    gi = x @ w_ih.T + b_ih
+    before = lstm_scan.launches
+    for a, b in zip(lstm_scan(gi, h0, c0, w_hh.T, b_hh),
+                    lstm_scan_plain(gi, h0, c0, w_hh.T, b_hh)):
+        assert torch.equal(a, b)
+    assert lstm_scan.launches == before
+    m = lambda t: t.to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        lstm_scan(m(gi), m(h0), m(c0), m(w_hh.T), m(b_hh))

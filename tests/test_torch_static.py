@@ -29,6 +29,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+def test_every_port_module_is_scanned():
+    """The scan reaches each kernel wrapper and runtime module, those of
+    the fused encoder, LSTM scan and engine included."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    pkg = "vap_realtime_tpu_torch/"
+    for mod in ("ops/cuda/attend.py", "ops/cuda/channorm.py",
+                "ops/cuda/encoder.py", "ops/cuda/lstm.py",
+                "models/encoder.py", "runtime/incremental.py",
+                "runtime/arena.py", "runtime/engine.py",
+                "runtime/server_native.py", "profile_step.py"):
+        assert pkg + mod in rel, mod
+
+
 def test_forbidden_pattern():
     for line in ("import jax", "import jax.numpy as jnp",
                  "from vap_realtime_tpu.config import VapConfig",

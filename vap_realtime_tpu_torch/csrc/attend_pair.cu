@@ -8,9 +8,29 @@
 //      frozen per-stream scales are folded into q, k_cur, v_cur and the
 //      output by the caller, so the body is K1/K2 on code values);
 //   K4 `_kernel_pair_q` / `_kernel_pair_stq`: an int8 cache and stage with
-//      one float32 scale per row (quant="row").
+//      one float32 scale per row (quant="row");
+// and, as a second kernel, the compact body K10 (`impl="compact"`,
+// `_kernel_pair_c`:282 and `_kernel_pair_cq`:296, math
+// `_attend_math_compact`:201; attend_impl "pallas3", the port's "kernel3").
 //
-// What it computes, for stream b, twin set s, phase p (one block each):
+// K10, ring rows only, float / int8 caches (codes under the caller's
+// frozen-scale fold, or with row scales):
+//   q'    = q / sqrt(D)                             (prescaled by the caller)
+//   s_r   = sum_{d in head h} k_r,d q'_d (* sc_r) - age_r * m_h,
+//   s_cur = sum_{d in head h} kc_d q'_d,            m_h = 2^(-8(h+1)/H)
+//   mx    = max(max_r s_r, s_cur)
+//   w_r   = exp(s_r - mx),  w_cur = exp(s_cur - mx)
+//   out   = (sum_r w_r sc_r v_r + w_cur v_cur) / (sum_r w_r + w_cur)
+// in natural-log units, the max-shifted softmax of the TPU body; the
+// denominator sums the unscaled weights.  A one-pass kernel cannot know
+// the max in advance, so each row group keeps an ONLINE state (running
+// max, denominator and value sums, rescaled by exp(old - new max) when the
+// max grows), started at the current position (max s_cur, weight 1), and
+// the row groups of a warp merge their states at their common max.  DEAD
+// rows (age 1e9) give exp(-3.9e6 - mx) = 0 exactly, so all-DEAD rows give
+// v_cur exactly.  Loads, lanes and row groups are those of K1-K4.
+//
+// K1-K4 compute, for stream b, twin set s, phase p (one block each):
 //   q'    = q * log2(e) / sqrt(D)                  (prescaled by the caller)
 //   K1-K3: arg_r = sum_{d in head h} (k_r,d - kc_d) q'_d - age_r * m_h
 //   K4:    arg_r = sc_r * sum_h k_r,d q'_d - age_r * m_h - sum_h kc_d q'_d
@@ -45,7 +65,8 @@
 //
 // Bound on the H100 (3.35 TB/s HBM): memory.  At B=4096, T=50, S=8 one
 // launch must read the phase plane and the stage slice once: bf16 419 +
-// 67 MB (~0.15 ms); int8 210 + 34 MB plus the row scales (~0.078 ms).  The
+// 67 MB (~0.15 ms); int8 210 + 34 MB plus the row scales (~0.078 ms); K10
+// reads the phase plane only (bf16 ~0.13 ms, int8 ~0.068 ms).  The
 // FLOPs (~6 per element) are negligible.  Reaching that bound (TMA bulk
 // copies, deeper pipelining) is later work; chip_smoke.py measures how
 // far this version is from it.
@@ -312,6 +333,161 @@ __global__ void attend_pair_kernel(const Args a) {
   }
 }
 
+// --- K10: the compact body (max-shifted softmax, ring rows only) -------
+
+// Online softmax state of one lane's row group: the running max m, the
+// denominator d of weights exp(s - m), and the V output accumulators.
+template <int V>
+struct AccC {
+  float m, d, o[V];
+};
+
+// Rescales `acc` to the max mn; exp(-inf - -inf) never occurs: a state
+// already at mn keeps its scale 1.
+template <int V>
+__device__ __forceinline__ void rescale(AccC<V>& acc, float mn) {
+  const float corr = acc.m == mn ? 1.f : expf(acc.m - mn);
+  acc.d *= corr;
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc.o[i] *= corr;
+  acc.m = mn;
+}
+
+// Folds ring rows [0, n) into `acc` (row group g takes rows g, g + R, ...):
+// s_r = sum_{head} k_r,d q_d (* sc_r) - age_r m_h, natural-log units;
+// w_r = exp(s_r - max); d += w_r; o += w_r sc_r v_r.
+template <typename C, int V, bool kScale>
+__device__ __forceinline__ void fold_rows_compact(AccC<V>& acc,
+                                                  const Rows<C>& rows, int D,
+                                                  int group, const float* q,
+                                                  float m) {
+  constexpr int L = kDh / V;
+  constexpr int R = 32 / L;
+  for (int r0 = 0; r0 < rows.n; r0 += kUnroll * R) {
+    float kk[kUnroll][V], vv[kUnroll][V];
+    float ag[kUnroll], sc[kUnroll];
+    bool ok[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int r = r0 + u * R + group;
+      ok[u] = r < rows.n;
+      if (ok[u]) {
+        const C* row = rows.k + static_cast<size_t>(r) * rows.stride;
+        Vec<C, V>::load(row, kk[u]);
+        Vec<C, V>::load(row + D, vv[u]);
+        ag[u] = rows.ages[static_cast<size_t>(r) * rows.age_stride];
+        sc[u] = kScale ? rows.scales[static_cast<size_t>(r) *
+                                     rows.scale_stride]
+                       : 1.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) kk[u][i] = vv[u][i] = 0.f;
+        ag[u] = kDead;
+        sc[u] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float p = 0.f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) p = fmaf(kk[u][i], q[i], p);
+      p = group_sum<L>(p);  // every lane of the warp takes part
+      if (!ok[u]) continue;
+      if constexpr (kScale) p *= sc[u];
+      const float s = p - ag[u] * m;
+      if (s > acc.m) rescale(acc, s);
+      float w = expf(s - acc.m);
+      acc.d += w;
+      if constexpr (kScale) w *= sc[u];  // dequantise the value
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc.o[i] = fmaf(w, vv[u][i], acc.o[i]);
+    }
+  }
+}
+
+// grid: 2*B blocks (block = b*2 + s); block: 32*H threads.  Ring rows
+// only (the compact body has no staged form).
+template <typename Q, typename C, bool kScale>
+__global__ void attend_compact_kernel(const Args a) {
+  constexpr int V = sizeof(C) == 1 ? 4 : 2;
+  constexpr int L = kDh / V;
+  const int b = blockIdx.x >> 1;
+  const int s = blockIdx.x & 1;
+  const int h = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int group = lane / L;
+  const int D = a.D;
+  const int d = h * kDh + V * (lane % L);
+  const size_t D4 = 4 * static_cast<size_t>(D);
+
+  const size_t io = (static_cast<size_t>(b) * 2 + s) * D + d;
+  float qv[V], kcv[V], vcv[V];
+  Vec<Q, V>::load(static_cast<const Q*>(a.q) + io, qv);
+  Vec<Q, V>::load(static_cast<const Q*>(a.k_cur) + io, kcv);
+  Vec<Q, V>::load(static_cast<const Q*>(a.v_cur) + io, vcv);
+  const float m = exp2f(-8.f * static_cast<float>(h + 1) / a.H);
+  float s_cur = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) s_cur = fmaf(kcv[i], qv[i], s_cur);
+  s_cur = group_sum<L>(s_cur);
+
+  // the current position (weight exp(s_cur - m) = 1 at m = s_cur) is
+  // counted by row group 0; the other groups start empty
+  AccC<V> acc;
+  acc.m = group == 0 ? s_cur : __int_as_float(0xff800000);  // -inf
+  acc.d = group == 0 ? 1.f : 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc.o[i] = group == 0 ? vcv[i] : 0.f;
+
+  const C* cache = static_cast<const C*>(a.cache);
+  Rows<C> ring{cache + (static_cast<size_t>(b) * a.P + a.phase) * a.T * D4 +
+                   2 * static_cast<size_t>(s) * D + d,
+               D4,
+               a.age + static_cast<size_t>(b) * a.T,
+               1,
+               kScale ? a.scale + b * a.scale_b : nullptr,
+               1,
+               a.T};
+  fold_rows_compact<C, V, kScale>(acc, ring, D, group, qv, m);
+
+  // combine the row groups of the warp at their common max
+#pragma unroll
+  for (int o = L; o < 32; o <<= 1) {
+    AccC<V> other;
+    other.m = __shfl_xor_sync(0xffffffffu, acc.m, o);
+    other.d = __shfl_xor_sync(0xffffffffu, acc.d, o);
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      other.o[i] = __shfl_xor_sync(0xffffffffu, acc.o[i], o);
+    const float mn = fmaxf(acc.m, other.m);
+    rescale(acc, mn);
+    rescale(other, mn);
+    acc.d += other.d;
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc.o[i] += other.o[i];
+  }
+  if (group == 0) {
+    float out[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = acc.o[i] / acc.d;
+    Vec<Q, V>::store(static_cast<Q*>(a.out) + io, out);
+  }
+}
+
+template <typename Q, typename C, bool kScale>
+int launch_compact(const Args& a, cudaStream_t stream) {
+  attend_compact_kernel<Q, C, kScale><<<2 * a.B, 32 * a.H, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Q>
+int dispatch_compact(int cache_dtype, const Args& a, cudaStream_t stream) {
+  if (cache_dtype == 2)
+    return a.scale != nullptr ? launch_compact<Q, int8_t, true>(a, stream)
+                              : launch_compact<Q, int8_t, false>(a, stream);
+  return launch_compact<Q, Q, false>(a, stream);
+}
+
 template <typename Q, typename C, bool kScale>
 int launch(const Args& a, cudaStream_t stream) {
   attend_pair_kernel<Q, C, kScale><<<2 * a.B, 32 * a.H, 0, stream>>>(a);
@@ -359,4 +535,29 @@ extern "C" int attend_pair_launch(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? dispatch<float>(cache_dtype, a, st)
                     : dispatch<__nv_bfloat16>(cache_dtype, a, st);
+}
+
+// The compact body (K10, `_kernel_pair_c` / `_kernel_pair_cq`): the same
+// arguments as attend_pair_launch without a stage; q prescaled by
+// 1/sqrt(D) only (natural-log units).  Returns the launch's cudaError_t.
+extern "C" int attend_compact_launch(int dtype, int cache_dtype,
+                                     const void* cache, const void* q,
+                                     const void* k_cur, const void* v_cur,
+                                     const float* age, const float* scale,
+                                     long long scale_b, void* out, int B,
+                                     int P, int T_rows, int D, int H,
+                                     int phase, void* stream) {
+  if (H <= 0 || H > 32 || D != kDh * H || B <= 0 || T_rows <= 0 ||
+      phase < 0 || phase >= P || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool int8 = cache_dtype == 2;
+  if ((!int8 && cache_dtype != dtype) || (scale != nullptr && !int8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{cache,   q,       k_cur,   v_cur,   age,
+               scale,   scale_b, nullptr, nullptr, nullptr,
+               0,       0,       out,     B,       P,
+               T_rows,  D,       H,       0,       phase};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? dispatch_compact<float>(cache_dtype, a, st)
+                    : dispatch_compact<__nv_bfloat16>(cache_dtype, a, st);
 }

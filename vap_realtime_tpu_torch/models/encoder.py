@@ -13,7 +13,10 @@ a (k - s) zero left pad per layer (`encode_sequence_streaming_oracle`).
 Carries are channels-last, (B, k-s, C) for conv1-4 and (B, 1, 5) for
 conv0, as in the JAX package.  `conv_impl="normk"` runs the ChannelNorm +
 ReLU between the convs through the one-pass kernel
-(ops/cuda/channorm.py) with the same numerics and state.
+(ops/cuda/channorm.py) with the same numerics and state;
+`conv_impl="fused"` runs the whole stack in one kernel
+(ops/cuda/encoder.py), and `"blocked"` is the channels-last stride-block
+matmul form in plain PyTorch; all four share one state layout.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ from vap_realtime_tpu_torch.ops.basic import (
     channel_norm, conv1d, gelu, layer_norm, lstm,
 )
 from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
+from vap_realtime_tpu_torch.ops.cuda.encoder import (
+    cpc_conv_stack_streaming_fused,
+)
 
 # (kernel, stride, padding) for the 5 CPC convs
 # (reference: encoder_components.py:83-92).
@@ -34,19 +40,16 @@ CPC_CONV_CARRY = tuple(k - s for k, s, _ in CPC_CONV_SPECS)  # (5,4,2,2,2)
 
 Params = Dict[str, Any]
 
-# conv_impl of the JAX package that the port has: "conv" (PyTorch convs,
-# plain ChannelNorm) and "normk" (the ChannelNorm+ReLU kernel)
-CONV_IMPLS = ("conv", "normk")
+# conv_impl of the JAX package: "conv" (PyTorch convs, plain
+# ChannelNorm), "normk" (the ChannelNorm+ReLU kernel between the convs),
+# "fused" (the whole stack in one kernel) and "blocked" (stride-block
+# matmuls, plain PyTorch)
+CONV_IMPLS = ("conv", "normk", "fused", "blocked")
 
 
 def check_conv_impl(conv_impl: str) -> None:
-    """Raises for a conv_impl the port does not have, naming where it
-    waits; never substitutes another implementation."""
-    if conv_impl in ("fused", "blocked"):
-        raise ValueError(
-            f"conv_impl={conv_impl!r} is not ported yet: it waits for the "
-            f"whole-stack encoder kernel (ROADMAP.md Queue 2, K7); use "
-            f"one of {CONV_IMPLS}")
+    """Raises for a conv_impl the port does not have; never substitutes
+    another implementation."""
     if conv_impl not in CONV_IMPLS:
         raise ValueError(f"conv_impl {conv_impl!r} not in {CONV_IMPLS}")
 
@@ -105,6 +108,53 @@ def cpc_conv_stack_streaming_normk(params: Params, new: torch.Tensor,
     return cpc_conv_stack_streaming(params, new, state, channel_norm_relu)
 
 
+def cpc_conv_stack_streaming_blocked(params: Params, new: torch.Tensor,
+                                     state: Params):
+    """Seamless strided conv over the NEW samples in the channels-last
+    stride-block matmul form (the JAX package's
+    `cpc_conv_stack_streaming_blocked`): conv0 stays an NCW conv; every
+    later conv (kernel = 2 * stride) is two (s*C_in, C_out) matmuls over
+    adjacent stride blocks, float32-accumulated, with a float32 bias.
+    Unlike the fused kernel, the ChannelNorm affine runs in float32 and
+    the result is cast to the activation dtype after the ReLU.  Same state
+    as `cpc_conv_stack_streaming`."""
+    f32 = torch.float32
+    dt = new.dtype
+
+    def norm_relu_last(y, n):
+        # single-stats-pass unbiased ChannelNorm over the last axis
+        C = y.shape[-1]
+        s1 = y.sum(-1, keepdim=True)
+        s2 = y.square().sum(-1, keepdim=True)
+        mean = s1 / C
+        var = torch.clamp((s2 - C * mean.square()) / (C - 1), min=0.0)
+        y = (y - mean) * torch.rsqrt(var + 1e-5)
+        return torch.relu(y * n["w"][:, 0].float() + n["b"][:, 0].float())
+
+    new_state: Params = {}
+    k0, s0, _ = CPC_CONV_SPECS[0]
+    xc0 = torch.cat([state["c0"].to(dt), new[:, None, :]], dim=-1)
+    new_state["c0"] = xc0[..., xc0.shape[-1] - (k0 - s0):].clone()
+    c0, n0 = params["conv0"], params["norm0"]
+    y0 = conv1d(xc0, c0["w"], c0["b"], stride=s0, padding=0)
+    x = norm_relu_last(y0.transpose(1, 2).to(f32), n0).to(dt)
+    for i, (k, s, _pad) in enumerate(CPC_CONV_SPECS[1:], start=1):
+        xc = torch.cat([state[f"c{i}"].to(x.dtype), x], dim=1)
+        new_state[f"c{i}"] = xc[:, xc.shape[1] - (k - s):].contiguous()
+        B, L, Cin = xc.shape
+        n_blk = L // s
+        xb = xc[:, :n_blk * s].reshape(B * n_blk, s * Cin).to(f32)
+        c, n = params[f"conv{i}"], params[f"norm{i}"]
+        wt = c["w"].permute(2, 1, 0)                      # (K, C_in, C_out)
+        w0 = wt[:s].reshape(s * Cin, -1).to(f32)
+        w1 = wt[s:].reshape(s * Cin, -1).to(f32)
+        z0 = (xb @ w0).reshape(B, n_blk, -1)
+        z1 = (xb @ w1).reshape(B, n_blk, -1)
+        y = z0[:, :n_blk - 1] + z1[:, 1:] + c["b"].to(f32)
+        x = norm_relu_last(y, n).to(xc.dtype)
+    return x, new_state
+
+
 def cpc_context(params: Params, z: torch.Tensor, h0: torch.Tensor,
                 c0: torch.Tensor):
     """LSTM context network over (B, T, C); returns (y, h_T, c_T)."""
@@ -130,12 +180,15 @@ def encode_chunk_streaming(params: Params, new: torch.Tensor,
     """Fast-path chunk encoder over ONLY the frame's fresh samples.
 
     new: (B, 16000//frame_hz); h0, c0: (B, C) LSTM state.  conv_impl:
-    "conv" or "normk" (see CONV_IMPLS; "fused" and "blocked" raise).
+    one of CONV_IMPLS ("fused": the whole-stack kernel, whose results in
+    bf16 are more precise than the "conv" path's; see ops/cuda/encoder.py).
     Returns (emb (B, C), new_conv_state, h_new, c_new).
     """
     check_conv_impl(conv_impl)
-    stack = (cpc_conv_stack_streaming_normk if conv_impl == "normk"
-             else cpc_conv_stack_streaming)
+    stack = {"normk": cpc_conv_stack_streaming_normk,
+             "fused": cpc_conv_stack_streaming_fused,
+             "blocked": cpc_conv_stack_streaming_blocked,
+             }.get(conv_impl, cpc_conv_stack_streaming)
     z, conv_state = stack(params, new, conv_state)
     y, h_new, c_new = cpc_context(params, z, h0, c0)
     e = downsample(params, y, downsample_kernel)

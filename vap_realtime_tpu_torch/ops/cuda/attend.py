@@ -7,7 +7,10 @@ step reaches: the float bodies `_kernel_pair` (K1, ring rows only,
 the `slots="staged"` serving default); the same bodies on int8 codes (K3,
 `quant="global"`: the frozen scales are folded into q, k_cur, v_cur and
 the output by the caller); and the per-row-scale bodies `_kernel_pair_q`
-/ `_kernel_pair_stq` (K4, `quant="row"`).  The kernel is
+/ `_kernel_pair_stq` (K4, `quant="row"`).  With `impl="compact"` it
+replaces the compact bodies `_kernel_pair_c` / `_kernel_pair_cq` (K10,
+`attend_impl="pallas3"`, the port's `"kernel3"`): a max-shifted softmax
+over the ring rows only.  The kernels are in
 `vap_realtime_tpu_torch/csrc/attend_pair.cu`, hand-written for Hopper;
 see its header for the design.
 
@@ -18,7 +21,8 @@ int8 ~0.25 GB (~0.078 ms); 7 launches per serving step.
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs `attend_pair_plain`, the same math in plain PyTorch (the
 CPU tests use it; chip_smoke.py holds the kernel against it on the card).
-`attend_pair.launches` counts kernel launches.
+`attend_pair.launches` counts the launches of the K1-K4 kernel,
+`attend_pair.compact_launches` those of K10.
 """
 
 from __future__ import annotations
@@ -38,19 +42,21 @@ LOG2E = 1.4426950408889634  # scores are kept in log2 units (exp2)
 Tensor = torch.Tensor
 
 
-def _prescale(q2: Tensor) -> Tensor:
-    """Fold the 1/sqrt(D) score scale and the exp -> exp2 factor into q,
-    with the factor rounded to q's dtype first (as the TPU kernel's
-    wrapper does).  A Python scalar: no host-to-device copy."""
-    c = LOG2E / math.sqrt(q2.shape[-1])
+def _prescale(q2: Tensor, impl: str = "bcast") -> Tensor:
+    """Fold the 1/sqrt(D) score scale and, for the bcast body's exp2
+    softmax, the exp -> exp2 factor into q, with the factor rounded to q's
+    dtype first (as the TPU kernel's wrapper does).  A Python scalar: no
+    host-to-device copy."""
+    c = (1.0 if impl == "compact" else LOG2E) / math.sqrt(q2.shape[-1])
     return q2 * torch.tensor(c, dtype=q2.dtype).item()
 
 
-def _slopes(H: int, device) -> Tensor:
-    """Per-head AliBi slope in log2 units, m_h = 2^(-8(h+1)/H) * log2(e)
-    (closed form for power-of-2 H, as in the TPU kernel)."""
+def _slopes(H: int, device, unit: float = LOG2E) -> Tensor:
+    """Per-head AliBi slope m_h = 2^(-8(h+1)/H) * unit: log2 units by
+    default, natural-log units with unit=1 (closed form for power-of-2 H,
+    as in the TPU kernel)."""
     h = torch.arange(H, dtype=torch.float32, device=device)
-    return torch.exp2(-8.0 * (h + 1.0) / H) * LOG2E
+    return torch.exp2(-8.0 * (h + 1.0) / H) * unit
 
 
 def _fold(k: Tensor, v: Tensor, q: Tensor, kc: Tensor, age: Tensor,
@@ -78,13 +84,59 @@ def _fold(k: Tensor, v: Tensor, q: Tensor, kc: Tensor, age: Tensor,
     return denom, out
 
 
+IMPLS = ("bcast", "compact")
+
+
+def _compact_plain(cache: Tensor, q2: Tensor, k_cur2: Tensor, v_cur2: Tensor,
+                   age: Tensor, scale: Optional[Tensor], pair_base: int,
+                   H: int) -> Tensor:
+    """The compact body (K10) in plain PyTorch, with the rounding points
+    of the TPU kernel's `_attend_math_compact` (ops/pallas/attend.py:201):
+    q prescaled by 1/sqrt(D) rounded to q's dtype; codes cast to q's
+    dtype; k * q in that dtype; per-head sums in float32, times the row
+    scale; minus age * m_h (natural-log units); the softmax shifted by
+    max(max_t s, s_cur); the denominator over the unscaled weights, the
+    row scale folded into the weights after it; w / denom and w_cur /
+    denom cast to v's dtype and weighted with v and v_cur in float32."""
+    B, P, T, D4 = cache.shape
+    D = q2.shape[-1]
+    Dh = D // H
+    ph = pair_base // 2
+    dtype = q2.dtype
+    q2 = _prescale(q2, "compact")
+    m = _slopes(H, cache.device, 1.0)                       # (H,)
+    outs = []
+    for s in range(2):
+        q, kc, vc = q2[:, s], k_cur2[:, s], v_cur2[:, s]
+        k = cache[:, ph, :, 2 * s * D:(2 * s + 1) * D].to(dtype)
+        v = cache[:, ph, :, (2 * s + 1) * D:(2 * s + 2) * D].to(dtype)
+        sc = (k * q[:, None]).float().view(B, T, H, Dh).sum(-1)  # (B, T, H)
+        if scale is not None:
+            sc = sc * scale[..., None]
+        sc = sc - age[..., None] * m
+        s_cur = (kc * q).float().view(B, H, Dh).sum(-1)          # (B, H)
+        mx = torch.maximum(sc.amax(1), s_cur)
+        w = torch.exp(sc - mx[:, None])
+        w_cur = torch.exp(s_cur - mx)
+        denom = w.sum(1) + w_cur
+        if scale is not None:
+            w = w * scale[..., None]
+        w = (w / denom[:, None]).to(dtype).float()
+        w_cur = (w_cur / denom).to(dtype).float()
+        out = (w[..., None] * v.float().view(B, T, H, Dh)).sum(1)
+        out = out + w_cur[..., None] * vc.float().view(B, H, Dh)
+        outs.append(out.reshape(B, D).to(dtype))
+    return torch.stack(outs, dim=1)
+
+
 def attend_pair_plain(cache: Tensor, q2: Tensor, k_cur2: Tensor,
                       v_cur2: Tensor, age: Tensor,
                       stage: Optional[Tensor] = None,
                       stage_age: Optional[Tensor] = None, *,
                       scale: Optional[Tensor] = None,
                       stage_scale: Optional[Tensor] = None,
-                      pair_base: int, num_heads: int = 4) -> Tensor:
+                      pair_base: int, num_heads: int = 4,
+                      impl: str = "bcast") -> Tensor:
     """Plain PyTorch version of the kernel: the v4 softmax of the TPU
     kernel's `_attend_math` (ops/pallas/attend.py:55), with its rounding
     points — cache codes cast to q's dtype, `(k - kc) * q` (or, with row
@@ -98,8 +150,13 @@ def attend_pair_plain(cache: Tensor, q2: Tensor, k_cur2: Tensor,
     stage_age (S, B) float32 for the staged slot policy, or None.  scale
     (B, T) and stage_scale (S, B) float32: the per-row dequant scales of
     THIS phase (int8 cache, quant="row"), or None.  Returns (B, 2, D) in
-    q's dtype.
+    q's dtype.  impl="compact": the compact body (`_compact_plain`), ring
+    rows only.
     """
+    _check_impl(impl, stage)
+    if impl == "compact":
+        return _compact_plain(cache, q2, k_cur2, v_cur2, age, scale,
+                              pair_base, num_heads)
     B, P, T, D4 = cache.shape
     D = q2.shape[-1]
     H = num_heads
@@ -141,6 +198,9 @@ def _lib() -> ctypes.CDLL:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [I, I, P, P, P, P, P, P, L, P, P, P, L, L, P,
                    I, I, I, I, I, I, I, P]
+    fc = lib.attend_compact_launch
+    fc.restype = ctypes.c_int
+    fc.argtypes = [I, I, P, P, P, P, P, P, L, P, I, I, I, I, I, I, P]
     return lib
 
 
@@ -149,12 +209,19 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"attend_pair: {msg}")
 
 
+def _check_impl(impl: str, stage: Optional[Tensor]) -> None:
+    _check(impl in IMPLS, f"impl {impl!r} not in {IMPLS}")
+    _check(impl == "bcast" or stage is None,
+           "staged rows: the bcast body only (the compact body has no "
+           "staged form)")
+
+
 def attend_pair(cache: Tensor, q2: Tensor, k_cur2: Tensor, v_cur2: Tensor,
                 age: Tensor, stage: Optional[Tensor] = None,
                 stage_age: Optional[Tensor] = None, *,
                 scale: Optional[Tensor] = None,
                 stage_scale: Optional[Tensor] = None, pair_base: int,
-                num_heads: int = 4) -> Tensor:
+                num_heads: int = 4, impl: str = "bcast") -> Tensor:
     """TWO single-query attentions (the twin channels / towers of one
     layer phase) over ONE contiguous cache plane, in one launch.
 
@@ -167,13 +234,16 @@ def attend_pair(cache: Tensor, q2: Tensor, k_cur2: Tensor, v_cur2: Tensor,
     may be strided views (the last dim of `scale` contiguous).  Stage ages
     are (S, B) float32 (the TPU kernel took them lane-broadcast in the
     state dtype, a Mosaic layout constraint).  Ages and liveness are
-    computed by the caller.
+    computed by the caller.  impl="compact" launches the compact body
+    (K10): ring rows only, a stage raises.
     """
+    _check_impl(impl, stage)
     if cache.device.type == "cpu":
         return attend_pair_plain(cache, q2, k_cur2, v_cur2, age, stage,
                                  stage_age, scale=scale,
                                  stage_scale=stage_scale,
-                                 pair_base=pair_base, num_heads=num_heads)
+                                 pair_base=pair_base, num_heads=num_heads,
+                                 impl=impl)
     _check(cache.device.type == "cuda",
            f"unsupported device {cache.device}")
     B, P, T, D4 = cache.shape
@@ -225,9 +295,22 @@ def attend_pair(cache: Tensor, q2: Tensor, k_cur2: Tensor, v_cur2: Tensor,
             strides[1:] = stage_scale.stride()
     else:
         _check(stage_scale is None, "stage_scale needs scale")
-    q2 = _prescale(q2)
     out = torch.empty((B, 2, D), dtype=dtype, device=cache.device)
     ptr = lambda t: None if t is None else t.data_ptr()
+    q2 = _prescale(q2, impl)
+    if impl == "compact":
+        with torch.cuda.device(cache.device):
+            rc = _lib().attend_compact_launch(
+                _DTYPES[dtype], _INT8 if int8 else _DTYPES[dtype],
+                cache.data_ptr(), q2.data_ptr(), k_cur2.data_ptr(),
+                v_cur2.data_ptr(), age.data_ptr(), ptr(scale), strides[0],
+                out.data_ptr(), B, P, T, D, H, pair_base // 2,
+                torch.cuda.current_stream(cache.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"attend_pair: compact kernel launch failed, "
+                               f"cudaError {rc}")
+        attend_pair.compact_launches += 1
+        return out
     with torch.cuda.device(cache.device):
         rc = _lib().attend_pair_launch(
             _DTYPES[dtype], _INT8 if int8 else _DTYPES[dtype],
@@ -245,3 +328,4 @@ def attend_pair(cache: Tensor, q2: Tensor, k_cur2: Tensor, v_cur2: Tensor,
 
 
 attend_pair.launches = 0
+attend_pair.compact_launches = 0

@@ -1,0 +1,269 @@
+"""The whole streaming CPC conv stack in one kernel: wrapper + plain version.
+
+`conv_stack_fused` replaces the TPU kernel `conv_stack_fused_call`
+(vap_realtime_tpu/ops/pallas/encoder.py:291, bodies `_kernel`:190 and
+`_kernel_v3`:89), reached through `conv_impl="fused"`: conv0..conv4 of
+the CPC encoder, each followed by ChannelNorm + ReLU, over one frame's
+fresh samples with the per-layer streaming carries in and out.  The
+kernel is `vap_realtime_tpu_torch/csrc/conv_stack_fused.cu`, hand-written
+for Hopper; see its header for the design.  The TPU kernel's `mode`
+values (merge8, cat8, taps20, v3) are VMEM layouts of one function, so
+the port computes that function once; its lab-only `ablate` truncations
+are not ported.
+
+Numerics (as the TPU kernel): conv0 as patch rows P[t] = xc0[5t:5t+10]
+times the (10, C) weight, conv1-4 (kernel = 2 * stride) as the two
+stride-block matmuls y[t] = xm[t] W0 + xm[t+1] W1, products of the
+activation dtype accumulated in float32, a float32 bias; `_cnorm_relu`:
+float32 stats (unbiased, clamped), normalised in float32, cast to the
+activation dtype BEFORE the affine, the affine rounded op by op in that
+dtype.  In float32 this is the `conv` stack's math to float noise; in
+bf16 it is more precise than the `conv` path (no bf16 rounding of the
+conv outputs), so bf16 results are compared with the plain version here.
+
+Bound on the H100: operations.  ~63.6 MFLOP per channel-stream in the
+stride-block form: 0.52 TFLOP per step at 2B = 8192 (0.53 ms at the bf16
+tensor-core peak, 7.8 ms at the 67 TFLOP/s float32 CUDA-core peak); the
+bytes (waveform, carries, output, weights) are ~0.13 GB.
+
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+tensor it runs `conv_stack_fused_plain`.  `conv_stack_fused.launches`
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import weakref
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from vap_realtime_tpu_torch.ops.cuda.build import load
+
+# (kernel, stride) of conv0 and of conv1..conv4 (encoder_components.py:83-92)
+CONV0_K, CONV0_S = 10, 5
+TAIL_KS = ((8, 4), (4, 2), (4, 2), (4, 2))
+C = 256
+
+Params = Dict[str, Any]
+Tensor = torch.Tensor
+
+
+def tail_lens(T0: int) -> List[Tuple[int, int]]:
+    """Per-layer (T_in, T_out) of conv1..4 given conv0's output length
+    (T_in includes the (k-s)-row carry; valid conv, stride s)."""
+    lens = []
+    T = T0
+    for k, s in TAIL_KS:
+        T_in = T + (k - s)
+        if T_in % s:
+            raise ValueError(f"conv stack: T_in {T_in} not a multiple of "
+                             f"the stride {s} (T0 = {T0})")
+        T = T_in // s - 1
+        lens.append((T_in, T))
+    return lens
+
+
+def _cnorm_relu(y: Tensor, w: Tensor, b: Tensor, dt) -> Tensor:
+    """ChannelNorm over the last axis (UNBIASED variance, clamped) + ReLU,
+    the TPU kernel's `_cnorm_relu`: y (..., C) float32; w, b (C,) already
+    in dt.  Returns dt."""
+    n = y.shape[-1]
+    s1 = y.sum(-1, keepdim=True)
+    s2 = (y * y).sum(-1, keepdim=True)
+    mean = s1 / n
+    var = torch.clamp((s2 - n * mean * mean) / (n - 1), min=0.0)
+    z = ((y - mean) * torch.rsqrt(var + 1e-5)).to(dt) * w + b
+    return torch.relu(z)
+
+
+# packed operands per encoder params: id(conv0 weight) -> (weak reference
+# to that tensor, {dtype: operands}); the reference guards against a
+# reused id
+_PACKED: Dict[int, Any] = {}
+
+
+def pack_fused_params(enc: Params, dtype=None):
+    """Encoder params -> (w0, wts, aux) kernel operands.
+
+    w0: conv0 weight (C_out, 1, 10) -> (10, C).  wts: per tail layer a
+    (2, s*C, C) pair of stride-block matrices: W[b] rows [p*C:(p+1)*C]
+    hold tap j = b*s + p, so xm[t] @ W[0] + xm[t+1] @ W[1] equals
+    sum_j x[s*t + j] @ w_tap[j] for the lane-merged xm; contiguous, so
+    W.reshape(2*s*C, C) stacks all k taps.  aux (15, C) float32 =
+    per-layer [bias, norm w, norm b] rows.  w0 and wts are cast to
+    `dtype` (default: the weights' own).  The result is cached per params
+    tree and dtype (the weights are read-only in inference)."""
+    key = enc["conv0"]["w"]
+    dtype = key.dtype if dtype is None else dtype
+    ref, per = _PACKED.get(id(key), (None, None))
+    if ref is None or ref() is not key:
+        per = {}
+        _PACKED[id(key)] = (weakref.ref(
+            key, lambda _, k=id(key): _PACKED.pop(k, None)), per)
+    if dtype in per:
+        return per[dtype]
+    w0 = enc["conv0"]["w"][:, 0, :].T.to(dtype).contiguous()     # (10, C)
+    wts = []
+    for i, (k, s) in enumerate(TAIL_KS):
+        taps = enc[f"conv{i + 1}"]["w"].permute(2, 1, 0)          # (k, Ci, Co)
+        wts.append(torch.stack([taps[b * s:(b + 1) * s].reshape(s * C, C)
+                                for b in range(2)]).to(dtype).contiguous())
+    rows = []
+    for i in range(5):
+        rows += [enc[f"conv{i}"]["b"], enc[f"norm{i}"]["w"][:, 0],
+                 enc[f"norm{i}"]["b"][:, 0]]
+    aux = torch.stack([r.float() for r in rows]).contiguous()     # (15, C)
+    per[dtype] = (w0, tuple(wts), aux)
+    return per[dtype]
+
+
+def conv0_patches(xc0: Tensor) -> Tensor:
+    """(B, L+5) carry-prefixed waveform -> (B, L/5, 10) conv0 patch rows,
+    P[b, t, :] = xc0[b, 5t : 5t+10]."""
+    B, Lp = xc0.shape
+    T0 = (Lp - CONV0_S) // CONV0_S
+    xr = xc0.reshape(B, T0 + 1, CONV0_S)
+    return torch.cat([xr[:, :T0], xr[:, 1:]], dim=-1)
+
+
+def conv_stack_fused_plain(c0: Tensor, new: Tensor, carries, w0: Tensor,
+                           wts, aux: Tensor):
+    """Plain PyTorch version of the kernel, with its rounding points.
+
+    c0 (B, 5) conv0 carry; new (B, L) fresh samples (the activation
+    dtype); carries (c1 (B, 4, C), c2/c3/c4 (B, 2, C)) channels-last;
+    (w0, wts, aux) from `pack_fused_params` in the activation dtype.
+    Returns (z (B, L/160, C), (new c0 (B, 5), new c1..c4))."""
+    dt = new.dtype
+    f32 = torch.float32
+    xc0 = torch.cat([c0.to(dt), new], dim=-1)
+    P = conv0_patches(xc0)
+    # dt x dt products accumulated in float32: the float32 matmul of the
+    # exactly widened operands
+    y = torch.matmul(P.to(f32), w0.to(f32)) + aux[0]
+    x = _cnorm_relu(y, aux[1].to(dt), aux[2].to(dt), dt)
+    out_carries = []
+    Bn = x.shape[0]
+    for li, (k, s) in enumerate(TAIL_KS):
+        x = torch.cat([carries[li].to(dt), x], dim=1)
+        out_carries.append(x[:, x.shape[1] - (k - s):].contiguous())
+        G = x.shape[1] // s
+        xm = x.reshape(Bn, G, s * C).to(f32)
+        W = wts[li].to(f32)
+        y = (torch.matmul(xm, W[0])[:, :G - 1] + torch.matmul(xm, W[1])[:, 1:]
+             + aux[3 * (li + 1)])
+        x = _cnorm_relu(y, aux[3 * (li + 1) + 1].to(dt),
+                        aux[3 * (li + 1) + 2].to(dt), dt)
+    return x, (xc0[:, xc0.shape[1] - CONV0_S:].contiguous(),
+               *out_carries)
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# shared memory the kernel may use per block (H100: 227 KB)
+SMEM_LIMIT = 232448
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The kernel library, built on first use, with its C signature."""
+    lib = load("conv_stack_fused")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.conv_stack_fused_launch
+    fn.restype = ctypes.c_int
+    # dtype; new, c0, c1..c4; w0, w1..w4; aux; z, n0, n1..n4; B, L; stream
+    fn.argtypes = [I] + [P] * 18 + [I, I, P]
+    lib.conv_stack_fused_smem.restype = ctypes.c_int
+    lib.conv_stack_fused_smem.argtypes = [I, I]
+    return lib
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"conv_stack_fused: {msg}")
+
+
+def conv_stack_fused(c0: Tensor, new: Tensor, carries, w0: Tensor, wts,
+                     aux: Tensor):
+    """The whole streaming conv stack in one launch: same arguments and
+    results as `conv_stack_fused_plain`.  The activation dtype (new's) is
+    float32 or bf16; every tensor lies on one device."""
+    if new.device.type == "cpu":
+        return conv_stack_fused_plain(c0, new, carries, w0, wts, aux)
+    _check(new.device.type == "cuda", f"unsupported device {new.device}")
+    dt = new.dtype
+    _check(dt in _DTYPES, f"dtype {dt} (float32 / bfloat16)")
+    _check(new.dim() == 2, f"new must be (B, L), got {tuple(new.shape)}")
+    B, L = new.shape
+    _check(B > 0 and L % CONV0_S == 0, f"L = {L} not a multiple of 5")
+    T0 = L // CONV0_S
+    lens = tail_lens(T0)
+    T4 = lens[-1][1]
+    _check(T4 > 0, f"L = {L} too short")
+    c0 = c0.reshape(B, CONV0_S).to(dt).contiguous()
+    cs = [c.to(dt).contiguous() for c in carries]
+    for c, (k, s) in zip(cs, TAIL_KS):
+        _check(tuple(c.shape) == (B, k - s, C), f"carry {tuple(c.shape)}: "
+               f"expected ({B}, {k - s}, {C})")
+    _check(tuple(w0.shape) == (CONV0_K, C) and w0.dtype == dt,
+           f"w0 must be ({CONV0_K}, {C}) {dt}")
+    for W, (k, s) in zip(wts, TAIL_KS):
+        _check(tuple(W.shape) == (2, s * C, C) and W.dtype == dt
+               and W.is_contiguous(), f"stride-block weights must be "
+               f"(2, {s * C}, {C}) {dt}, contiguous")
+    _check(tuple(aux.shape) == (15, C) and aux.dtype == torch.float32
+           and aux.is_contiguous(), "aux must be (15, C) float32")
+    new = new.contiguous()
+    for t in (c0, *cs, w0, *wts, aux):
+        _check(t.device == new.device, "all tensors on one device")
+    smem = _lib().conv_stack_fused_smem(_DTYPES[dt], T0)
+    _check(0 < smem <= SMEM_LIMIT,
+           f"L = {L} needs {smem} bytes of shared memory per block "
+           f"(at most {SMEM_LIMIT})")
+    z = torch.empty((B, T4, C), dtype=dt, device=new.device)
+    n0 = torch.empty((B, CONV0_S), dtype=dt, device=new.device)
+    ns = [torch.empty_like(c) for c in cs]
+    with torch.cuda.device(new.device):
+        rc = _lib().conv_stack_fused_launch(
+            _DTYPES[dt], new.data_ptr(), c0.data_ptr(),
+            *[c.data_ptr() for c in cs], w0.data_ptr(),
+            *[W.data_ptr() for W in wts], aux.data_ptr(), z.data_ptr(),
+            n0.data_ptr(), *[n.data_ptr() for n in ns], B, L,
+            torch.cuda.current_stream(new.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"conv_stack_fused: kernel launch failed, "
+                           f"cudaError {rc}")
+    conv_stack_fused.launches += 1
+    return z, (n0, *ns)
+
+
+conv_stack_fused.launches = 0
+
+
+def cpc_conv_stack_streaming_fused(params: Params, new: Tensor,
+                                   state: Params):
+    """Drop-in for models/encoder.cpc_conv_stack_streaming through the
+    fused kernel: new (B, L) fresh samples; state channels-last carries
+    {"c0": (B, 1, 5), "c1": (B, 4, C), "c2".."c4": (B, 2, C)}.  Returns
+    ((B, L/160, C) features, new_state)."""
+    dt = new.dtype
+    w0, wts, aux = pack_fused_params(params, dt)
+    z, tails = conv_stack_fused(
+        state["c0"].reshape(new.shape[0], CONV0_S), new,
+        tuple(state[f"c{i}"] for i in range(1, 5)), w0, wts, aux)
+    new_state = {"c0": tails[0][:, None, :]}
+    for i, t in enumerate(tails[1:], start=1):
+        new_state[f"c{i}"] = t
+    return z, new_state
+
+
+def init_conv_stream_state_fused(batch: int, dim: int = C,
+                                 dtype=torch.float32, device=None) -> Params:
+    """Channels-last streaming carries for the fused kernel: the layout of
+    models/encoder.init_conv_stream_state, which this returns."""
+    # imported here: models/encoder imports this module
+    from vap_realtime_tpu_torch.models.encoder import init_conv_stream_state
+
+    return init_conv_stream_state(batch, dim, dtype, device)

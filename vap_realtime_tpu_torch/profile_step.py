@@ -1,13 +1,17 @@
 """Where the fast staged serving step's time goes on the card.
 
     python -m vap_realtime_tpu_torch.profile_step [--batch 4096] [--steps 16]
-        [--quant_cache row|global] [--conv_impl conv|normk]
+        [--quant_cache row|global] [--conv_impl conv|normk|fused|blocked]
+        [--attend_impl kernel|kernel3 --slots staged|stream|global]
 
 Full-width model (vap, 20 Hz, 2.5 s context, synthetic weights), bf16,
-staged slots, kernel attend, all streams active; the cache is bf16 or,
-with --quant_cache, int8 (per-row or frozen per-stream scales), and the
-encoder's ChannelNorm runs as PyTorch ops (conv) or through the one-pass
-kernel (normk).  Prints, each beside the card's name and power limit:
+all streams active; staged slots and the kernel attend unless asked
+otherwise (`--attend_impl kernel3 --slots stream`: the compact attend
+kernel); the cache is bf16 or, with --quant_cache, int8 (per-row or
+frozen per-stream scales); the encoder's ChannelNorm runs as PyTorch ops
+(conv) or through the one-pass kernel (normk), or the whole conv stack
+runs in one kernel (fused).  Prints, each beside the card's name and
+power limit:
 
 - ms/step of the whole step (host clock around synchronized steps), of
   the encoder alone (CUDA events) and of the 7 attend launches of a step
@@ -62,24 +66,31 @@ def main(argv=None) -> None:
     ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
                     choices=["row", "global"])
     ap.add_argument("--conv_impl", choices=list(CONV_IMPLS), default="conv")
+    ap.add_argument("--attend_impl", choices=["kernel", "kernel3"],
+                    default="kernel")
+    ap.add_argument("--slots", choices=["staged", "stream", "global"],
+                    default="staged")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
     B, n, dt = args.batch, args.steps, torch.bfloat16
     quant, conv_impl = args.quant_cache, args.conv_impl
+    slots, attend_impl = args.slots, args.attend_impl
+    staged = slots == "staged"
+    impl = "compact" if attend_impl == "kernel3" else "bcast"
     gpu = gpu_line()
     cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
     p = params_to_torch(synthetic_params(cfg.frame_hz), "cuda", dt)
     g = torch.Generator(device="cuda").manual_seed(0)
     frames = (0.1 * torch.randn(8, B, 2, cfg.frame_shift, generator=g,
                                 device="cuda")).to(dt)
-    st = inc.init_fast_state(cfg, B, dt, staged=True, device="cuda",
+    st = inc.init_fast_state(cfg, B, dt, staged=staged, device="cuda",
                              quant=quant, conv_impl=conv_impl)
 
     def step(i):
         nonlocal st
-        st, out = inc.fast_step(p, st, frames[i % 8], cfg, slots="staged",
-                                attend_impl="kernel", conv_impl=conv_impl)
+        st, out = inc.fast_step(p, st, frames[i % 8], cfg, slots=slots,
+                                attend_impl=attend_impl, conv_impl=conv_impl)
         return out
 
     for i in range(4):
@@ -91,7 +102,8 @@ def main(argv=None) -> None:
     torch.cuda.synchronize()
     step_ms = (time.time() - t) * 1e3 / n
 
-    conv = inc.init_fast_state(cfg, B, dt, device="cuda").conv
+    conv = inc.init_fast_state(cfg, B, dt, device="cuda",
+                               conv_impl=conv_impl).conv
     h0 = torch.zeros(2 * B, cfg.dim, device="cuda", dtype=dt)
     enc_ms = cuda_ms(lambda: encode_chunk_streaming(
         p["encoder"], frames[0].reshape(2 * B, -1), conv, h0, h0,
@@ -104,12 +116,14 @@ def main(argv=None) -> None:
                          generator=g).float()
     row = kv.quant == "row"
     att_ms = cuda_ms(lambda: [inc.attend_pair(
-        kv.cache, q2, q2, q2, age, kv.stage, sage,
-        scale=kv.scale[:, ph] if row else None,
-        stage_scale=kv.stage_scale[:, :, ph] if row else None,
-        pair_base=2 * ph, num_heads=cfg.num_heads) for ph in range(7)], n)
-    what = f"cache {f'int8 {quant}' if quant else 'bf16'}, {conv_impl}"
-    print(f"[profile] B={B} bf16 fast staged step ({what}): "
+        kv.cache, q2, q2, q2, age, kv.stage if staged else None,
+        sage if staged else None, scale=kv.scale[:, ph] if row else None,
+        stage_scale=kv.stage_scale[:, :, ph] if row and staged else None,
+        pair_base=2 * ph, num_heads=cfg.num_heads, impl=impl)
+        for ph in range(7)], n)
+    what = (f"cache {f'int8 {quant}' if quant else 'bf16'}, {conv_impl}, "
+            f"{attend_impl}")
+    print(f"[profile] B={B} bf16 fast {slots} step ({what}): "
           f"{step_ms:.3f} ms/step; "
           f"encoder {enc_ms:.3f} ms; 7 attend launches {att_ms:.3f} ms; "
           f"trunk rest {step_ms - enc_ms - att_ms:.3f} ms | {gpu}",

@@ -68,7 +68,12 @@ class StreamArena:
 
         quant_cache: False, True / "row" (int8 cache, per-row scales) or
         "global" (int8 cache, per-stream frozen scales).  conv_impl:
-        "conv" or "normk" (the ChannelNorm+ReLU kernel in the encoder).
+        "conv", "normk" (the ChannelNorm+ReLU kernel in the encoder),
+        "fused" (the whole conv stack in one kernel) or "blocked"; every
+        form keeps the same conv state, so `_reset_slot` and `warmup`
+        serve them all.  attend_impl: one of incremental.ATTEND_IMPLS;
+        "kernel3" (the compact attend kernel) needs slots="stream" or
+        "global".
 
         wire_dtype: dtype of the chunks fed to step() — np.float32
         (normalized audio) or np.int16 (raw samples, normalized /32768

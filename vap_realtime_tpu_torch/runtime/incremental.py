@@ -51,7 +51,9 @@ Tensor = torch.Tensor
 
 STAGE_S = 8  # staged-slot policy: frames buffered between ring merges
 
-ATTEND_IMPLS = ("kernel", "plain", "einsum")
+ATTEND_IMPLS = ("kernel", "kernel3", "plain", "plain3", "grouped", "einsum")
+# the compact-softmax attends: ring rows only, no staged form
+COMPACT_IMPLS = ("kernel3", "plain3")
 QUANT_MODES = (False, True, "row", "global")
 
 # quant="global" headroom: the per-stream scale freezes at MARGIN x the
@@ -227,6 +229,31 @@ def _alibi(H: int, device: torch.device) -> Tensor:
     return torch.tensor(alibi_slopes(H), dtype=torch.float32, device=device)
 
 
+def _load_rows(state: KVState, ph: int, off: int, D: int,
+               staged: bool) -> Tensor:
+    """The cached rows of one k or v slot (phase ph, columns [off,
+    off + D)), then the staged rows when `staged`: (B, L, D) in the state
+    dtype.  An int8 cache is dequantised on load."""
+    dtype = state.lstm_h.dtype
+    quant = state.quant
+    x = state.cache[:, ph, :, off:off + D]                 # (B, T, D)
+    if quant == "row":
+        x = (x.float() * state.scale[:, ph, :, None]).to(dtype)
+    elif quant == "global":
+        x = (x.float() * state.scale[:, ph, 0, off // D, None, None]
+             ).to(dtype)
+    if staged:
+        col = 4 * D * ph + off
+        y = state.stage[:, :, col:col + D]                   # (S, B, D)
+        if quant == "row":
+            y = (y.float() * state.stage_scale[:, :, ph, None]).to(dtype)
+        elif quant == "global":
+            y = (y.float() * state.scale[None, :, ph, 0, off // D, None]
+                 ).to(dtype)
+        x = torch.cat([x, y.transpose(0, 1)], dim=1)
+    return x
+
+
 def _einsum_attend(state: KVState, q: Tensor, k_cur: Tensor, v_cur: Tensor,
                    slot_k: int, bias: Tensor, H: int,
                    staged: bool) -> Tensor:
@@ -239,27 +266,8 @@ def _einsum_attend(state: KVState, q: Tensor, k_cur: Tensor, v_cur: Tensor,
     Dh = D // H
     dtype = state.lstm_h.dtype
     ph, ko = slot_k // 4, (slot_k % 4) * D
-    quant = state.quant
-
-    def load(off):
-        x = state.cache[:, ph, :, off:off + D]             # (B, T, D)
-        if quant == "row":
-            x = (x.float() * state.scale[:, ph, :, None]).to(dtype)
-        elif quant == "global":
-            x = (x.float() * state.scale[:, ph, 0, off // D, None, None]
-                 ).to(dtype)
-        if staged:
-            col = 4 * D * ph + off
-            y = state.stage[:, :, col:col + D]               # (S, B, D)
-            if quant == "row":
-                y = (y.float() * state.stage_scale[:, :, ph, None]).to(dtype)
-            elif quant == "global":
-                y = (y.float() * state.scale[None, :, ph, 0, off // D, None]
-                     ).to(dtype)
-            x = torch.cat([x, y.transpose(0, 1)], dim=1)
-        return x
-
-    k_old, v_old = load(ko), load(ko + D)
+    k_old = _load_rows(state, ph, ko, D, staged)
+    v_old = _load_rows(state, ph, ko + D, D, staged)
     L = k_old.shape[1]
     scale = 1.0 / math.sqrt(D)
     # bf16 operands, float32 products and sums (JAX: preferred f32)
@@ -276,6 +284,37 @@ def _einsum_attend(state: KVState, q: Tensor, k_cur: Tensor, v_cur: Tensor,
     return out.reshape(B, D).to(dtype)
 
 
+def _grouped_attend(state: KVState, q: Tensor, k_cur: Tensor,
+                    v_cur: Tensor, slot_k: int, age: Tensor, slopes: Tensor,
+                    H: int, staged: bool) -> Tensor:
+    """The JAX package's head-free "grouped" attend (incremental.py:
+    521-554) with its rounding points: k * q in the state dtype, head sums
+    in float32 times 1/sqrt(D), minus age * slope; a softmax shifted by
+    max(max_t s, s_cur); the weights rounded to the state dtype and
+    multiplied with v in it, summed in float32; the current weight in
+    float32.  age: (B, L) float32 ages of the L read rows, DEAD for dead
+    ones."""
+    B, D = q.shape
+    Dh = D // H
+    dtype = state.lstm_h.dtype
+    ph, ko = slot_k // 4, (slot_k % 4) * D
+    k_old = _load_rows(state, ph, ko, D, staged)              # (B, L, D)
+    v_old = _load_rows(state, ph, ko + D, D, staged)
+    L = k_old.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    qd = q.to(dtype)
+    s = (k_old * qd[:, None]).float().view(B, L, H, Dh).sum(-1) * scale
+    s = s - age[:, :, None] * slopes
+    s_cur = (k_cur.to(dtype) * qd).float().view(B, H, Dh).sum(-1) * scale
+    mx = torch.maximum(s.amax(1), s_cur)                      # (B, H)
+    w = torch.exp(s - mx[:, None])
+    w_cur = torch.exp(s_cur - mx)
+    denom = w.sum(1) + w_cur
+    out = (w.to(dtype)[..., None] * v_old.view(B, L, H, Dh)).float().sum(1)
+    out = out + w_cur[..., None] * v_cur.float().view(B, H, Dh)
+    return (out / denom[..., None]).reshape(B, D).to(dtype)
+
+
 def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
              c_new: Tensor, cfg: VapConfig, active: Tensor, slots: str,
              attend_impl: str = "einsum", merge: str = "auto"
@@ -286,7 +325,9 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
 
     attend_impl: "kernel" (`attend_pair`: the CUDA kernel on a CUDA
     tensor, its plain version on the CPU), "plain" (`attend_pair_plain`
-    on any device) or "einsum".
+    on any device), "kernel3" / "plain3" (the same with the compact body,
+    K10, the JAX package's "pallas3"; ring rows only, so not with
+    slots="staged"), "grouped" or "einsum" (plain PyTorch).
     merge (staged slots): "auto" merges when (step + 1) % STAGE_S == 0,
     "never" / "force" let the caller decide.
     """
@@ -305,6 +346,11 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
     if staged and state.stage is None:
         raise ValueError('slots="staged" needs a state built with '
                          'staged=True')
+    compact = attend_impl in COMPACT_IMPLS
+    if staged and compact:
+        raise ValueError(f"staged slots: use attend_impl='kernel' (the "
+                         f"compact body of {attend_impl!r} has no staged "
+                         f"form)")
 
     # ages of cached rows relative to the current frame (age 0 = this
     # frame, written at the END of the step) in each stream's own
@@ -328,12 +374,13 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
         # (S, B) float32 ages; the TPU kernel took them in the state dtype
         age_st_f = torch.where(live_st, age_st.float(), DEAD)
 
-    if attend_impl == "einsum":
+    if attend_impl in ("einsum", "grouped"):
         slopes = _alibi(H, e.device)
         age_cat, live_cat = age_f, live
         if staged:
             age_cat = torch.cat([age_f, age_st_f.T], dim=1)
             live_cat = torch.cat([live, live_st.T], dim=1)
+    if attend_impl == "einsum":
         bias = torch.where(
             live_cat[:, None, :],
             -torch.where(live_cat, age_cat, 0.0)[:, None, :]
@@ -350,7 +397,15 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
                 _einsum_attend(state, q2[:, s], k2[:, s], v2[:, s],
                                2 * (pair_base + s), bias, H, staged)
                 for s in (0, 1)], dim=1)
-        fn = attend_pair if attend_impl == "kernel" else attend_pair_plain
+        if attend_impl == "grouped":
+            return torch.stack([
+                _grouped_attend(state, q2[:, s], k2[:, s], v2[:, s],
+                                2 * (pair_base + s), age_cat, slopes, H,
+                                staged)
+                for s in (0, 1)], dim=1)
+        fn = functools.partial(
+            attend_pair if attend_impl in ("kernel", "kernel3")
+            else attend_pair_plain, impl="compact" if compact else "bcast")
         ph = pair_base // 2
         stage = state.stage if staged else None
         if quant == "global":
@@ -510,8 +565,8 @@ def init_fast_state(cfg: VapConfig, batch: int = 1, dtype=torch.float32,
                     staged: bool = False, device=None, *,
                     quant: Any = False, conv_impl: str = "conv"
                     ) -> FastState:
-    """quant: see `init_kv_state`; conv_impl: see `fast_step` (both
-    ported forms share one conv state layout)."""
+    """quant: see `init_kv_state`; conv_impl: see `fast_step` (every
+    form shares one channels-last conv state layout)."""
     check_conv_impl(conv_impl)
     return FastState(
         kv=init_kv_state(cfg, batch, dtype, staged, device, quant=quant),
@@ -531,8 +586,9 @@ def fast_step(params: Params, state: FastState, new: Tensor,
 
     active: (B,) bool; streams without a fresh frame this tick are FROZEN
     (state untouched; their outputs are to be ignored).  conv_impl:
-    "conv" (PyTorch convs + ChannelNorm) or "normk" (the ChannelNorm+ReLU
-    kernel between the convs); see `encode_chunk_streaming`.
+    "conv" (PyTorch convs + ChannelNorm), "normk" (the ChannelNorm+ReLU
+    kernel between the convs), "fused" (the whole stack in one kernel) or
+    "blocked" (stride-block matmuls); see `encode_chunk_streaming`.
     conv_chunks > 1 runs the encoder over that many sequential
     sub-batches (smaller transient activations; identical numerics).
     """

@@ -155,10 +155,13 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     ap.add_argument("--conv_chunks", type=int, default=1,
                     help="run the encoder over k sequential sub-batches "
                          "(smaller transient memory; identical numerics)")
-    ap.add_argument("--attend_impl", choices=["kernel", "einsum"],
+    ap.add_argument("--attend_impl",
+                    choices=["kernel", "kernel3", "grouped", "einsum"],
                     default="kernel",
                     help="'kernel' = the hand-written CUDA attend kernel; "
-                         "'einsum' = plain PyTorch einsum attention")
+                         "'kernel3' = its compact-softmax body (needs "
+                         "--slots stream or global); 'grouped' / 'einsum' "
+                         "= plain PyTorch attention")
     ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
                     choices=["row", "global"],
                     help="int8 KV cache: bare flag or 'row' = per-row "
