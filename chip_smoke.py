@@ -37,7 +37,15 @@ Phases (any failed check raises, so the script exits non-zero):
            int8 codes under the frozen-scale fold (atol/rtol 2e-2 in float
            units), mixed live/DEAD and all-DEAD (output == v_cur);
          - lstm_scan (K5) at (8192, 5, 256): float32 at atol 1e-5, bf16
-           outputs within one bf16 step (rtol 2^-7, atol 1e-5).
+           outputs within one bf16 step (rtol 2^-7, atol 1e-5);
+         - fused_attend (K8, one k/v slot pair) at B=4096 and 64, T=50,
+           all 14 slot pairs, float32 (atol 1e-4) and bf16 (atol/rtol
+           2e-2), mixed live/DEAD and all-DEAD (output == v_cur), against
+           its v4 plain form and the einsum reference; an int8 cache
+           raises;
+         - cpc_conv_tail (K9) at 8192 channel-streams x L0 = 224 (20 Hz),
+           float32 (atol 1e-4, TF32 off) and bf16 x0 (one bf16 step of the
+           output, |d| <= 2^-7 (1 + |plain|)), and 64 x L0 = 384 and 128.
   (b)    The full-width fast step (vap, 20 Hz, 2.5 s context, synthetic
          weights) in six configurations: staged slots with the bf16
          cache, the int8 cache with frozen scales (quant="global") and
@@ -51,23 +59,36 @@ Phases (any failed check raises, so the script exits non-zero):
          attend launches per step (K1-K4, or K10 for compact), 5
          channel_norm_relu launches per normk step and 1 conv_stack_fused
          launch per fused step.
+         The slice-4 paths at full width: the kv step (chunked encoder,
+         staged slots, the attend kernel: 7 K2 launches per step) and the
+         full-recompute step, each in float32 on a small input equal to
+         the CPU path (atol 1e-4); at B=4096 bf16 the kv step with the
+         kernels equals the plain attend (p_now atol 2e-2) and the full
+         step gives finite probabilities; and run_frames over the 20 Hz
+         stream golden (tests/golden/stream_vap_20hz.npz) in float32 on the
+         card, within 1e-4 of the original reference's outputs.
   (d)    Times with CUDA events after warm-up, each beside the card's name
          and power limit: each kernel body's ms per launch and its bound,
          its plain version, one PyTorch call over the same problem as a
          yardstick where one exists (scaled_dot_product_attention on the
          dequantised bf16 rows, torch.nn.LSTM on cuDNN; the port never
          calls them; K7 has none, so the `conv` and `normk` stacks' times
-         stand beside it), and the fast step's ms/step at B=4096 for the
-         six configurations.
+         stand beside it; K8 against scaled_dot_product_attention; K9 against
+         the cuDNN conv1-4 + ChannelNorm tail of cpc_conv_stack), and the
+         ms/step at B=4096 of the fast step in six configurations and of
+         the kv and full steps.
   (c)    The main paths through their user entry points: the native server
          (capacity 64, bf16, int16 wire) answers 8 loopback connections
          streaming 1 s of synthetic audio each (>= 15 results on each),
          three times: the bf16 cache; StreamArena(quant_cache="global",
          conv_impl="normk"); StreamArena(conv_impl="fused",
-         slots="stream", attend_impl="kernel3").  The launch counters are
-         zeroed just before each run and read just after.  Then
-         VapEngine(path="fast", conv_impl="fused") takes a few
-         process_batch calls on the card.
+         slots="stream", attend_impl="kernel3"); and
+         StreamArena(path="kv") (overlapped frames, 7 K2 launches per
+         tick).  The launch counters are zeroed just before each run and
+         read just after.  Then VapEngine(path="fast", conv_impl="fused")
+         and VapEngine(path="full") take a few process_batch calls on the
+         card, and run_offline(path="full") on synthetic audio equals the
+         CPU.
 
 The last lines: the card's name and power limit, one JSON line listing
 each kernel, and {"ok": true, "device": {...}}.
@@ -88,6 +109,7 @@ import torch
 
 B, T, S, P, D, H = 4096, 50, 8, 7, 256, 4
 C, NORM_T = 256, (160, 40, 20, 10, 5)   # conv output channels and lengths
+L0_TAIL = 224                      # chunked conv0 output rows at 20 Hz (K9)
 SERVER_CAPACITY = 64
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
@@ -104,12 +126,31 @@ STEP_CONFIGS = tuple(CONFIGS)      # phases (b) and (d)
 # the server runs' arenas (phase (c)) add two combinations
 CONFIGS.update(q8g_normk=dict(quant="global", conv_impl="normk"),
                fused_compact=dict(conv_impl="fused", slots="stream",
-                                  attend_impl="kernel3"))
+                                  attend_impl="kernel3"),
+               kv=dict(path="kv"))
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
+
+
+def kernel_device_ms(fn, name: str, reps: int) -> float:
+    """Mean device time per call of `fn` spent in the CUDA kernels whose
+    name contains `name` (torch.profiler), without the host's wrapper
+    time between launches."""
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.key)
+    check(us > 0, f"the profiler saw no {name} kernel")
+    return us / 1e3 / reps
 
 
 def bound(nbytes: float, flops: float, flop_per_s: float = F32_FLOP_PER_S):
@@ -154,37 +195,46 @@ def plain_fused(on: bool = True):
 
 def zero_counts() -> None:
     """Set every kernel's launch counter to 0."""
-    from vap_realtime_tpu_torch.ops.cuda.attend import attend_pair
+    from vap_realtime_tpu_torch.ops.cuda.attend import (
+        attend_pair, fused_attend,
+    )
     from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
+    from vap_realtime_tpu_torch.ops.cuda.cpc_conv import cpc_conv_tail
     from vap_realtime_tpu_torch.ops.cuda.encoder import conv_stack_fused
     from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_scan
 
     attend_pair.launches = attend_pair.compact_launches = 0
     channel_norm_relu.launches = conv_stack_fused.launches = 0
-    lstm_scan.launches = 0
+    lstm_scan.launches = fused_attend.launches = cpc_conv_tail.launches = 0
 
 
 def counts() -> dict:
     """Every kernel's launch counter."""
-    from vap_realtime_tpu_torch.ops.cuda.attend import attend_pair
+    from vap_realtime_tpu_torch.ops.cuda.attend import (
+        attend_pair, fused_attend,
+    )
     from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
+    from vap_realtime_tpu_torch.ops.cuda.cpc_conv import cpc_conv_tail
     from vap_realtime_tpu_torch.ops.cuda.encoder import conv_stack_fused
     from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_scan
 
     return {"attend": attend_pair.launches,
             "compact": attend_pair.compact_launches,
             "norm": channel_norm_relu.launches,
-            "fused": conv_stack_fused.launches, "lstm": lstm_scan.launches}
+            "fused": conv_stack_fused.launches, "lstm": lstm_scan.launches,
+            "single": fused_attend.launches, "tail": cpc_conv_tail.launches}
 
 
 def per_step(config: str) -> dict:
-    """Kernel launches one fast step of a configuration makes."""
+    """Kernel launches one step of a configuration makes (fast steps, and
+    the kv step of "kv"; K5, K8 and K9 are off every serving path)."""
     kw = CONFIGS[config]
     compact = kw.get("attend_impl") == "kernel3"
     conv = kw.get("conv_impl", "conv")
     return {"attend": 0 if compact else 7, "compact": 7 if compact else 0,
             "norm": 5 if conv == "normk" else 0,
-            "fused": 1 if conv == "fused" else 0, "lstm": 0}
+            "fused": 1 if conv == "fused" else 0, "lstm": 0, "single": 0,
+            "tail": 0}
 
 
 def build() -> None:
@@ -579,9 +629,125 @@ def phase_a_lstm() -> float:
     return worst
 
 
-def fast_inputs(cfg, n_streams, frames, seed, device, dtype):
+def single_inputs(dtype, case: str, seed: int, nb: int = B):
+    """Serving-shaped K8 inputs for nb streams on the card from a seed: a
+    float cache (nb, P, T, 4D), q / k_cur / v_cur (nb, D), ring ages
+    (mixed live / DEAD, or all DEAD)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    cache, q, kc, vc = rn(nb, P, T, 4 * D), rn(nb, D), rn(nb, D), rn(nb, D)
+    return cache, q, kc, vc, _ages(g, case, nb)[0]
+
+
+def phase_a_single() -> float:
+    """fused_attend (K8) vs its v4 plain form and the einsum reference at
+    the serving shapes, all 14 slot pairs; returns the max abs error of
+    the bf16 kernel against the v4 plain form."""
+    from vap_realtime_tpu_torch.ops.cuda.attend import (
+        attend_reference, fused_attend, fused_attend_plain,
+    )
+
+    worst = 0.0
+    for dtype, atol, rtol in ((torch.float32, 1e-4, 0.0),
+                              (torch.bfloat16, BF16_TOL, BF16_TOL)):
+        for nb, case in ((B, "mixed"), (B, "dead"),
+                         (SERVER_CAPACITY, "mixed")):
+            cache, q, kc, vc, age = single_inputs(
+                dtype, case, 14 if case == "mixed" else 15, nb)
+            err = {"v4 plain": 0.0, "reference": 0.0}
+            for sk in range(0, 4 * P, 2):
+                kw = dict(slot_k=sk, slot_v=sk + 1, num_heads=H)
+                got = fused_attend(cache, q, kc, vc, age, **kw)
+                torch.cuda.synchronize()
+                check(torch.isfinite(got).all().item(),
+                      f"fused_attend non-finite ({dtype}, {case})")
+                for name, fn in (("v4 plain", fused_attend_plain),
+                                 ("reference", attend_reference)):
+                    want = fn(cache, q, kc, vc, age, **kw).float()
+                    d = (got.float() - want).abs()
+                    check(not (d > atol + rtol * want.abs()).any().item(),
+                          f"fused_attend vs {name} {dtype} B={nb} {case} "
+                          f"slots ({sk}, {sk + 1}): max |d| "
+                          f"{d.max().item():.3e}")
+                    err[name] = max(err[name], d.max().item())
+                if case == "dead":
+                    check(torch.equal(got, vc),
+                          "fused_attend all-DEAD rows: output must equal "
+                          "v_cur")
+            print(f"[a] fused_attend (K8) {str(dtype)[6:]} B={nb} {case:5s} "
+                  f"14 slot pairs: max |kernel - v4 plain| "
+                  f"{err['v4 plain']:.3e}, |kernel - reference| "
+                  f"{err['reference']:.3e} (atol {atol:g}, rtol {rtol:g})",
+                  flush=True)
+            if dtype == torch.bfloat16:
+                worst = max(worst, err["v4 plain"])
+            del cache
+    try:
+        fused_attend(torch.zeros(4, P, T, 4 * D, dtype=torch.int8,
+                                 device="cuda"), q[:4], kc[:4], vc[:4],
+                     age[:4], slot_k=0, slot_v=1)
+    except ValueError:
+        pass
+    else:
+        check(False, "fused_attend accepted an int8 cache")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def tail_inputs(seed: int, nb: int, L0: int, dtype):
+    """K9 inputs on the card: a post-ReLU-like x0 (nb, L0, C) in dtype
+    and the synthetic encoder's packed tail weights (float32)."""
+    from vap_realtime_tpu_torch.ops.cuda.cpc_conv import pack_tail_params
+    from vap_realtime_tpu_torch.weights.convert import params_to_torch
+    from vap_realtime_tpu_torch.weights.synthetic import synthetic_params
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x0 = torch.relu(torch.randn(nb, L0, C, generator=g, device="cuda"))
+    enc = params_to_torch(synthetic_params(20)["encoder"], "cuda")
+    return x0.to(dtype), pack_tail_params(enc)
+
+
+def phase_a_tail() -> float:
+    """cpc_conv_tail (K9) vs plain at 8192 channel-streams x 224 (20 Hz)
+    and 64 x 384 / 128 (10 / 50 Hz); returns the max abs error with a
+    bf16 x0 at the 20 Hz shape."""
+    from vap_realtime_tpu_torch.ops.cuda.cpc_conv import (
+        cpc_conv_tail, cpc_conv_tail_plain, tail_out_len,
+    )
+
+    worst = 0.0
+    for nb, L0 in ((2 * B, L0_TAIL), (SERVER_CAPACITY, 384),
+                   (SERVER_CAPACITY, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x0, packed = tail_inputs(16, nb, L0, dtype)
+            got = cpc_conv_tail(x0, packed)
+            want = cpc_conv_tail_plain(x0, packed).float()
+            torch.cuda.synchronize()
+            check(got.dtype == dtype
+                  and got.shape == (nb, tail_out_len(L0)[-1], C)
+                  and torch.isfinite(got).all().item(),
+                  f"cpc_conv_tail output {dtype} ({nb}, {L0})")
+            d = (got.float() - want).abs()
+            tol = (1e-4 if dtype == torch.float32
+                   else 2 ** -7 * (1 + want.abs()))
+            check(bool((d <= tol).all()), f"cpc_conv_tail vs plain {dtype} "
+                  f"({nb}, {L0}): max |d| {d.max().item():.3e}")
+            print(f"[a] cpc_conv_tail (K9) {str(dtype)[6:]} ({nb}, {L0}, "
+                  f"{C}): max |kernel - plain| {d.max().item():.3e} ("
+                  + ("atol 1e-4" if dtype == torch.float32 else
+                     "|d| <= 2^-7 (1 + |plain|)") + ")", flush=True)
+            if dtype == torch.bfloat16 and L0 == L0_TAIL:
+                worst = d.max().item()
+            del x0, got, want, d
+    torch.cuda.empty_cache()
+    return worst
+
+
+def fast_inputs(cfg, n_streams, frames, seed, device, dtype, n=None):
+    """(frames, n_streams, 2, n) audio from a seed; n defaults to the fast
+    path's frame_shift."""
     g = torch.Generator(device=device).manual_seed(seed)
-    x = 0.1 * torch.randn(frames, n_streams, 2, cfg.frame_shift,
+    x = 0.1 * torch.randn(frames, n_streams, 2, n or cfg.frame_shift,
                           generator=g, device=device)
     return x.to(dtype)
 
@@ -657,6 +823,102 @@ def phase_b(cfg, params_np):
               f"{got} = {per_step(config)} per step", flush=True)
         del pk, pp
         torch.cuda.empty_cache()
+    return p, frames
+
+
+def slice4_steps(p, cfg, nb, frames, dtype, device, path, plain=False,
+                 active=None):
+    """The kv step (staged slots; the attend kernel or, plain=True, its
+    plain version) or the full-recompute step over overlapped `frames`
+    (F, nb, 2, frame_samples) from a fresh state; returns the (F, 3, nb,
+    2) stacked p_now, p_future, vad."""
+    from vap_realtime_tpu_torch.runtime.arena import (
+        init_path_state, path_step,
+    )
+
+    st = init_path_state(path, cfg, nb, dtype, device, staged=True)
+    res = []
+    for f in range(frames.shape[0]):
+        act = None if active is None else active(f)
+        st, o = path_step(path, p, st, frames[f], cfg, act, slots="staged",
+                          attend_impl="plain" if plain else "kernel")
+        res.append(torch.stack([o["p_now"], o["p_future"], o["vad"]])
+                   .float())
+    return torch.stack(res)
+
+
+def phase_b_slice4(cfg, params_np):
+    """The kv and full paths at full width: float32 card vs CPU path, bf16
+    B=4096 kv kernels vs plain with the launch counts, the full step's
+    outputs, and the 20 Hz stream golden on the card.  Returns the bf16
+    params and the B=4096 overlapped frames for phase (d)."""
+    from vap_realtime_tpu_torch.runtime import streaming
+    from vap_realtime_tpu_torch.weights.convert import params_to_torch
+
+    n = cfg.frame_samples
+    nb, nf = 3, 12
+    p32 = {dev: params_to_torch(params_np, dev) for dev in ("cpu", "cuda")}
+    frames = fast_inputs(cfg, nb, nf, 17, "cpu", torch.float32, n)
+    for path in ("kv", "full"):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            act = lambda f: torch.tensor([True, f % 2 == 0, f % 3 != 0],
+                                         device=dev)
+            outs[dev] = slice4_steps(p32[dev], cfg, nb, frames.to(dev),
+                                     torch.float32, dev, path,
+                                     active=act).cpu()
+        d = (outs["cuda"] - outs["cpu"]).abs().max().item()
+        check(d <= 1e-4, f"f32 {path} card vs CPU path: max |d| {d:.3e}")
+        print(f"[b] full width f32 {path} step, B={nb}, {nf} frames, card "
+              f"vs CPU path: max |d| {d:.3e} (atol 1e-4)", flush=True)
+
+    # the original reference's 20 Hz stream golden, float32 on the card
+    golden = np.load("tests/golden/stream_vap_20hz.npz")
+    fr = torch.as_tensor(streaming.frame_audio(golden["audio"], cfg)[:, None],
+                         device="cuda")
+    _, outs = streaming.run_frames(p32["cuda"], streaming.init_stream_state(
+        cfg, 1, device="cuda"), fr, cfg)
+    err = max(np.abs(outs[k][:, 0].cpu().numpy() - golden[k]).max()
+              for k in ("p_now", "p_future", "vad"))
+    check(err <= 1e-4, f"stream golden on the card: max |d| {err:.3e}")
+    print(f"[b] run_frames (full recompute) over the 20 Hz stream golden, "
+          f"{fr.shape[0]} frames, float32 on the card: max |d| vs the "
+          f"original reference {err:.3e} (atol 1e-4)", flush=True)
+    del p32
+
+    p = params_to_torch(params_np, "cuda", torch.bfloat16)
+    nf = 10                                          # one staged merge
+    frames = fast_inputs(cfg, B, nf, 18, "cuda", torch.bfloat16, n)
+    idx = torch.arange(B, device="cuda")
+    act = lambda f: (idx + f) % 7 != 0
+    zero_counts()
+    kv = slice4_steps(p, cfg, B, frames, torch.bfloat16, "cuda", "kv",
+                      active=act)
+    torch.cuda.synchronize()
+    want = {k: v * nf for k, v in per_step("kv").items()}
+    got = counts()
+    check(got == want, f"kv: launches {got}, expected {want}")
+    kv_plain = slice4_steps(p, cfg, B, frames, torch.bfloat16, "cuda", "kv",
+                            plain=True, active=act)
+    check(counts() == want, "kv: the plain run launched a kernel")
+    d = (kv[:, 0] - kv_plain[:, 0]).abs().max().item()
+    check(torch.isfinite(kv).all().item() and d <= 2e-2,
+          f"bf16 kv kernels vs plain step: max |d p_now| {d:.3e}")
+    full = slice4_steps(p, cfg, B, frames, torch.bfloat16, "cuda", "full",
+                        active=act)
+    check(torch.isfinite(full).all().item()
+          and ((full >= 0) & (full <= 1 + 1e-2)).all().item()
+          and (full[:, 0].sum(-1) - 1).abs().max().item() < 2e-2,
+          "bf16 full step: probabilities finite, in [0, 1], p_now summing "
+          "to 1")
+    d_kf = (kv[:, 0] - full[:, 0]).abs().max().item()
+    print(f"[b] full width bf16 kv step (staged, K2), B={B}, {nf} frames: "
+          f"kernels vs plain max |d p_now| {d:.3e} (atol 2e-2); launches "
+          f"{got} = {per_step('kv')} per step; full step p_now finite, "
+          f"summing to 1; kv vs full while the context grows: max |d "
+          f"p_now| {d_kf:.3e}", flush=True)
+    del kv, kv_plain, full
+    torch.cuda.empty_cache()
     return p, frames
 
 
@@ -877,6 +1139,141 @@ def phase_d(cfg, p_bf16, frames, gpu):
                          layers=layers), compact, fused, lstm)
 
 
+def phase_d_slice4(cfg, p_bf16, frames, gpu):
+    """Times of the slice-4 kernels (K8, K9) and of the kv and full steps
+    at B=4096 bf16; returns the kernels' numbers for the JSON line."""
+    from vap_realtime_tpu_torch.runtime.arena import (
+        init_path_state, path_step,
+    )
+
+    single, tail = time_single(gpu), time_tail(p_bf16, gpu)
+    steps = 12
+    for path in ("kv", "full"):
+        st = init_path_state(path, cfg, B, torch.bfloat16, "cuda",
+                             staged=True)
+        for f in range(steps + 3):
+            if f == 3:
+                torch.cuda.synchronize()
+                t0 = time.time()
+            st, o = path_step(path, p_bf16, st, frames[f % frames.shape[0]],
+                              cfg, slots="staged", attend_impl="kernel")
+        torch.cuda.synchronize()
+        step_ms = (time.time() - t0) * 1e3 / steps
+        print(f"[d] {path} step bf16{' staged, K2' if path == 'kv' else ''}"
+              f", B={B}: {step_ms:.3f} ms/step (host clock, {steps} steps) "
+              f"-> {B * (1e3 / cfg.frame_hz) / step_ms:.0f} realtime "
+              f"streams per card at {cfg.frame_hz} Hz | {gpu}", flush=True)
+        del st
+        torch.cuda.empty_cache()
+    return single, tail
+
+
+def time_single(gpu) -> dict:
+    """K8 at B=4096, T=50 in bf16: ms per launch (rotating over the 14
+    slot pairs), its bound, the v4 plain form, and SDPA with a float mask
+    over the same (B, H, 1, T+1) problem (the yardstick; the port never
+    calls it)."""
+    from vap_realtime_tpu_torch.models.transformer import alibi_slopes
+    from vap_realtime_tpu_torch.ops.cuda.attend import (
+        fused_attend, fused_attend_plain,
+    )
+    from vap_realtime_tpu_torch.profile_step import cuda_ms
+
+    bf = torch.bfloat16
+    cache, q, kc, vc, age = single_inputs(bf, "mixed", 19)
+    it = iter(range(10 ** 9))
+
+    def run(i, fn=fused_attend):
+        return fn(cache, q, kc, vc, age, slot_k=2 * i, slot_v=2 * i + 1,
+                  num_heads=H)
+
+    ms = cuda_ms(lambda: run(next(it) % (2 * P)), reps=70, warm=14)
+    dev_ms = kernel_device_ms(lambda: run(next(it) % (2 * P)),
+                              "attend_pair_kernel", 28)
+    plain_ms = cuda_ms(lambda: run(2, fused_attend_plain), reps=7, warm=2)
+    Dh = D // H
+    kv = cache[:, 1, :, 0:2 * D].reshape(B, T, 2, H, Dh)     # slots (4, 5)
+    k_all = torch.cat([kv[:, :, 0], kc.reshape(B, 1, H, Dh)], 1)
+    v_all = torch.cat([kv[:, :, 1], vc.reshape(B, 1, H, Dh)], 1)
+    k_all, v_all = (x.transpose(1, 2).contiguous() for x in (k_all, v_all))
+    slopes = torch.tensor(alibi_slopes(H), device="cuda")
+    ages = torch.cat([age, torch.zeros(B, 1, device="cuda")], 1)
+    mask = torch.where(ages[:, None, :] < 1e8, -ages[:, None, :]
+                       * slopes[None, :, None], float("-inf"))
+    mask = mask[:, :, None].to(bf)                            # (B, H, 1, L)
+    q_s = q.reshape(B, H, 1, Dh)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = lambda: sdpa(q_s, k_all, v_all, attn_mask=mask,
+                       scale=D ** -0.5).reshape(B, D)
+    library_ms = cuda_ms(lib, reps=20, warm=3)
+    d_lib = (lib().float() - run(2).float()).abs().max().item()
+    nbytes = B * T * 2 * D * 2 + 4 * B * D * 2 + B * T * 4
+    bound_ms, bound_by = bound(nbytes, B * T * D * 5)
+    print(f"[d] fused_attend (K8) bf16, B={B} T={T}: {ms:.4f} ms/launch "
+          f"(kernel alone {dev_ms:.4f} ms, torch.profiler), "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB at "
+          f"3.35 TB/s) = {100 * bound_ms / ms:.1f}% of bound; plain "
+          f"{plain_ms:.4f} ms; scaled_dot_product_attention yardstick "
+          f"{library_ms:.4f} ms (max |sdpa - kernel| {d_lib:.3e}) | {gpu}",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                kernel_device_ms=dev_ms)
+
+
+def time_tail(p_bf16, gpu) -> dict:
+    """K9 at 8192 channel-streams x L0 = 224, with a bf16 x0 (the kv
+    path's dtype) and a float32 one: ms per launch, the float32-CUDA-core
+    bound, the plain version; and the cuDNN conv1-4 + ChannelNorm tail of
+    cpc_conv_stack over the same x0 (the yardstick: no single PyTorch call
+    computes the tail)."""
+    from vap_realtime_tpu_torch.ops.basic import channel_norm, conv1d
+    from vap_realtime_tpu_torch.ops.cuda.cpc_conv import (
+        TAIL_SPECS, cpc_conv_tail, cpc_conv_tail_plain, tail_out_len,
+    )
+    from vap_realtime_tpu_torch.profile_step import cuda_ms
+
+    N, lens = 2 * B, tail_out_len(L0_TAIL)
+    flops = 2 * N * C * C * sum(L * k for L, (k, _, _) in zip(lens,
+                                                              TAIL_SPECS))
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x0, packed = tail_inputs(20, N, L0_TAIL, dtype)
+        enc = {k: {n: t.to(dtype) for n, t in v.items()}
+               for k, v in p_bf16["encoder"].items()}
+
+        def cudnn_tail():
+            x = x0.transpose(1, 2)
+            for li, (_, s, pad) in enumerate(TAIL_SPECS, start=1):
+                c, n = enc[f"conv{li}"], enc[f"norm{li}"]
+                x = torch.relu(channel_norm(conv1d(x, c["w"], c["b"], s, pad),
+                                            n["w"], n["b"]))
+            return x
+
+        ms = cuda_ms(lambda: cpc_conv_tail(x0, packed), reps=5, warm=1)
+        plain_ms = cuda_ms(lambda: cpc_conv_tail_plain(x0, packed), reps=3,
+                           warm=1)
+        tail_ms = cuda_ms(cudnn_tail, reps=5, warm=1)
+        es = x0.element_size()
+        nbytes = (N * (L0_TAIL + lens[-1]) * C * es
+                  + sum(t.numel() for t in packed) * 4)
+        bound_ms, bound_by = bound(nbytes, flops)
+        name = str(dtype)[6:]
+        print(f"[d] cpc_conv_tail (K9) {name} x0 ({N}, {L0_TAIL}, {C}): "
+              f"{ms:.4f} ms/launch, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{flops / 1e12:.3f} TFLOP at 67 TFLOP/s float32; "
+              f"{nbytes / 1e9:.3f} GB) = {100 * bound_ms / ms:.1f}% of bound;"
+              f" plain {plain_ms:.4f} ms; no single PyTorch call: the cuDNN "
+              f"conv1-4 + ChannelNorm tail {tail_ms:.4f} ms | {gpu}",
+              flush=True)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None,
+                         cudnn_tail_ms=tail_ms)
+        del x0
+    torch.cuda.empty_cache()
+    return dict(res["bfloat16"], bodies=res)
+
+
 def time_fused(p_bf16, frames, gpu) -> dict:
     """K7 at the serving shape in bf16: ms per launch, its bound, the
     plain version, and the `conv` and `normk` stacks over the same
@@ -984,7 +1381,7 @@ def phase_c(cfg, params_np, config="bf16"):
 
     kw = CONFIGS[config]
     arena = StreamArena(cfg, params_np, capacity=SERVER_CAPACITY,
-                        dtype=torch.bfloat16,
+                        path=kw.get("path", "fast"), dtype=torch.bfloat16,
                         quant_cache=kw.get("quant", False),
                         conv_impl=kw.get("conv_impl", "conv"),
                         slots=kw.get("slots", "staged"),
@@ -1107,6 +1504,46 @@ def phase_e(cfg, params_np) -> None:
           f"summing to 1", flush=True)
 
 
+def phase_e_slice4(cfg, params_np) -> None:
+    """VapEngine(path="full") on the card: a few process_batch calls of 64
+    streams in bf16 (overlapped frames) with finite probabilities; and
+    run_offline(path="full") on 2 s of synthetic audio, float32 on the
+    card, equal to the CPU runner at atol 1e-4."""
+    from vap_realtime_tpu_torch.runtime.engine import VapEngine
+    from vap_realtime_tpu_torch.runtime.offline import run_offline
+    from vap_realtime_tpu_torch.weights.synthetic import synthetic_audio
+
+    eng = VapEngine(cfg, params=params_np, path="full", batch=64,
+                    dtype=torch.bfloat16, device="cuda")
+    eng.warmup()
+    check(eng.chunk_samples == cfg.frame_samples
+          and eng.frame_contxt_padding == 320, "VapEngine(full) frame sizes")
+    rs = np.random.RandomState(21)
+    zero_counts()
+    n = 4
+    for _ in range(n):
+        out = eng.process_batch(
+            (0.1 * rs.randn(64, 2, eng.chunk_samples)).astype(np.float32))
+        pn = out["p_now"]
+        check(pn.shape == (64, 2) and np.isfinite(pn).all()
+              and (np.abs(pn.sum(-1) - 1) < 2e-2).all(),
+              f"VapEngine(full) p_now {pn[:2]}")
+    got = counts()
+    check(not any(got.values()), f"VapEngine(full) launched {got}: the full "
+                                 f"path runs no kernel of the port")
+    audio = synthetic_audio(16000 * 2, seed=22)
+    outs = {dev: run_offline(params_np, audio, cfg, "full", device=dev)
+            for dev in ("cuda", "cpu")}
+    d = max(np.abs(outs["cuda"][k] - outs["cpu"][k]).max()
+            for k in ("p_now", "p_future", "vad"))
+    check(d <= 1e-4 and outs["cuda"]["p_now"].shape == (39, 2),
+          f"run_offline(full) card vs CPU: max |d| {d:.3e}")
+    print(f"[c] VapEngine(path='full'), 64 streams, bf16: {n} process_batch "
+          f"calls, p_now finite and summing to 1; run_offline(path='full') "
+          f"on 2 s of audio ({outs['cuda']['p_now'].shape[0]} frames), "
+          f"float32 card vs CPU: max |d| {d:.3e} (atol 1e-4)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1129,23 +1566,30 @@ def main() -> int:
     err_fused = phase_a_fused()
     err_compact = phase_a_compact()
     err_lstm = phase_a_lstm()
+    err_single = phase_a_single()
+    err_tail = phase_a_tail()
     cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
     params_np = synthetic_params(cfg.frame_hz)
     p_bf16, frames = phase_b(cfg, params_np)
+    p4, frames4 = phase_b_slice4(cfg, params_np)
     bodies, norm, compact, fused, lstm = phase_d(cfg, p_bf16, frames, gpu)
-    del p_bf16, frames
+    single, tail = phase_d_slice4(cfg, p4, frames4, gpu)
+    del p_bf16, frames, p4, frames4
     torch.cuda.empty_cache()
     run_bf16 = phase_c(cfg, params_np, "bf16")
     run_q8g = phase_c(cfg, params_np, "q8g_normk")
     run_fused = phase_c(cfg, params_np, "fused_compact")
+    run_kv = phase_c(cfg, params_np, "kv")
     phase_e(cfg, params_np)
+    phase_e_slice4(cfg, params_np)
 
     print(gpu, flush=True)
     src = "vap_realtime_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
         dict(name="attend_pair", route="cuda", source=src + "attend_pair.cu",
              replaces="vap_realtime_tpu/ops/pallas/attend.py:454",
-             launches=run_bf16["attend"] + run_q8g["attend"],
+             launches=run_bf16["attend"] + run_q8g["attend"]
+             + run_kv["attend"],
              max_abs_err=max(err_main, err_int8),
              **bodies["K2 bf16 staged"], bodies=bodies),
         dict(name="channel_norm_relu", route="cuda",
@@ -1165,6 +1609,15 @@ def main() -> int:
         dict(name="lstm_scan", route="cuda", source=src + "lstm_scan.cu",
              replaces="vap_realtime_tpu/ops/pallas/lstm.py:48",
              launches=run_fused["lstm"], max_abs_err=err_lstm, **lstm),
+        # K8 and K9: off the serving paths, as in the JAX package; their
+        # launches are read over the kv server run (the slice's path): 0
+        dict(name="fused_attend", route="cuda", source=src + "attend_pair.cu",
+             replaces="vap_realtime_tpu/ops/pallas/attend.py:396",
+             launches=run_kv["single"], max_abs_err=err_single, **single),
+        dict(name="cpc_conv_tail", route="cuda",
+             source=src + "cpc_conv_tail.cu",
+             replaces="vap_realtime_tpu/ops/pallas/cpc_conv.py:108",
+             launches=run_kv["tail"], max_abs_err=err_tail, **tail),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""PyTorch port: the serving arena against the JAX package's arena, and
-the native server over loopback (CPU)."""
+"""PyTorch port: the serving arena (paths "fast", "kv" and "full")
+against the JAX package's arena, and the native server over loopback
+(CPU)."""
 
 import socket
 import threading
@@ -75,6 +76,47 @@ def test_arena_matches_jax_arena_with_lifecycle():
     assert ta.add_stream() is None                      # full
 
 
+@pytest.mark.parametrize("path", ["kv", "full"])
+def test_kv_and_full_arenas_match_jax_arena(path):
+    """StreamArena(path="kv" | "full") against the JAX arena through an
+    add / partial ticks / remove / re-add / reset lifecycle, past a staged
+    merge and the ring wrap (T = 20 at 1 s, 22 ticks): every served output
+    at atol 1e-4.  The JAX kv arena runs the einsum attend; the port's
+    passes attend_impl through (here the kernel's plain version)."""
+    jc = jcfg.VapConfig(**NARROW)
+    init = jax.jit(init_vap_params, static_argnums=1)
+    jp = jax.tree_util.tree_map(np.asarray, init(jax.random.PRNGKey(3), jc))
+    ja = JaxArena(jc, jp, capacity=3, path=path)
+    ta = StreamArena(VapConfig(**NARROW), jp, capacity=3, path=path,
+                     device="cpu")
+    assert ta.chunk_samples == ja.chunk_samples == jc.frame_samples
+    ja.warmup()
+    ta.warmup()
+    slots = [ja.add_stream() for _ in range(2)]
+    assert [ta.add_stream() for _ in range(2)] == slots
+    rs = np.random.RandomState(1)
+    for tick in range(22):
+        if tick == 6:
+            ja.remove_stream(slots[1])
+            ta.remove_stream(slots[1])
+        if tick == 9:
+            s_j, s_t = ja.add_stream(), ta.add_stream()
+            assert s_j == s_t == slots[1]
+        if tick == 14:
+            ja.reset_slots([slots[0]])
+            ta.reset_slots([slots[0]])
+        live = [s for s in slots if s in ta._active]
+        feed = [s for i, s in enumerate(live) if (tick + i) % 4 != 1]
+        chunks = {s: (0.1 * rs.randn(2, ta.chunk_samples))
+                  .astype(np.float32) for s in feed}
+        out_j, out_t = ja.step(chunks), ta.step(chunks)
+        for s in feed:
+            for k in ("p_now", "p_future", "vad", "H"):
+                np.testing.assert_allclose(out_t[s][k], out_j[s][k],
+                                           atol=1e-4,
+                                           err_msg=f"{k} slot {s} tick {tick}")
+
+
 def test_arena_defaults_to_cuda():
     """Entry points run on the card unless asked for the CPU; without
     CUDA they raise instead of falling back."""
@@ -83,9 +125,9 @@ def test_arena_defaults_to_cuda():
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StreamArena(VapConfig(**NARROW), synthetic_params(20), capacity=2)
-    with pytest.raises(ValueError, match="fast"):
-        StreamArena(VapConfig(**NARROW), synthetic_params(20), path="kv",
-                    device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 8"):
+        StreamArena(VapConfig(**NARROW), synthetic_params(20),
+                    path="hybrid", device="cpu")
 
 
 def _send_hops(sock, pcm, hops):
@@ -158,3 +200,51 @@ def test_native_server_int16_matches_arena():
                                    atol=1e-5, err_msg=f"result {i}")
         np.testing.assert_allclose(np.asarray(res["vad"]), want["vad"],
                                    atol=1e-5)
+
+
+def test_native_server_kv_matches_arena():
+    """The native server on the kv path (int16 wire, capacity 2): the
+    ingest engine emits frames that overlap the previous one by 320
+    samples (zeros before the first); four requests over loopback, each
+    result's echo is the frame's fresh audio and its p_now the kv arena's
+    own output for the same overlapped frames."""
+    from vap_realtime_tpu_torch.runtime.server_native import NativeVapServer
+
+    cfg = VapConfig(frame_hz=20, context_len_sec=1.0)
+    params = synthetic_params(20)
+    kw = dict(capacity=2, path="kv", wire_dtype=np.int16, device="cpu")
+    arena = StreamArena(cfg, params, **kw)
+    arena.warmup()
+    srv = NativeVapServer(arena, port=0, wire_int16=True)
+    assert srv.ingest.frame_samples == cfg.frame_samples
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    audio = synthetic_audio(16000)
+    pcm = np.clip(audio * 32768, -32768, 32767).astype("<i2")
+    results, buf = [], b""
+    try:
+        with socket.create_connection(("127.0.0.1", srv.port),
+                                      timeout=15) as s:
+            s.settimeout(15)
+            for i in range(4):
+                _send_hops(s, pcm, range(5 * i, 5 * i + 5))
+                buf = _read_results(s, buf, results, i + 1)
+    finally:
+        srv.stop()
+    th.join(timeout=5)
+    assert not th.is_alive()
+    assert len(results) == 4
+
+    ref = StreamArena(cfg, params, **kw)
+    ref.warmup()
+    slot = ref.add_stream()
+    shift, pad = cfg.frame_shift, cfg.frame_samples - cfg.frame_shift
+    padded = np.concatenate([np.zeros((2, pad), "<i2"), pcm], axis=1)
+    for i, res in enumerate(results):
+        np.testing.assert_allclose(np.asarray(res["x1"]),
+                                   audio[0, i * shift:(i + 1) * shift],
+                                   atol=1.5 / 32768)
+        frame = padded[:, i * shift:i * shift + cfg.frame_samples]
+        want = ref.step({slot: frame})[slot]
+        np.testing.assert_allclose(np.asarray(res["p_now"]), want["p_now"],
+                                   atol=1e-5, err_msg=f"result {i}")

@@ -31,12 +31,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_every_port_module_is_scanned():
     """The scan reaches each kernel wrapper and runtime module, those of
-    the fused encoder, LSTM scan and engine included."""
+    the fused encoder, LSTM scan, engine, conv tail, full-recompute path,
+    offline runner and WAV IO included."""
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     pkg = "vap_realtime_tpu_torch/"
     for mod in ("ops/cuda/attend.py", "ops/cuda/channorm.py",
                 "ops/cuda/encoder.py", "ops/cuda/lstm.py",
-                "models/encoder.py", "runtime/incremental.py",
+                "ops/cuda/cpc_conv.py", "models/encoder.py",
+                "models/transformer.py", "models/vap.py",
+                "runtime/incremental.py", "runtime/streaming.py",
+                "runtime/offline.py", "io/audio.py",
                 "runtime/arena.py", "runtime/engine.py",
                 "runtime/server_native.py", "profile_step.py"):
         assert pkg + mod in rel, mod

@@ -9,6 +9,8 @@
 //      output by the caller, so the body is K1/K2 on code values);
 //   K4 `_kernel_pair_q` / `_kernel_pair_stq`: an int8 cache and stage with
 //      one float32 scale per row (quant="row");
+// K8 `fused_attend` (attend.py:396, body `_kernel`:311): the K1 body for
+//      ONE k/v slot pair (B blocks instead of 2B), float caches only;
 // and, as a second kernel, the compact body K10 (`impl="compact"`,
 // `_kernel_pair_c`:282 and `_kernel_pair_cq`:296, math
 // `_attend_math_compact`:201; attend_impl "pallas3", the port's "kernel3").
@@ -47,7 +49,8 @@
 // the value, not the probability), as in the TPU kernel.
 //
 // Design (a simple, right first version): one block of H warps per
-// (stream, twin set); warp h owns head h (Dh = 64).  Each lane loads V
+// (stream, twin set) — for K8 per stream, the set fixed by the slot pair's
+// column half (slot_k % 4) / 2; warp h owns head h (Dh = 64).  Each lane loads V
 // adjacent elements of a row as one 4- or 8-byte vector: V = 2 for float
 // and bf16 caches (float2 / bf16x2), so the 32 lanes of a warp cover one
 // row's 64 head columns, one 128/256-byte run; V = 4 for int8 (char4), so
@@ -67,7 +70,8 @@
 // launch must read the phase plane and the stage slice once: bf16 419 +
 // 67 MB (~0.15 ms); int8 210 + 34 MB plus the row scales (~0.078 ms); K10
 // reads the phase plane only (bf16 ~0.13 ms, int8 ~0.068 ms).  The
-// FLOPs (~6 per element) are negligible.  Reaching that bound (TMA bulk
+// FLOPs (~6 per element) are negligible.  K8 reads one (T, 2D) half-plane:
+// bf16 210 MB at B=4096 (~0.065 ms).  Reaching that bound (TMA bulk
 // copies, deeper pipelining) is later work; chip_smoke.py measures how
 // far this version is from it.
 
@@ -254,15 +258,18 @@ struct Args {
   long long sscale_s, sscale_b;
   void* out;
   int B, P, T, D, H, S, phase;
+  int half;  // one-set launches (K8): the pair's column half of the phase
 };
 
-// grid: 2*B blocks (block = b*2 + s); block: 32*H threads.
-template <typename Q, typename C, bool kScale>
+// grid: kSets*B blocks (block = b*kSets + s); block: 32*H threads.  kSets
+// = 2: the twin sets, q/k_cur/v_cur/out (B, 2, D); kSets = 1 (K8): set
+// a.half of the phase, q/k_cur/v_cur/out (B, D).
+template <typename Q, typename C, bool kScale, int kSets = 2>
 __global__ void attend_pair_kernel(const Args a) {
   constexpr int V = sizeof(C) == 1 ? 4 : 2;  // elements per lane
   constexpr int L = kDh / V;                 // lanes per row
-  const int b = blockIdx.x >> 1;
-  const int s = blockIdx.x & 1;
+  const int b = kSets == 2 ? blockIdx.x >> 1 : blockIdx.x;
+  const int s = kSets == 2 ? blockIdx.x & 1 : a.half;
   const int h = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int group = lane / L;                // row group within the warp
@@ -270,8 +277,9 @@ __global__ void attend_pair_kernel(const Args a) {
   const int d = h * kDh + V * (lane % L);    // column inside the set's D
   const size_t D4 = 4 * static_cast<size_t>(D);
 
-  // q, k_cur, v_cur, out: (B, 2, D) contiguous
-  const size_t io = (static_cast<size_t>(b) * 2 + s) * D + d;
+  // q, k_cur, v_cur, out: (B, kSets, D) contiguous
+  const size_t io =
+      (static_cast<size_t>(b) * kSets + (kSets == 2 ? s : 0)) * D + d;
   float qv[V], kcv[V], vcv[V];
   Vec<Q, V>::load(static_cast<const Q*>(a.q) + io, qv);
   Vec<Q, V>::load(static_cast<const Q*>(a.k_cur) + io, kcv);
@@ -502,6 +510,12 @@ int dispatch(int cache_dtype, const Args& a, cudaStream_t stream) {
   return launch<Q, Q, false>(a, stream);
 }
 
+template <typename Q>
+int launch_single(const Args& a, cudaStream_t stream) {
+  attend_pair_kernel<Q, Q, false, 1><<<a.B, 32 * a.H, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype (q, k_cur, v_cur, out): 0 = float32, 1 = bfloat16.  cache_dtype
@@ -531,7 +545,8 @@ extern "C" int attend_pair_launch(
   const Args a{cache,     q,           k_cur,    v_cur,    age,
                scale,     scale_b,     stage,    stage_age, stage_scale,
                sscale_s,  sscale_b,    out,      B,        P,
-               T_rows,    D,           H,        S,        phase};
+               T_rows,    D,           H,        S,        phase,
+               0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? dispatch<float>(cache_dtype, a, st)
                     : dispatch<__nv_bfloat16>(cache_dtype, a, st);
@@ -556,8 +571,33 @@ extern "C" int attend_compact_launch(int dtype, int cache_dtype,
   const Args a{cache,   q,       k_cur,   v_cur,   age,
                scale,   scale_b, nullptr, nullptr, nullptr,
                0,       0,       out,     B,       P,
-               T_rows,  D,       H,       0,       phase};
+               T_rows,  D,       H,       0,       phase,
+               0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? dispatch_compact<float>(cache_dtype, a, st)
                     : dispatch_compact<__nv_bfloat16>(cache_dtype, a, st);
+}
+
+// K8, the single-pair body: the K1 math for the k/v pair at column half
+// `half` (0 or 1) of phase `phase`, float caches (cache dtype = dtype);
+// q prescaled as for attend_pair_launch; q, k_cur, v_cur, out (B, D).
+// Returns the launch's cudaError_t.
+extern "C" int attend_single_launch(int dtype, const void* cache,
+                                    const void* q, const void* k_cur,
+                                    const void* v_cur, const float* age,
+                                    void* out, int B, int P, int T_rows,
+                                    int D, int H, int phase, int half,
+                                    void* stream) {
+  if (H <= 0 || H > 32 || D != kDh * H || B <= 0 || T_rows <= 0 ||
+      phase < 0 || phase >= P || (half != 0 && half != 1) ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{cache,   q,       k_cur,   v_cur,   age,
+               nullptr, 0,       nullptr, nullptr, nullptr,
+               0,       0,       out,     B,       P,
+               T_rows,  D,       H,       0,       phase,
+               half};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_single<float>(a, st)
+                    : launch_single<__nv_bfloat16>(a, st);
 }

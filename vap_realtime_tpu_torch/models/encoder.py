@@ -1,10 +1,16 @@
-"""CPC waveform encoder — the seamless streaming form of the fast path.
+"""CPC waveform encoder — the chunked form (`encode_chunk`, the
+full-recompute and kv paths) and the seamless streaming form of the fast
+path.
 
 Behavioural contract (reference rvap/vap_main/encoder_components.py):
 5-layer strided conv stack 1->256->...->256, ChannelNorm+ReLU after each
 conv, 160x downsample to 100 Hz; 1-layer LSTM context net (gates
 i,f,g,o) whose (h, c) carries across frames; learned downsample conv
 (kernel = stride = 100//frame_hz) + LayerNorm + GELU.
+
+`cpc_conv_stack` zero-pads each conv at the chunk's own edges (torch
+conv padding) and `encode_chunk` trims the first and last CPC frame
+``z[:, 1:-1]`` (reference encoder.py:74-77), the parity-exact recipe.
 
 The fast path carries each conv layer's last (kernel - stride) inputs
 across frames and runs a VALID convolution over only the frame's NEW
@@ -155,6 +161,17 @@ def cpc_conv_stack_streaming_blocked(params: Params, new: torch.Tensor,
     return x, new_state
 
 
+def cpc_conv_stack(params: Params, wav: torch.Tensor) -> torch.Tensor:
+    """Strided conv stack with per-chunk zero padding: (B, L) waveform ->
+    (B, N, C) features at 100 Hz (the JAX package's `cpc_conv_stack`)."""
+    x = wav[:, None, :]
+    for i, (k, s, pad) in enumerate(CPC_CONV_SPECS):
+        c, n = params[f"conv{i}"], params[f"norm{i}"]
+        x = conv1d(x, c["w"], c["b"], stride=s, padding=pad)
+        x = _plain_norm_relu(x, n["w"], n["b"])
+    return x.transpose(1, 2)
+
+
 def cpc_context(params: Params, z: torch.Tensor, h0: torch.Tensor,
                 c0: torch.Tensor):
     """LSTM context network over (B, T, C); returns (y, h_T, c_T)."""
@@ -171,6 +188,20 @@ def downsample(params: Params, z: torch.Tensor, kernel: int) -> torch.Tensor:
     x = conv1d(z.transpose(1, 2), d["w"], d["b"], stride=kernel, padding=0)
     ln = params["down_ln"]
     return gelu(layer_norm(x.transpose(1, 2), ln["w"], ln["b"]))
+
+
+def encode_chunk(params: Params, wav: torch.Tensor, h0: torch.Tensor,
+                 c0: torch.Tensor, downsample_kernel: int):
+    """Encode one model frame of audio into exactly ONE embedding.
+
+    wav: (B, frame_samples), frame_samples = 16000//frame_hz + 320; h0,
+    c0: (B, C) carried LSTM state.  Conv stack -> trim the first and
+    last frame -> LSTM -> downsample (reference encoder.py:58-80).
+    Returns (emb (B, C), h_new, c_new).
+    """
+    z = cpc_conv_stack(params, wav)[:, 1:-1]
+    y, h_new, c_new = cpc_context(params, z, h0, c0)
+    return downsample(params, y, downsample_kernel)[:, 0], h_new, c_new
 
 
 def encode_chunk_streaming(params: Params, new: torch.Tensor,

@@ -6,6 +6,9 @@
   `bc_head` Linear(dim, 1) (vap_nod_main.py:137-138).
 - The va tap follows `VapConfig.vad_tap`: realtime reads the channel-GPT
   streams o1/o2 (vap_main.py:292-293), training the stereo towers x1/x2.
+- `trunk_forward` / `forward_context`: the whole-sequence trunk (both
+  channels folded into one (2B, T, D) batch through the shared channel
+  GPT), inference form.
 """
 
 from __future__ import annotations
@@ -16,9 +19,33 @@ import torch
 
 from vap_realtime_tpu_torch.config import VapConfig
 from vap_realtime_tpu_torch.models import objective as obj
+from vap_realtime_tpu_torch.models.transformer import (
+    gpt_forward, gpt_stereo_forward,
+)
 from vap_realtime_tpu_torch.ops.basic import linear
 
 Tensors = Dict[str, torch.Tensor]
+
+
+def trunk_forward(params, e1: torch.Tensor, e2: torch.Tensor,
+                  cfg: VapConfig) -> Tensors:
+    """Transformer trunk over per-channel embeddings e1, e2 (B, T, D) ->
+    {"x", "x1", "x2", "o1", "o2"} (B, T, D), the reference hot loop
+    (vap_main.py:285-287).  The channels share `ar_channel`, so they run
+    as one (2B, T, D) batch."""
+    B = e1.shape[0]
+    o = gpt_forward(params["ar_channel"], torch.cat([e1, e2]),
+                    cfg.num_heads, cfg.context_limit)
+    o1, o2 = o[:B], o[B:]
+    x, x1, x2 = gpt_stereo_forward(params["ar"], o1, o2, cfg.num_heads,
+                                   cfg.context_limit)
+    return {"x": x, "x1": x1, "x2": x2, "o1": o1, "o2": o2}
+
+
+def forward_context(params, e1: torch.Tensor, e2: torch.Tensor,
+                    cfg: VapConfig) -> Tensors:
+    """Embeddings (B, T, D) x2 -> all head outputs (full recompute)."""
+    return heads_forward(params, trunk_forward(params, e1, e2, cfg), cfg)
 
 
 def heads_forward(params, trunk: Tensors, cfg: VapConfig) -> Tensors:

@@ -23,6 +23,16 @@ tensor it runs `attend_pair_plain`, the same math in plain PyTorch (the
 CPU tests use it; chip_smoke.py holds the kernel against it on the card).
 `attend_pair.launches` counts the launches of the K1-K4 kernel,
 `attend_pair.compact_launches` those of K10.
+
+`fused_attend` replaces the TPU kernel `fused_attend`
+(vap_realtime_tpu/ops/pallas/attend.py:396, body `_kernel`:311, K8): the
+same v4 math for ONE k/v slot pair of one phase, float caches only, as a
+one-set instance of the K1 body (B blocks).  Like the JAX package's, the
+serving step does not call it.  Its plain version on the CPU is
+`attend_reference` (the JAX package's einsum reference, attend.py:583);
+`fused_attend_plain` is the v4 math of the kernel in plain PyTorch.
+`fused_attend.launches` counts its launches.  Bound: bytes, half of K1's
+(one k|v half-plane of the phase).
 """
 
 from __future__ import annotations
@@ -185,6 +195,69 @@ def attend_pair_plain(cache: Tensor, q2: Tensor, k_cur2: Tensor,
     return torch.stack(outs, dim=1)
 
 
+def _single_slot(cache: Tensor, slot_k: int, slot_v: int) -> int:
+    """Checks the single-pair API's contract (a float cache, k and v in
+    adjacent slots of one pair) and returns the pair's phase."""
+    if cache.dtype == torch.int8:
+        raise ValueError("fused_attend has no int8 dequant path; use "
+                         "attend_pair(scale=...)")
+    if slot_v != slot_k + 1 or slot_k % 2:
+        raise ValueError(f"fused_attend: slots ({slot_k}, {slot_v}) must be "
+                         f"a k/v pair (2p, 2p + 1): cache_layout stores k "
+                         f"and v adjacently")
+    return slot_k // 4
+
+
+def attend_reference(cache: Tensor, q: Tensor, k_cur: Tensor, v_cur: Tensor,
+                     age: Tensor, *, slot_k: int, slot_v: int,
+                     num_heads: int = 4) -> Tensor:
+    """Single-query attention over one k/v slot pair in einsum form (the
+    JAX package's `attend_reference`, attend.py:583): scores in float32
+    over q and k in their dtype, times 1/sqrt(D), plus -age * m_h (-inf
+    for rows aged DEAD/2 or more), a softmax over the T rows and the
+    current position, the weights cast to the cache dtype before the value
+    sum.  cache (B, P, T, 4D); q, k_cur, v_cur (B, D); age (B, T) float32.
+    Returns (B, D) in q's dtype."""
+    B, P, T, _ = cache.shape
+    D = q.shape[-1]
+    H = num_heads
+    Dh = D // H
+    ck, cv = (slot_k % 4) * D, (slot_v % 4) * D
+    k_old = cache[:, slot_k // 4, :, ck:ck + D]
+    v_old = cache[:, slot_v // 4, :, cv:cv + D]
+    qh = q.reshape(B, H, Dh)
+    scale = 1.0 / math.sqrt(D)
+    slopes = _slopes(H, cache.device, 1.0)
+    s_old = torch.einsum("bhd,bthd->bht", qh.float(),
+                         k_old.reshape(B, T, H, Dh).float()) * scale
+    bias = torch.where((age < DEAD / 2)[:, None, :],
+                       -age[:, None, :] * slopes[None, :, None],
+                       float("-inf"))
+    s_cur = (qh * k_cur.reshape(B, H, Dh)).float().sum(-1, keepdim=True)
+    w = torch.softmax(torch.cat([s_old + bias, s_cur * scale], -1), -1)
+    out = (torch.einsum("bht,bthd->bhd", w.to(cache.dtype)[:, :, :T].float(),
+                        v_old.reshape(B, T, H, Dh).float())
+           + w[:, :, T:] * v_cur.reshape(B, H, Dh).float())
+    return out.reshape(B, D).to(q.dtype)
+
+
+def fused_attend_plain(cache: Tensor, q: Tensor, k_cur: Tensor,
+                       v_cur: Tensor, age: Tensor, *, slot_k: int,
+                       slot_v: int, num_heads: int = 4) -> Tensor:
+    """The kernel's v4 math for one k/v slot pair in plain PyTorch, with
+    its rounding points (those of `attend_pair_plain` for one set)."""
+    ph = _single_slot(cache, slot_k, slot_v)
+    B, D = q.shape
+    off = (slot_k % 4) * D
+    dtype = q.dtype
+    k = cache[:, ph, :, off:off + D].to(dtype)
+    v = cache[:, ph, :, off + D:off + 2 * D].to(dtype)
+    w_sum, out = _fold(k, v, _prescale(q), k_cur, age, None,
+                       _slopes(num_heads, cache.device), num_heads)
+    out = out + v_cur.float().view(B, num_heads, -1)
+    return (out / (w_sum + 1.0)[..., None]).reshape(B, D).to(dtype)
+
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2  # cache / stage element code of an int8 cache
 
@@ -201,12 +274,17 @@ def _lib() -> ctypes.CDLL:
     fc = lib.attend_compact_launch
     fc.restype = ctypes.c_int
     fc.argtypes = [I, I, P, P, P, P, P, P, L, P, I, I, I, I, I, I, P]
+    f1 = lib.attend_single_launch
+    f1.restype = ctypes.c_int
+    # dtype; cache, q, k_cur, v_cur, age, out; B, P, T, D, H, phase,
+    # half; stream
+    f1.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
     return lib
 
 
-def _check(cond: bool, msg: str) -> None:
+def _check(cond: bool, msg: str, who: str = "attend_pair") -> None:
     if not cond:
-        raise ValueError(f"attend_pair: {msg}")
+        raise ValueError(f"{who}: {msg}")
 
 
 def _check_impl(impl: str, stage: Optional[Tensor]) -> None:
@@ -329,3 +407,55 @@ def attend_pair(cache: Tensor, q2: Tensor, k_cur2: Tensor, v_cur2: Tensor,
 
 attend_pair.launches = 0
 attend_pair.compact_launches = 0
+
+
+def fused_attend(cache: Tensor, q: Tensor, k_cur: Tensor, v_cur: Tensor,
+                 age: Tensor, *, slot_k: int, slot_v: int,
+                 num_heads: int = 4) -> Tensor:
+    """Single-query attention over ONE k/v slot pair of the phase-major
+    cache (the TPU `fused_attend`): global slot s lives in phase s // 4,
+    column (s % 4) * D.  cache (B, P, T, 4D) in q's dtype (an int8 cache
+    raises: this API has no dequant path); q, k_cur, v_cur (B, D); age
+    (B, T) float32, DEAD for invalid rows.  Returns (B, D)."""
+    ph = _single_slot(cache, slot_k, slot_v)
+    check = functools.partial(_check, who="fused_attend")
+    if cache.device.type == "cpu":
+        return attend_reference(cache, q, k_cur, v_cur, age, slot_k=slot_k,
+                                slot_v=slot_v, num_heads=num_heads)
+    check(cache.device.type == "cuda", f"unsupported device {cache.device}")
+    B, P, T, D4 = cache.shape
+    D = q.shape[-1]
+    H = num_heads
+    dtype = q.dtype
+    check(dtype in _DTYPES and cache.dtype == dtype,
+           f"q and cache: one dtype, float32 / bfloat16 (got {dtype}, "
+           f"{cache.dtype})")
+    check(D4 == 4 * D and D == 64 * H and 0 < H <= 32,
+           f"needs D = 64 * heads and a (.., 4D) cache; got D={D}, H={H}, "
+           f"cache {tuple(cache.shape)}")
+    check(ph < P, f"slot {slot_k} outside the {P} phases")
+    for t in (q, k_cur, v_cur):
+        check(tuple(t.shape) == (B, D) and t.dtype == dtype,
+               f"q/k_cur/v_cur must be ({B}, {D}) {dtype}")
+    check(tuple(age.shape) == (B, T) and age.dtype == torch.float32,
+           "age must be (B, T) float32")
+    for t in (q, k_cur, v_cur, age):
+        check(t.device == cache.device, "all tensors on one device")
+    for t in (cache, q, k_cur, v_cur, age):
+        check(t.is_contiguous(), "all tensors contiguous")
+    out = torch.empty((B, D), dtype=dtype, device=cache.device)
+    qs = _prescale(q)
+    with torch.cuda.device(cache.device):
+        rc = _lib().attend_single_launch(
+            _DTYPES[dtype], cache.data_ptr(), qs.data_ptr(),
+            k_cur.data_ptr(), v_cur.data_ptr(), age.data_ptr(),
+            out.data_ptr(), B, P, T, D, H, ph, (slot_k % 4) // 2,
+            torch.cuda.current_stream(cache.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_attend: kernel launch failed, "
+                           f"cudaError {rc}")
+    fused_attend.launches += 1
+    return out
+
+
+fused_attend.launches = 0

@@ -1,21 +1,26 @@
-"""Where the fast staged serving step's time goes on the card.
+"""Where a serving step's time goes on the card.
 
     python -m vap_realtime_tpu_torch.profile_step [--batch 4096] [--steps 16]
+        [--engine_path fast|kv|full]
         [--quant_cache row|global] [--conv_impl conv|normk|fused|blocked]
         [--attend_impl kernel|kernel3 --slots staged|stream|global]
 
 Full-width model (vap, 20 Hz, 2.5 s context, synthetic weights), bf16,
-all streams active; staged slots and the kernel attend unless asked
+all streams active.  --engine_path: "fast" (the default; the streaming
+encoder over fresh samples + the KV step), "kv" (the chunked encoder
+over overlapped frames + the KV step) or "full" (the chunked encoder +
+the full-recompute trunk over the 50-frame buffer, no attend kernel).
+The KV steps use staged slots and the kernel attend unless asked
 otherwise (`--attend_impl kernel3 --slots stream`: the compact attend
 kernel); the cache is bf16 or, with --quant_cache, int8 (per-row or
-frozen per-stream scales); the encoder's ChannelNorm runs as PyTorch ops
-(conv) or through the one-pass kernel (normk), or the whole conv stack
-runs in one kernel (fused).  Prints, each beside the card's name and
-power limit:
+frozen per-stream scales); the fast step's encoder runs its ChannelNorm
+as PyTorch ops (conv) or through the one-pass kernel (normk), or the
+whole conv stack in one kernel (fused).  Prints, each beside the card's
+name and power limit:
 
 - ms/step of the whole step (host clock around synchronized steps), of
-  the encoder alone (CUDA events) and of the 7 attend launches of a step
-  (CUDA events); the trunk is the rest;
+  the encoder alone (CUDA events) and of the 7 attend launches of a KV
+  step (CUDA events); the trunk is the rest;
 - the top CUDA kernels by device time over the steps (torch.profiler),
   and the device's busy share of that window (summed kernel time over
   wall time; overlapping kernels would push it above 100%).
@@ -31,9 +36,10 @@ import torch
 
 from vap_realtime_tpu_torch.config import VapConfig
 from vap_realtime_tpu_torch.models.encoder import (
-    CONV_IMPLS, encode_chunk_streaming,
+    CONV_IMPLS, encode_chunk, encode_chunk_streaming,
 )
 from vap_realtime_tpu_torch.runtime import incremental as inc
+from vap_realtime_tpu_torch.runtime.arena import init_path_state, path_step
 from vap_realtime_tpu_torch.weights.convert import params_to_torch
 from vap_realtime_tpu_torch.weights.synthetic import synthetic_params
 
@@ -63,6 +69,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--engine_path", choices=["fast", "kv", "full"],
+                    default="fast")
     ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
                     choices=["row", "global"])
     ap.add_argument("--conv_impl", choices=list(CONV_IMPLS), default="conv")
@@ -74,6 +82,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
     B, n, dt = args.batch, args.steps, torch.bfloat16
+    path = args.engine_path
     quant, conv_impl = args.quant_cache, args.conv_impl
     slots, attend_impl = args.slots, args.attend_impl
     staged = slots == "staged"
@@ -82,15 +91,16 @@ def main(argv=None) -> None:
     cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
     p = params_to_torch(synthetic_params(cfg.frame_hz), "cuda", dt)
     g = torch.Generator(device="cuda").manual_seed(0)
-    frames = (0.1 * torch.randn(8, B, 2, cfg.frame_shift, generator=g,
+    chunk = cfg.frame_shift if path == "fast" else cfg.frame_samples
+    frames = (0.1 * torch.randn(8, B, 2, chunk, generator=g,
                                 device="cuda")).to(dt)
-    st = inc.init_fast_state(cfg, B, dt, staged=staged, device="cuda",
-                             quant=quant, conv_impl=conv_impl)
+    st = init_path_state(path, cfg, B, dt, "cuda", staged=staged,
+                         quant=quant, conv_impl=conv_impl)
 
     def step(i):
         nonlocal st
-        st, out = inc.fast_step(p, st, frames[i % 8], cfg, slots=slots,
-                                attend_impl=attend_impl, conv_impl=conv_impl)
+        st, out = path_step(path, p, st, frames[i % 8], cfg, slots=slots,
+                            attend_impl=attend_impl, conv_impl=conv_impl)
         return out
 
     for i in range(4):
@@ -102,33 +112,56 @@ def main(argv=None) -> None:
     torch.cuda.synchronize()
     step_ms = (time.time() - t) * 1e3 / n
 
-    conv = inc.init_fast_state(cfg, B, dt, device="cuda",
-                               conv_impl=conv_impl).conv
     h0 = torch.zeros(2 * B, cfg.dim, device="cuda", dtype=dt)
-    enc_ms = cuda_ms(lambda: encode_chunk_streaming(
-        p["encoder"], frames[0].reshape(2 * B, -1), conv, h0, h0,
-        cfg.downsample_kernel, conv_impl), n)
-    kv = st.kv
+    if path == "fast":
+        conv = inc.init_fast_state(cfg, B, dt, device="cuda",
+                                   conv_impl=conv_impl).conv
+        enc_ms = cuda_ms(lambda: encode_chunk_streaming(
+            p["encoder"], frames[0].reshape(2 * B, -1), conv, h0, h0,
+            cfg.downsample_kernel, conv_impl), n)
+    else:
+        enc_ms = cuda_ms(lambda: encode_chunk(
+            p["encoder"], frames[0].reshape(2 * B, -1), h0, h0,
+            cfg.downsample_kernel), n)
+    what = ("full recompute" if path == "full" else
+            f"cache {f'int8 {quant}' if quant else 'bf16'}, "
+            f"{conv_impl if path == 'fast' else 'chunked encoder'}, "
+            f"{attend_impl}")
+    name = "full" if path == "full" else f"{path} {slots}"
+    if path == "full":
+        print(f"[profile] B={B} bf16 {name} step ({what}): {step_ms:.3f} "
+              f"ms/step; encoder {enc_ms:.3f} ms; trunk and heads "
+              f"{step_ms - enc_ms:.3f} ms | {gpu}", flush=True)
+    else:
+        att_ms = attend_ms(st.kv if path == "fast" else st, cfg, B, dt,
+                           staged, impl, g, n)
+        print(f"[profile] B={B} bf16 {name} step ({what}): "
+              f"{step_ms:.3f} ms/step; encoder {enc_ms:.3f} ms; 7 attend "
+              f"launches {att_ms:.3f} ms; trunk rest "
+              f"{step_ms - enc_ms - att_ms:.3f} ms | {gpu}", flush=True)
+    device_profile(step, n, gpu)
+
+
+def attend_ms(kv, cfg, B, dt, staged, impl, g, n) -> float:
+    """ms of the 7 attend launches of one KV step over the state's
+    cache (CUDA events)."""
     T = cfg.context_frames
     q2 = torch.randn(B, 2, cfg.dim, device="cuda", generator=g).to(dt)
     age = torch.randint(1, T, (B, T), device="cuda", generator=g).float()
     sage = torch.randint(1, T, (inc.STAGE_S, B), device="cuda",
                          generator=g).float()
     row = kv.quant == "row"
-    att_ms = cuda_ms(lambda: [inc.attend_pair(
+    return cuda_ms(lambda: [inc.attend_pair(
         kv.cache, q2, q2, q2, age, kv.stage if staged else None,
         sage if staged else None, scale=kv.scale[:, ph] if row else None,
         stage_scale=kv.stage_scale[:, :, ph] if row and staged else None,
         pair_base=2 * ph, num_heads=cfg.num_heads, impl=impl)
         for ph in range(7)], n)
-    what = (f"cache {f'int8 {quant}' if quant else 'bf16'}, {conv_impl}, "
-            f"{attend_impl}")
-    print(f"[profile] B={B} bf16 fast {slots} step ({what}): "
-          f"{step_ms:.3f} ms/step; "
-          f"encoder {enc_ms:.3f} ms; 7 attend launches {att_ms:.3f} ms; "
-          f"trunk rest {step_ms - enc_ms - att_ms:.3f} ms | {gpu}",
-          flush=True)
 
+
+def device_profile(step, n: int, gpu: str) -> None:
+    """torch.profiler over n steps: the device's busy share of the wall
+    time and the top CUDA kernels by device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

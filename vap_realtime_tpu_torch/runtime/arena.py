@@ -6,9 +6,16 @@ cache clearing is needed); eviction returns the slot to the free list.
 Every tick steps the FULL batch once; empty slots are frozen (their
 state is untouched and their outputs ignored).
 
-Port of `vap_realtime_tpu/runtime/arena.py` for `path="fast"`.  The
-arena runs on the card unless the caller asks for the CPU; without CUDA
-it raises instead of falling back.
+Port of `vap_realtime_tpu/runtime/arena.py` for `path="fast"` (the
+streaming encoder over fresh samples + the KV step), `"kv"` (the chunked
+encoder over overlapped frames + the KV step) and `"full"` (the
+parity-exact full recompute).  The arena runs on the card unless the
+caller asks for the CPU; without CUDA it raises instead of falling back.
+
+A difference of form from the JAX arena: its kv path calls `kv_step`
+without `attend_impl` (so always the einsum attend); this arena passes
+`attend_impl` through, so its kv path runs the attend kernel on the card.
+The outputs agree at 1e-4 either way.
 """
 
 from __future__ import annotations
@@ -20,8 +27,13 @@ import numpy as np
 import torch
 
 from vap_realtime_tpu_torch.config import VapConfig
-from vap_realtime_tpu_torch.runtime import incremental
+from vap_realtime_tpu_torch.runtime import incremental, streaming
 from vap_realtime_tpu_torch.weights.convert import params_to_torch
+
+PATHS = ("fast", "kv", "full")
+# the JAX package's paths that wait for a later slice of the port
+HYBRID = {"hybrid", "fast_hybrid"}
+HYBRID_WAITS = "ROADMAP.md Queue 1 item 8 (hybrid paths)"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,19 +46,67 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _reset_slot(state: incremental.FastState, mask: torch.Tensor) -> None:
+def check_path(path: str) -> None:
+    """Raises for a path the port does not serve (the hybrid paths name
+    the ROADMAP item they wait in)."""
+    if path in HYBRID:
+        raise ValueError(f"path {path!r} is not ported yet (waits in "
+                         f"{HYBRID_WAITS}); use 'fast', 'kv' or 'full'")
+    if path not in PATHS:
+        raise ValueError(f"unknown path {path!r} (use one of {PATHS})")
+
+
+def init_path_state(path: str, cfg: VapConfig, batch: int, dtype, device,
+                    *, staged: bool, quant=False, conv_impl: str = "conv"):
+    """A fresh state of one path's step: StreamState ("full"), KVState
+    ("kv") or FastState ("fast"); staged / quant apply to kv and fast,
+    conv_impl to fast."""
+    if path == "full":
+        return streaming.init_stream_state(cfg, batch, dtype, device)
+    if path == "kv":
+        return incremental.init_kv_state(cfg, batch, dtype, staged, device,
+                                         quant=quant)
+    return incremental.init_fast_state(cfg, batch, dtype, staged, device,
+                                       quant=quant, conv_impl=conv_impl)
+
+
+def path_step(path: str, params, state, chunk: torch.Tensor,
+              cfg: VapConfig, active: Optional[torch.Tensor] = None, *,
+              slots: str, attend_impl: str, conv_impl: str = "conv",
+              conv_chunks: int = 1, merge: str = "auto"):
+    """One step of a path: `stream_step` ("full"), `kv_step` ("kv") or
+    `fast_step` ("fast") with the options that path takes.  Returns
+    (state, outputs)."""
+    if path == "full":
+        return streaming.stream_step(params, state, chunk, cfg, active)
+    if path == "kv":
+        return incremental.kv_step(params, state, chunk, cfg, active,
+                                   slots=slots, attend_impl=attend_impl,
+                                   merge=merge)
+    return incremental.fast_step(params, state, chunk, cfg, active,
+                                 slots=slots, attend_impl=attend_impl,
+                                 conv_impl=conv_impl,
+                                 conv_chunks=conv_chunks, merge=merge)
+
+
+def _reset_slot(state, mask: torch.Tensor) -> None:
     """In place: zero the recurrent state and validity counters of every
-    slot where `mask` ((B,) bool) is set, in one fixed-shape pass.  The
-    cache and stage rows stay: their stamps are invalidated.  Per-row
-    scales stay too (read only for live rows); the frozen scales of
+    slot where `mask` ((B,) bool) is set, in one fixed-shape pass, for a
+    FastState, KVState or StreamState.  Cache, stage and embedding-buffer
+    rows stay: their stamps or the count invalidate them.  Per-row scales
+    stay too (read only for live rows); the frozen scales of
     quant="global" are zeroed, so the next stream calibrates anew."""
-    m2 = mask.repeat_interleave(2).view(-1, 1, 1)   # conv tails per channel
-    for v in state.conv.values():
-        v.masked_fill_(m2, 0)
-    kv = state.kv
-    kv.lstm_h.masked_fill_(mask.view(-1, 1, 1), 0)
-    kv.lstm_c.masked_fill_(mask.view(-1, 1, 1), 0)
-    kv.count.masked_fill_(mask, 0)
+    if isinstance(state, incremental.FastState):
+        m2 = mask.repeat_interleave(2).view(-1, 1, 1)  # conv tails per channel
+        for v in state.conv.values():
+            v.masked_fill_(m2, 0)
+        state = state.kv
+    state.lstm_h.masked_fill_(mask.view(-1, 1, 1), 0)
+    state.lstm_c.masked_fill_(mask.view(-1, 1, 1), 0)
+    state.count.masked_fill_(mask, 0)
+    if isinstance(state, streaming.StreamState):
+        return
+    kv = state
     kv.stamp.masked_fill_(mask.view(-1, 1), -1)
     if kv.stage_stamp is not None:
         kv.stage_stamp.masked_fill_(mask.view(1, -1), -1)
@@ -64,7 +124,9 @@ class StreamArena:
                  conv_impl: str = "conv", conv_chunks: int = 1,
                  device=None):
         """params: the params pytree with numpy (or array-like) leaves;
-        cast to `dtype` on `device` (None = CUDA).
+        cast to `dtype` on `device` (None = CUDA).  path: "fast", "kv"
+        or "full" (see the module docstring); "full" takes no slots,
+        quant_cache, attend_impl or conv_impl, "kv" no conv_impl.
 
         quant_cache: False, True / "row" (int8 cache, per-row scales) or
         "global" (int8 cache, per-stream frozen scales).  conv_impl:
@@ -79,8 +141,7 @@ class StreamArena:
         (normalized audio) or np.int16 (raw samples, normalized /32768
         on the device: a quarter of the host->device bytes).
         """
-        if path != "fast":
-            raise ValueError(f"path {path!r}: only the fast path is ported")
+        check_path(path)
         self.cfg = cfg
         self.capacity = capacity
         self.path = path
@@ -91,12 +152,14 @@ class StreamArena:
         self.conv_chunks = conv_chunks
         self.wire_dtype = wire_dtype
         self.device = resolve_device(device)
-        # the fast path consumes FRESH samples only (no 320 overlap)
-        self.chunk_samples = cfg.frame_shift
+        # the fast path consumes FRESH samples only (no 320 overlap); the
+        # others take whole overlapped frames
+        self.chunk_samples = (cfg.frame_shift if path == "fast"
+                              else cfg.frame_samples)
         self.params = params_to_torch(params, self.device, dtype)
-        self.state = incremental.init_fast_state(
-            cfg, capacity, dtype, slots == "staged", self.device,
-            quant=quant_cache, conv_impl=conv_impl)
+        self.state = init_path_state(path, cfg, capacity, dtype, self.device,
+                                     staged=slots == "staged",
+                                     quant=quant_cache, conv_impl=conv_impl)
         self._free: List[int] = list(range(capacity))
         self._active: Dict[int, bool] = {}
         self._lock = threading.Lock()
@@ -149,11 +212,11 @@ class StreamArena:
         x = self._upload(frames).to(self.dtype)
         if frames.dtype == np.int16:
             x = x * (1.0 / 32768.0)          # exact power-of-two scale
-        self.state, out = incremental.fast_step(
-            self.params, self.state, x, self.cfg, self._upload(act),
-            slots=self.slots, attend_impl=self.attend_impl,
-            conv_impl=self.conv_impl, conv_chunks=self.conv_chunks,
-            merge=merge)
+        self.state, out = path_step(
+            self.path, self.params, self.state, x, self.cfg,
+            self._upload(act), slots=self.slots,
+            attend_impl=self.attend_impl, conv_impl=self.conv_impl,
+            conv_chunks=self.conv_chunks, merge=merge)
         return out
 
     def warmup(self) -> None:
@@ -162,7 +225,9 @@ class StreamArena:
         merge path (a frozen empty-stage merge writes nothing), as the
         JAX arena warms its merge variant."""
         act = np.zeros((self.capacity,), bool)
-        modes = ["never", "force"] if self.slots == "staged" else ["never"]
+        modes = (["never", "force"]
+                 if self.slots == "staged" and self.path != "full"
+                 else ["never"])
         for merge in modes:
             out = self._run(self._zero, act, merge)
         for v in out.values():

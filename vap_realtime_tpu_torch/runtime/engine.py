@@ -1,18 +1,23 @@
 """VapEngine — the user-facing streaming engine (the `VAPRealTime`
 analogue): params, one step and the carried state behind `process()`.
 
-Port of `vap_realtime_tpu/runtime/engine.py` for `path="fast"`: the
-seamless streaming conv + incremental KV step, which consumes FRESH
-samples only (chunk length = frame_shift, no 320-sample overlap).  The
-JAX package's other paths ("kv", "full", "hybrid", "fast_hybrid") are
-not ported yet (ROADMAP.md Queue 1, items 3, 4 and 8) and raise.  The
-engine runs on the card unless the caller passes `device="cpu"`; without
-CUDA it raises instead of falling back.
+Port of `vap_realtime_tpu/runtime/engine.py` for three paths:
+- "full": the parity-exact full recompute per frame (reference
+  semantics; runtime/streaming.py);
+- "kv":   the chunked encoder + incremental KV step (exact until the
+  context window slides);
+- "fast": the seamless streaming conv + incremental KV step, which
+  consumes FRESH samples only (chunk length = frame_shift, no 320-sample
+  overlap).
+"full" and "kv" take whole overlapped frames (frame_samples).  The
+hybrid paths wait for a later slice (ROADMAP.md Queue 1 item 8) and
+raise.  The engine runs on the card unless the caller passes
+`device="cpu"`; without CUDA it raises instead of falling back.
 
-Differences of form from the JAX engine: the default path is "fast" (the
-only one here) and the default attend is "kernel" (the hand-written
-attend; the JAX engine defaults to "einsum"); the step updates the state
-in place, so `warmup` steps a throw-away state.
+Differences of form from the JAX engine: the default path is "fast" and
+the default attend is "kernel" (the hand-written attend; the JAX engine
+defaults to "kv" and "einsum"); the kv and fast steps update the state in
+place, so `warmup` steps a throw-away state.
 """
 
 from __future__ import annotations
@@ -24,19 +29,14 @@ import numpy as np
 import torch
 
 from vap_realtime_tpu_torch.config import FRAME_CONTEXT_PADDING, VapConfig
-from vap_realtime_tpu_torch.runtime import incremental
-from vap_realtime_tpu_torch.runtime.arena import resolve_device
+from vap_realtime_tpu_torch.runtime.arena import (
+    check_path, init_path_state, path_step, resolve_device,
+)
 from vap_realtime_tpu_torch.weights.convert import (
     load_pytree_npz, params_to_torch,
 )
 
 Params = Dict[str, Any]
-
-# the JAX engine's paths that wait for later slices of the port
-_UNPORTED = {"kv": "ROADMAP.md Queue 1 item 4 (kv_step)",
-             "full": "ROADMAP.md Queue 1 item 3 (runtime/streaming.py)",
-             "hybrid": "ROADMAP.md Queue 1 item 8 (hybrid paths)",
-             "fast_hybrid": "ROADMAP.md Queue 1 item 8 (hybrid paths)"}
 
 
 class VapEngine:
@@ -52,14 +52,11 @@ class VapEngine:
                  device="cuda"):
         """params: the params pytree with numpy (or array-like) leaves,
         or checkpoint_npz: a pytree .npz (weights/convert.py); cast to
-        `dtype` on `device`.  slots (default "staged"), attend_impl,
-        quant_cache, conv_impl and conv_chunks: see incremental.fast_step
-        and init_fast_state."""
-        if path in _UNPORTED:
-            raise ValueError(f"path {path!r} is not ported yet (waits in "
-                             f"{_UNPORTED[path]}); use path='fast'")
-        if path != "fast":
-            raise ValueError(f"unknown path {path!r} (use 'fast')")
+        `dtype` on `device`.  path: "fast", "kv" or "full".  slots
+        (default "staged"), attend_impl, quant_cache (kv and fast),
+        conv_impl and conv_chunks (fast): see incremental.fast_step,
+        kv_step and init_fast_state."""
+        check_path(path)
         self.cfg = cfg or VapConfig()
         self.batch = batch
         self.path = path
@@ -85,16 +82,17 @@ class VapEngine:
         self._proc_times: list = []
         self._last_interval_time = time.time()
 
-    def _init_state(self) -> incremental.FastState:
-        return incremental.init_fast_state(
-            self.cfg, self.batch, self.dtype, self.slots == "staged",
-            self.device, quant=self.quant_cache, conv_impl=self.conv_impl)
+    def _init_state(self):
+        return init_path_state(self.path, self.cfg, self.batch, self.dtype,
+                               self.device, staged=self.slots == "staged",
+                               quant=self.quant_cache,
+                               conv_impl=self.conv_impl)
 
     def _step(self, state, chunk: torch.Tensor):
-        return incremental.fast_step(
-            self.params, state, chunk, self.cfg, slots=self.slots,
-            attend_impl=self.attend_impl, conv_impl=self.conv_impl,
-            conv_chunks=self.conv_chunks)
+        return path_step(self.path, self.params, state, chunk, self.cfg,
+                         slots=self.slots, attend_impl=self.attend_impl,
+                         conv_impl=self.conv_impl,
+                         conv_chunks=self.conv_chunks)
 
     @property
     def audio_frame_size(self) -> int:
@@ -103,19 +101,21 @@ class VapEngine:
     @property
     def chunk_samples(self) -> int:
         """Samples the engine consumes per frame: frame_shift (fresh
-        samples only) on the fast path."""
-        return self.cfg.frame_shift
+        samples only) on the fast path, frame_samples (with the
+        320-sample overlap) elsewhere."""
+        return (self.cfg.frame_shift if self.path == "fast"
+                else self.cfg.frame_samples)
 
     @property
     def frame_contxt_padding(self) -> int:
-        """The fast path takes no left-context overlap (the other paths
-        take FRAME_CONTEXT_PADDING samples)."""
+        """Samples of left-context overlap per frame: none on the fast
+        path, FRAME_CONTEXT_PADDING on the others."""
         return 0 if self.path == "fast" else FRAME_CONTEXT_PADDING
 
     def warmup(self) -> None:
         """Build the kernels and warm the libraries ahead of the first
-        real frame, on a throw-away state (the step updates its state in
-        place)."""
+        real frame, on a throw-away state (the kv and fast steps update
+        their state in place)."""
         z = torch.zeros((self.batch, 2, self.chunk_samples), dtype=self.dtype,
                         device=self.device)
         _, out = self._step(self._init_state(), z)

@@ -1,5 +1,7 @@
-"""Incremental streaming step — per-frame KV-cache append, single-query
-attention, no full-context recompute (the fast serving path).
+"""Incremental streaming steps — per-frame KV-cache append, single-query
+attention, no full-context recompute: `kv_step` (the chunked encoder over
+overlapped frames) and `fast_step` (the streaming encoder over fresh
+samples, the fast serving path).
 
 Port of `vap_realtime_tpu/runtime/incremental.py`: the same phase-major
 cache layout, per-stream stamps, slot policies, staged merge and int8
@@ -37,7 +39,8 @@ import torch
 
 from vap_realtime_tpu_torch.config import VapConfig
 from vap_realtime_tpu_torch.models.encoder import (
-    check_conv_impl, encode_chunk_streaming, init_conv_stream_state,
+    check_conv_impl, encode_chunk, encode_chunk_streaming,
+    init_conv_stream_state,
 )
 from vap_realtime_tpu_torch.models.transformer import alibi_slopes, combinator
 from vap_realtime_tpu_torch.models.vap import heads_forward, probs_from_outputs
@@ -45,6 +48,7 @@ from vap_realtime_tpu_torch.ops.basic import gelu, layer_norm, linear
 from vap_realtime_tpu_torch.ops.cuda.attend import (
     DEAD, attend_pair, attend_pair_plain,
 )
+from vap_realtime_tpu_torch.runtime.streaming import scan_frames
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
@@ -194,6 +198,46 @@ def init_kv_state(cfg: VapConfig, batch: int = 1, dtype=torch.float32,
         scale=scale,
         stage_scale=stage_scale,
     )
+
+
+def kv_step(params: Params, state: KVState, chunk: Tensor, cfg: VapConfig,
+            active: Optional[Tensor] = None, slots: str = "stream",
+            attend_impl: str = "einsum", merge: str = "auto"
+            ) -> Tuple[KVState, Dict[str, Tensor]]:
+    """One incremental frame: chunk (B, 2, frame_samples), overlapped
+    frames as the full-recompute path takes them, -> probabilities.  The
+    chunked encoder (`encode_chunk`) feeds `_kv_core`; the trunk order is
+    that of VAPRealTime.process_vap (vap_main.py:272-307), touching only
+    the newest position.  Updates `state` in place and returns it.
+
+    active: (B,) bool; streams without a fresh frame this tick are
+    FROZEN (recurrent state, count and cached rows unchanged; outputs to
+    be ignored).  slots, attend_impl, merge: see `_kv_core`.
+    """
+    B = chunk.shape[0]
+    if active is None:
+        active = torch.ones((B,), dtype=torch.bool, device=chunk.device)
+    e, h_new, c_new = encode_chunk(
+        params["encoder"], chunk.reshape(B * 2, -1),
+        state.lstm_h.reshape(B * 2, -1), state.lstm_c.reshape(B * 2, -1),
+        cfg.downsample_kernel)
+    e = e.reshape(B, 2, cfg.dim).to(state.lstm_h.dtype)
+    outs = _kv_core(params, state, e, h_new.reshape(B, 2, -1),
+                    c_new.reshape(B, 2, -1), cfg, active, slots, attend_impl,
+                    merge)
+    return state, outs
+
+
+def run_frames_kv(params: Params, state: KVState, frames: Tensor,
+                  cfg: VapConfig, slots: str = "global",
+                  attend_impl: str = "einsum"):
+    """kv_step over (F, B, 2, frame_samples) frames; returns (state,
+    {name: (F, B, ...)}).  Every stream is active every frame, so the
+    default "global" slot policy equals "stream" (count == step
+    throughout) at the cheapest write."""
+    return scan_frames(functools.partial(kv_step, slots=slots,
+                                         attend_impl=attend_impl),
+                       params, state, frames, cfg)
 
 
 def _scatter_rows(cache: Tensor, rows: Tensor, idx: Tensor,
@@ -631,10 +675,6 @@ def run_frames_fast(params: Params, state: FastState, frames: Tensor,
                     attend_impl: str = "einsum", conv_impl: str = "conv"):
     """fast_step over (F, B, 2, frame_shift) frames; returns (state,
     {name: (F, B, ...)}) like the JAX package's lax.scan."""
-    outs: Dict[str, List[Tensor]] = {}
-    for f in range(frames.shape[0]):
-        state, o = fast_step(params, state, frames[f], cfg, slots=slots,
-                             attend_impl=attend_impl, conv_impl=conv_impl)
-        for name, v in o.items():
-            outs.setdefault(name, []).append(v)
-    return state, {name: torch.stack(v) for name, v in outs.items()}
+    return scan_frames(functools.partial(
+        fast_step, slots=slots, attend_impl=attend_impl,
+        conv_impl=conv_impl), params, state, frames, cfg)

@@ -5,12 +5,12 @@ the same socket.  All socket work happens in native/ingest.cpp; Python
 does one ctypes poll per tick and one arena step.  Slot lifecycle is
 driven by the engine's per-slot generation counters (reuse -> arena
 state reset).  Port of `vap_realtime_tpu/runtime/server_native.py` for
-the fast engine path.
+the fast, kv and full engine paths.
 
 Run (on the card):
     python -m vap_realtime_tpu_torch.runtime.server_native \
         --synthetic_weights --capacity 4096 --bf16 --wire_int16 \
-        [--quant_cache global]
+        [--engine_path fast|kv|full] [--quant_cache global]
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vap_realtime_tpu_torch.config import VapConfig
+from vap_realtime_tpu_torch.config import FRAME_CONTEXT_PADDING, VapConfig
 from vap_realtime_tpu_torch.io.native_ingest import NativeIngest
 from vap_realtime_tpu_torch.runtime.arena import StreamArena
 from vap_realtime_tpu_torch.runtime.server import RESULT_KEYS
@@ -34,8 +34,10 @@ class NativeVapServer:
         self.arena = arena
         self.mode = mode
         # the fast path's native assembler emits disjoint fresh-sample
-        # chunks (frame_shift samples, no overlap)
-        self._pad = 0
+        # chunks (frame_shift samples, no overlap); the kv and full paths
+        # take frames that overlap the previous one by the reference's
+        # 320-sample left context
+        self._pad = 0 if arena.path == "fast" else FRAME_CONTEXT_PADDING
         # int16 wire + int16-capable arena: frames stay int16 to the
         # device (normalized there; a quarter of the transfer)
         self._i16 = bool(wire_int16) and np.dtype(arena.wire_dtype) == np.int16
@@ -145,7 +147,12 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     ap.add_argument("--vap_process_rate", type=int, default=20)
     ap.add_argument("--context_len_sec", type=float, default=2.5)
     ap.add_argument("--mode", choices=["vap", "bc", "nod"], default="vap")
-    ap.add_argument("--engine_path", choices=["fast"], default="fast")
+    ap.add_argument("--engine_path", choices=["fast", "kv", "full"],
+                    default="fast",
+                    help="'fast' = streaming conv + KV step (fresh "
+                         "samples); 'kv' = chunked encoder + KV step; "
+                         "'full' = parity-exact full recompute (both take "
+                         "frames with the 320-sample overlap)")
     ap.add_argument("--slots", choices=["stream", "global", "staged"],
                     default="staged",
                     help="KV write-slot policy: 'staged' (default) = exact "
