@@ -45,7 +45,14 @@ Phases (any failed check raises, so the script exits non-zero):
            raises;
          - cpc_conv_tail (K9) at 8192 channel-streams x L0 = 224 (20 Hz),
            float32 (atol 1e-4, TF32 off) and bf16 x0 (one bf16 step of the
-           output, |d| <= 2^-7 (1 + |plain|)), and 64 x L0 = 384 and 128.
+           output, |d| <= 2^-7 (1 + |plain|)), and 64 x L0 = 384 and 128;
+         - attend_lab (K11) in every ablated mode at 1 and 2 streams per
+           block, B=4096 and 64, T=50: float32 caches at atol = rtol 1e-4,
+           bf16 caches and int8 codes (dma, q8glb) with bf16 q at 2e-2
+           (bf16exp at 2e-2 in any dtype: it rounds to bf16 by design);
+         - cache_read (K12) over the whole cache at B=4096 and 64, float32
+           / bf16 / int8: |d| <= 1e-5 x the column's sum |x|, and two
+           launches bit-equal (no atomics).
   (b)    The full-width fast step (vap, 20 Hz, 2.5 s context, synthetic
          weights) in six configurations: staged slots with the bf16
          cache, the int8 cache with frozen scales (quant="global") and
@@ -67,6 +74,12 @@ Phases (any failed check raises, so the script exits non-zero):
          step gives finite probabilities; and run_frames over the 20 Hz
          stream golden (tests/golden/stream_vap_20hz.npz) in float32 on the
          card, within 1e-4 of the original reference's outputs.
+         The slice-5 hybrid paths (hybrid_step, fast_hybrid_step; staged
+         slots, K2, resync every 6 ticks): float32 card vs CPU path (atol
+         1e-4), resync frames on the card vs the full-trunk oracles (the
+         full recompute; fast_hybrid at resync_every=1) at 2e-5, and at
+         B=4096 bf16 kernels vs plain (p_now atol 2e-2) with 7 K2 launches
+         per incremental tick and none on a resync tick.
   (d)    Times with CUDA events after warm-up, each beside the card's name
          and power limit: each kernel body's ms per launch and its bound,
          its plain version, one PyTorch call over the same problem as a
@@ -76,19 +89,29 @@ Phases (any failed check raises, so the script exits non-zero):
          stand beside it; K8 against scaled_dot_product_attention; K9 against
          the cuDNN conv1-4 + ChannelNorm tail of cpc_conv_stack), and the
          ms/step at B=4096 of the fast step in six configurations and of
-         the kv and full steps.
+         the kv and full steps; the hybrid paths' incremental and resync
+         ticks at B=4096; and the lab tools (the slice-5 path): the attend
+         lab (vap_realtime_tpu_torch.tools.attend_lab) over every ablated
+         mode at 1 and 2 streams per block and the production variants,
+         and the component bench over every stage, with the launch
+         counters zeroed just before and read just after; K11's and K12's
+         ms per launch beside their bounds, plain versions and (K12)
+         torch.sum.
   (c)    The main paths through their user entry points: the native server
          (capacity 64, bf16, int16 wire) answers 8 loopback connections
          streaming 1 s of synthetic audio each (>= 15 results on each),
-         three times: the bf16 cache; StreamArena(quant_cache="global",
+         five times: the bf16 cache; StreamArena(quant_cache="global",
          conv_impl="normk"); StreamArena(conv_impl="fused",
          slots="stream", attend_impl="kernel3"); and
          StreamArena(path="kv") (overlapped frames, 7 K2 launches per
-         tick).  The launch counters are zeroed just before each run and
-         read just after.  Then VapEngine(path="fast", conv_impl="fused")
-         and VapEngine(path="full") take a few process_batch calls on the
-         card, and run_offline(path="full") on synthetic audio equals the
-         CPU.
+         tick); and StreamArena(path="fast_hybrid", resync_every=6), with
+         resync ticks inside the run (counted; 7 K2 launches per
+         incremental tick).  The launch counters are zeroed just before
+         each run and read just after.  Then VapEngine(path="fast",
+         conv_impl="fused"), VapEngine(path="full") and
+         VapEngine(path="fast_hybrid") take a few process_batch calls on the
+         card, and run_offline(path="full" and "hybrid") on synthetic audio
+         equals the CPU.
 
 The last lines: the card's name and power limit, one JSON line listing
 each kernel, and {"ok": true, "device": {...}}.
@@ -123,11 +146,13 @@ CONFIGS = {"bf16": {}, "q8g": dict(quant="global"), "q8": dict(quant="row"),
            "normk": dict(conv_impl="normk"), "fused": dict(conv_impl="fused"),
            "compact": dict(slots="stream", attend_impl="kernel3")}
 STEP_CONFIGS = tuple(CONFIGS)      # phases (b) and (d)
+HYBRID_R = 6                       # resync cadence of the hybrid checks
 # the server runs' arenas (phase (c)) add two combinations
 CONFIGS.update(q8g_normk=dict(quant="global", conv_impl="normk"),
                fused_compact=dict(conv_impl="fused", slots="stream",
                                   attend_impl="kernel3"),
-               kv=dict(path="kv"))
+               kv=dict(path="kv"),
+               fast_hybrid=dict(path="fast_hybrid", resync_every=HYBRID_R))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -193,48 +218,51 @@ def plain_fused(on: bool = True):
         enc.conv_stack_fused = kernel
 
 
-def zero_counts() -> None:
-    """Set every kernel's launch counter to 0."""
+def _counters():
+    """{key: (wrapper, counter attribute)} of every kernel."""
     from vap_realtime_tpu_torch.ops.cuda.attend import (
         attend_pair, fused_attend,
     )
+    from vap_realtime_tpu_torch.ops.cuda.attend_lab import attend_lab
     from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
     from vap_realtime_tpu_torch.ops.cuda.cpc_conv import cpc_conv_tail
     from vap_realtime_tpu_torch.ops.cuda.encoder import conv_stack_fused
+    from vap_realtime_tpu_torch.ops.cuda.lab import cache_read_all
     from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_scan
 
-    attend_pair.launches = attend_pair.compact_launches = 0
-    channel_norm_relu.launches = conv_stack_fused.launches = 0
-    lstm_scan.launches = fused_attend.launches = cpc_conv_tail.launches = 0
+    return {"attend": (attend_pair, "launches"),
+            "compact": (attend_pair, "compact_launches"),
+            "norm": (channel_norm_relu, "launches"),
+            "fused": (conv_stack_fused, "launches"),
+            "lstm": (lstm_scan, "launches"),
+            "single": (fused_attend, "launches"),
+            "tail": (cpc_conv_tail, "launches"),
+            "lab": (attend_lab, "launches"),
+            "read": (cache_read_all, "launches")}
+
+
+def zero_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def counts() -> dict:
     """Every kernel's launch counter."""
-    from vap_realtime_tpu_torch.ops.cuda.attend import (
-        attend_pair, fused_attend,
-    )
-    from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
-    from vap_realtime_tpu_torch.ops.cuda.cpc_conv import cpc_conv_tail
-    from vap_realtime_tpu_torch.ops.cuda.encoder import conv_stack_fused
-    from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_scan
-
-    return {"attend": attend_pair.launches,
-            "compact": attend_pair.compact_launches,
-            "norm": channel_norm_relu.launches,
-            "fused": conv_stack_fused.launches, "lstm": lstm_scan.launches,
-            "single": fused_attend.launches, "tail": cpc_conv_tail.launches}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
 def per_step(config: str) -> dict:
-    """Kernel launches one step of a configuration makes (fast steps, and
-    the kv step of "kv"; K5, K8 and K9 are off every serving path)."""
+    """Kernel launches one step of a configuration makes (fast steps, the
+    kv step of "kv", the incremental tick of "fast_hybrid"; K5, K8, K9,
+    K11 and K12 are off every serving path)."""
     kw = CONFIGS[config]
     compact = kw.get("attend_impl") == "kernel3"
     conv = kw.get("conv_impl", "conv")
     return {"attend": 0 if compact else 7, "compact": 7 if compact else 0,
             "norm": 5 if conv == "normk" else 0,
             "fused": 1 if conv == "fused" else 0, "lstm": 0, "single": 0,
-            "tail": 0}
+            "tail": 0, "lab": 0, "read": 0}
 
 
 def build() -> None:
@@ -1370,6 +1398,342 @@ def time_lstm(p_bf16, gpu) -> dict:
                 lstm_fused_ms=fused_ms)
 
 
+# --- slice 5: the lab kernels (K11, K12) and the hybrid paths -------------
+
+LAB_TOL = {torch.float32: 1e-4, torch.bfloat16: BF16_TOL}
+FLOAT_LAB_MODES = ("dma", "mxu", "nomax", "noexp", "f32out", "nodenom",
+                   "noout", "bf16exp", "v5")
+INT8_LAB_MODES = ("dma", "q8glb")
+
+
+def lab_inputs(dtype, seed: int, nb: int, int8: bool = False):
+    """The lab's inputs at nb streams, made on the card from a seed: a
+    (nb, P, T, 4D) cache (dtype, or int8 codes over the full range), q /
+    kc / vc (nb, 2D) and live ages in [1, T)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(generator=g, device="cuda")
+    if int8:
+        cache = torch.randint(-127, 128, (nb, P, T, 4 * D), **kw).to(
+            torch.int8)
+    else:
+        cache = (0.3 * torch.randn(nb, P, T, 4 * D, **kw)).to(dtype)
+    q, kc, vc = (0.3 * torch.randn(3, nb, 2 * D, **kw)).to(dtype)
+    age = torch.randint(1, T, (nb, T), **kw).float()
+    return cache, q, kc, vc, age
+
+
+def lab_tol(mode: str, dtype) -> float:
+    """atol = rtol of one lab mode: float32 1e-4 (TF32 is off; the
+    kernel sums in another order), bf16 2e-2 (both round the products to
+    bf16 where the TPU body does, at the same points, and sum in other
+    orders); bf16exp rounds to bf16 in any dtype, so 2e-2 there too."""
+    return BF16_TOL if mode == "bf16exp" else LAB_TOL[dtype]
+
+
+def phase_a_lab() -> float:
+    """K11 in every mode, 1 and 2 streams per block, against its plain
+    version: B=4096 (phases 0 and 6) and the server's 64 (all phases),
+    T=50; float32 and bf16 caches, int8 codes with bf16 q.  noexp's q and
+    kc are scaled down, so that its denominators (sums of the ages' bias)
+    stay away from 0; this is checked.  Returns the max abs error."""
+    from vap_realtime_tpu_torch.ops.cuda.attend_lab import (
+        attend_lab, attend_lab_plain,
+    )
+
+    worst = 0.0
+    cases = [(dt, False, FLOAT_LAB_MODES)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append((torch.bfloat16, True, INT8_LAB_MODES))
+    for dtype, int8, modes in cases:
+        for nb, phases in ((B, (0, P - 1)), (SERVER_CAPACITY, range(P))):
+            cache, q, kc, vc, age = lab_inputs(dtype, 30, nb, int8)
+            for mode in modes:
+                qm, kcm = (0.1 * q, 0.1 * kc) if mode == "noexp" else (q, kc)
+                tol = lab_tol(mode, dtype)
+                err = 0.0
+                for ph in phases:
+                    want = attend_lab_plain(mode, cache, qm, kcm, vc, age, ph)
+                    wf = want.float()
+                    if mode == "noexp":
+                        check(wf.isfinite().all().item(), "noexp plain")
+                    for streams in (1, 2):
+                        got = attend_lab(mode, cache, qm, kcm, vc, age, ph,
+                                         streams=streams).float()
+                        torch.cuda.synchronize()
+                        d = (got - wf).abs()
+                        check(torch.isfinite(got).all().item()
+                              and not (d > tol + tol * wf.abs()).any().item(),
+                              f"attend_lab {mode} {str(dtype)[6:]} int8="
+                              f"{int8} B={nb} phase {ph} streams={streams}: "
+                              f"max |d| {d.max().item():.3e}")
+                        err = max(err, d.max().item())
+                worst = max(worst, err)
+                print(f"[a] attend_lab {mode:8s} {'int8' if int8 else ''}"
+                      f"{str(dtype)[6:]} B={nb} T={T}, 1 and 2 streams per "
+                      f"block: max |kernel - plain| {err:.3e} (atol = rtol "
+                      f"{tol:g})", flush=True)
+            del cache
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_a_read() -> float:
+    """K12 against its plain version on the whole cache at B=4096 and 64,
+    T=50, float32 / bf16 / int8: |d| <= 1e-5 * sum |x| per column (float32
+    sums in another order), and two launches bit-equal (no atomics).
+    Returns the max abs error."""
+    from vap_realtime_tpu_torch.ops.cuda.lab import (
+        cache_read_all, cache_read_all_plain,
+    )
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for nb in (B, SERVER_CAPACITY):
+            cache = lab_inputs(dtype, 31, nb, dtype == torch.int8)[0]
+            got = cache_read_all(cache)
+            again = cache_read_all(cache)
+            want = cache_read_all_plain(cache)
+            mag = cache.float().abs().sum((0, 1, 2))[None]
+            torch.cuda.synchronize()
+            d = (got - want).abs()
+            check(got.shape == (1, 4 * D) and torch.equal(got, again)
+                  and not (d > 1e-5 * mag).any().item(),
+                  f"cache_read {dtype} B={nb}: max |d| {d.max().item():.3e}, "
+                  f"repeat equal {torch.equal(got, again)}")
+            worst = max(worst, d.max().item())
+            print(f"[a] cache_read {str(dtype)[6:]} ({nb}, {P}, {T}, {4 * D}):"
+                  f" max |kernel - plain| {d.max().item():.3e} (<= 1e-5 x "
+                  f"column sum |x|), two launches bit-equal", flush=True)
+            del cache, mag
+    torch.cuda.empty_cache()
+    return worst
+
+
+def hybrid_steps(p, cfg, nb, frames, dtype, device, path, R, plain=False,
+                 active=None):
+    """hybrid_step / fast_hybrid_step over `frames` from a fresh staged
+    state at resync_every R, the attend kernel (plain=True: its plain
+    version); returns the (F, 3, nb, 2) stacked p_now, p_future, vad."""
+    from vap_realtime_tpu_torch.runtime.arena import (
+        init_path_state, path_step,
+    )
+
+    st = init_path_state(path, cfg, nb, dtype, device, staged=True)
+    res = []
+    for f in range(frames.shape[0]):
+        act = None if active is None else active(f)
+        st, o = path_step(path, p, st, frames[f], cfg, act, slots="staged",
+                          attend_impl="plain" if plain else "kernel",
+                          resync_every=R)
+        res.append(torch.stack([o["p_now"], o["p_future"], o["vad"]])
+                   .float())
+    return torch.stack(res)
+
+
+def phase_b_hybrid(cfg, params_np):
+    """The hybrid paths at full width: float32 card vs CPU path (resync
+    every 6 ticks, frozen ticks); resync frames on the card against the
+    full-trunk oracles (hybrid: the full recompute; fast_hybrid: itself
+    at resync_every=1); at B=4096 bf16 kernels vs plain versions with 7
+    K2 launches per incremental tick and none on a resync tick."""
+    from vap_realtime_tpu_torch.weights.convert import params_to_torch
+
+    nb, nf = 3, 12
+    p32 = {dev: params_to_torch(params_np, dev) for dev in ("cpu", "cuda")}
+    resync = [f for f in range(nf) if (f + 1) % HYBRID_R == 0]
+    for path, n, oracle in (("hybrid", cfg.frame_samples, "full"),
+                            ("fast_hybrid", cfg.frame_shift, None)):
+        frames = fast_inputs(cfg, nb, nf, 23, "cpu", torch.float32, n)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            act = lambda f: torch.tensor([True, f % 2 == 0, f % 3 != 0],
+                                         device=dev)
+            outs[dev] = hybrid_steps(p32[dev], cfg, nb, frames.to(dev),
+                                     torch.float32, dev, path, HYBRID_R,
+                                     active=act).cpu()
+        d = (outs["cuda"] - outs["cpu"]).abs().max().item()
+        check(d <= 1e-4, f"f32 {path} card vs CPU path: max |d| {d:.3e}")
+        if oracle:
+            ref = slice4_steps(p32["cuda"], cfg, nb, frames.cuda(),
+                               torch.float32, "cuda", oracle).cpu()
+        else:
+            ref = hybrid_steps(p32["cuda"], cfg, nb, frames.cuda(),
+                               torch.float32, "cuda", path, 1).cpu()
+        hyb = hybrid_steps(p32["cuda"], cfg, nb, frames.cuda(), torch.float32,
+                           "cuda", path, HYBRID_R).cpu()
+        d_or = (hyb[resync] - ref[resync]).abs().max().item()
+        check(d_or <= 2e-5, f"{path} resync frames vs the oracle: {d_or:.3e}")
+        print(f"[b] full width f32 {path}, B={nb}, {nf} frames, resync every "
+              f"{HYBRID_R}: card vs CPU path max |d| {d:.3e} (atol 1e-4); "
+              f"resync frames {resync} vs the "
+              f"{'full recompute' if oracle else 'resync_every=1 oracle'} "
+              f"on the card max |d| {d_or:.3e} (atol 2e-5)", flush=True)
+    del p32
+
+    p = params_to_torch(params_np, "cuda", torch.bfloat16)
+    idx = torch.arange(B, device="cuda")
+    act = lambda f: (idx + f) % 7 != 0
+    for path, n in (("hybrid", cfg.frame_samples),
+                    ("fast_hybrid", cfg.frame_shift)):
+        frames = fast_inputs(cfg, B, nf, 24, "cuda", torch.bfloat16, n)
+        zero_counts()
+        got = hybrid_steps(p, cfg, B, frames, torch.bfloat16, "cuda", path,
+                           HYBRID_R, active=act)
+        torch.cuda.synchronize()
+        launches = counts()
+        want = dict(per_step("bf16"), attend=7 * (nf - len(resync)))
+        check(launches == want, f"{path}: launches {launches}, expected "
+                                f"{want}")
+        plain = hybrid_steps(p, cfg, B, frames, torch.bfloat16, "cuda", path,
+                             HYBRID_R, plain=True, active=act)
+        check(counts() == want, f"{path}: the plain run launched a kernel")
+        d = (got[:, 0] - plain[:, 0]).abs().max().item()
+        check(torch.isfinite(got).all().item() and d <= 2e-2,
+              f"bf16 {path} kernels vs plain: max |d p_now| {d:.3e}")
+        print(f"[b] full width bf16 {path} (staged, K2), B={B}, {nf} frames, "
+              f"resync every {HYBRID_R}: kernels vs plain max |d p_now| "
+              f"{d:.3e} (atol 2e-2); {launches['attend']} K2 launches = 7 per "
+              f"incremental tick, none on the {len(resync)} resync ticks",
+              flush=True)
+        del got, plain, frames
+        torch.cuda.empty_cache()
+
+
+def lab_bound(mode: str, es: int):
+    """(ms, "bytes"/"operations"), bytes of one K11 launch at B, T: the
+    phase plane (noout: its k halves) and q, kc, vc, age, out as the mode
+    reads them, bf16 q (es: the cache element size)."""
+    plane = B * T * 4 * D * es
+    vec = B * 2 * D * 2
+    nbytes = {"dma": plane + vec,
+              "mxu": plane + 2 * vec,
+              "noout": plane // 2 + 3 * vec + B * T * 4}.get(
+                  mode, plane + 4 * vec + B * T * 4)
+    return bound(nbytes, B * 2 * T * D * 5), nbytes
+
+
+def phase_d_lab(gpu):
+    """The lab tools on the card (their main paths): the attend lab over
+    every ablated mode at 1 and 2 streams per block and the production
+    variants, and the component bench over every stage, the launch
+    counters zeroed just before and read just after; then K11's and
+    K12's times beside their bounds, plain versions and (K12) torch.sum.
+    Returns (K11's and K12's JSON fields, the tools' launches)."""
+    from vap_realtime_tpu_torch.ops.cuda.attend_lab import attend_lab_plain
+    from vap_realtime_tpu_torch.ops.cuda.lab import (
+        cache_read_all, cache_read_all_plain,
+    )
+    from vap_realtime_tpu_torch.profile_step import cuda_ms
+    from vap_realtime_tpu_torch.tools import attend_lab as lab_tool
+    from vap_realtime_tpu_torch.tools import component_bench as bench_tool
+
+    variants = [v + s for v in lab_tool.ABLATED for s in ("", "_s2")]
+    variants += list(lab_tool.PRODUCTION) + ["bcast_b16", "bcast_b64"]
+    zero_counts()                                    # main path: zero ...
+    lab_ms = lab_tool.main(["--batch", str(B), "--T", str(T), "--variants",
+                            ",".join(variants)])
+    bench_ms = bench_tool.main(["--batch", str(B), "--stages", "all"])
+    launches = counts()                              # ... and read
+    check(launches["lab"] > 0 and launches["read"] > 0,
+          f"the lab tools launched K11 {launches['lab']} and K12 "
+          f"{launches['read']} times")
+    print(f"[d] attend_lab tool, B={B} T={T}: {len(variants)} variants, "
+          f"launches {launches['lab']} K11, {launches['attend']} K1/K4, "
+          f"{launches['compact']} K10; component_bench, every stage: "
+          f"{launches['read']} K12 | {gpu}", flush=True)
+
+    modes = {}
+    for base, mode in lab_tool.ABLATED.items():
+        es = 1 if base.startswith("q8_") else 2
+        (bound_ms, bound_by), nbytes = lab_bound(mode, es)
+        ms1, ms2 = lab_ms[base] / P, lab_ms[base + "_s2"] / P
+        modes[base] = dict(ms=ms1, ms_2_streams=ms2, bound_ms=bound_ms,
+                           bound_by=bound_by)
+        print(f"[d] attend_lab {base:14s} bf16{' int8 cache' if es == 1 else ''}"
+              f", B={B} T={T}: {ms1:.4f} ms/launch (1 stream per block), "
+              f"{ms2:.4f} (2 streams); bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e9:.3f} GB) = {100 * bound_ms / ms1:.1f}% / "
+              f"{100 * bound_ms / ms2:.1f}% | {gpu}", flush=True)
+    for name in list(lab_tool.PRODUCTION) + ["bcast_b16", "bcast_b64"]:
+        print(f"[d] attend_lab {name:14s} (attend_pair): "
+              f"{lab_ms[name] / P:.4f} ms/launch | {gpu}", flush=True)
+    cache, cache_q8, q, age, _ = lab_tool.inputs(B, T, torch.device("cuda"))
+    plain_ms = cuda_ms(lambda: attend_lab_plain("v5", cache, q, q, q, age, 1),
+                       reps=5)
+    head = dict(modes["v5"], plain_ms=plain_ms, library_ms=None,
+                modes=modes)
+    print(f"[d] attend_lab v5 plain {plain_ms:.4f} ms/launch; no single "
+          f"PyTorch call computes an ablated body | {gpu}", flush=True)
+    del cache_q8
+
+    ms = cuda_ms(lambda: cache_read_all(cache), reps=20, warm=3)
+    plain_ms = cuda_ms(lambda: cache_read_all_plain(cache), reps=5)
+    library_ms = cuda_ms(lambda: torch.sum(cache, dim=(0, 1, 2),
+                                           dtype=torch.float32), reps=20)
+    nbytes = cache.numel() * 2 + 4 * D * 4
+    bound_ms, bound_by = bound(nbytes, cache.numel())
+    print(f"[d] cache_read (K12) bf16 ({B}, {P}, {T}, {4 * D}): {ms:.4f} "
+          f"ms/launch = {nbytes / ms / 1e6:.0f} GB/s, bound {bound_ms:.4f} ms"
+          f" ({bound_by}: {nbytes / 1e9:.3f} GB at 3.35 TB/s) = "
+          f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.4f} ms; "
+          f"torch.sum(dtype=float32) {library_ms:.4f} ms; the component "
+          f"bench's cacheread stage {bench_ms['cacheread']:.4f} ms, its hbm "
+          f"r+w probe {bench_ms['hbm']:.4f} ms | {gpu}", flush=True)
+    read = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+    del cache
+    torch.cuda.empty_cache()
+    return head, read, launches
+
+
+def phase_d_hybrid(cfg, p_bf16, gpu) -> None:
+    """The hybrid ticks at B=4096 bf16 (staged, K2): the incremental tick
+    and the resync tick timed apart (host clock around synchronized
+    ticks), the mean at resync_every=50, the realtime streams per card
+    each allows, and the peak device memory of a resync."""
+    from vap_realtime_tpu_torch.runtime.arena import (
+        init_path_state, path_step,
+    )
+
+    period = 1e3 / cfg.frame_hz
+    R = cfg.context_frames
+    for path, n in (("hybrid", cfg.frame_samples),
+                    ("fast_hybrid", cfg.frame_shift)):
+        frames = fast_inputs(cfg, B, 4, 25, "cuda", torch.bfloat16, n)
+        st = init_path_state(path, cfg, B, torch.bfloat16, "cuda",
+                             staged=True)
+
+        def ticks(mode, k):
+            nonlocal st
+            for f in range(k):
+                st, _ = path_step(path, p_bf16, st, frames[f % 4], cfg,
+                                  slots="staged", attend_impl="kernel",
+                                  resync_mode=mode)
+
+        ticks("never", 3)
+        ticks("force", 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        ticks("force", 4)
+        torch.cuda.synchronize()
+        resync_ms = (time.time() - t) * 1e3 / 4
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t = time.time()
+        ticks("never", 12)
+        torch.cuda.synchronize()
+        incr_ms = (time.time() - t) * 1e3 / 12
+        mean_ms = ((R - 1) * incr_ms + resync_ms) / R
+        print(f"[d] {path} bf16 staged K2, B={B}: incremental tick "
+              f"{incr_ms:.3f} ms, resync tick {resync_ms:.3f} ms (peak device "
+              f"memory {peak:.2f} GB), mean at resync_every={R} {mean_ms:.3f}"
+              f" ms -> {B * period / mean_ms:.0f} realtime streams per card "
+              f"amortised, {B * period / resync_ms:.0f} if the resync tick "
+              f"must fit the {period:.0f} ms period | {gpu}", flush=True)
+        del st, frames
+        torch.cuda.empty_cache()
+
+
 def phase_c(cfg, params_np, config="bf16"):
     """The native server on the card, with the arena of a configuration
     (CONFIGS): 8 loopback connections.  Returns the kernels' launches
@@ -1386,8 +1750,10 @@ def phase_c(cfg, params_np, config="bf16"):
                         conv_impl=kw.get("conv_impl", "conv"),
                         slots=kw.get("slots", "staged"),
                         attend_impl=kw.get("attend_impl", "kernel"),
+                        resync_every=kw.get("resync_every"),
                         wire_dtype=np.int16, device="cuda")
     arena.warmup()
+    step0 = arena.state.kv.step if hasattr(arena.state, "kv") else 0
     srv = NativeVapServer(arena, port=0, wire_int16=True)
     n_conn, hops = 8, 100                            # 1 s of audio each
     audios = [synthetic_audio(16000, seed=7 + i) for i in range(n_conn)]
@@ -1444,10 +1810,16 @@ def phase_c(cfg, params_np, config="bf16"):
     check(not ticker.is_alive() and not any(c.is_alive() for c in clients),
           "server or client threads did not stop")
     ticks = srv.tick_stats["n"]
+    # resync ticks of a hybrid arena: no attend launch
+    R = kw.get("resync_every", 0)
+    resyncs = sum(1 for g in range(step0, step0 + ticks)
+                  if R and (g + 1) % R == 0)
     want = {k: v * ticks for k, v in per_step(config).items()}
-    check(launches == want and ticks > 0,
-          f"{launches} launches over {ticks} server ticks (expected "
-          f"{per_step(config)} per tick)")
+    want["attend"] = per_step(config)["attend"] * (ticks - resyncs)
+    check(launches == want and ticks > 0 and (resyncs > 0 or not R),
+          f"{launches} launches over {ticks} server ticks, {resyncs} of "
+          f"them resync ticks (expected {per_step(config)} per incremental "
+          f"tick)")
     shift = cfg.frame_shift
     skipped = 0
     for i, res in enumerate(results):
@@ -1472,8 +1844,10 @@ def phase_c(cfg, params_np, config="bf16"):
     print(f"[c] native server ({config}: {kw or 'bf16 cache'}), capacity "
           f"{SERVER_CAPACITY}, bf16, int16 wire: "
           f"{[len(r) for r in results]} results on {n_conn} connections "
-          f"({skipped} frames skipped), {ticks} ticks, launches {launches} "
-          f"= {per_step(config)} per tick", flush=True)
+          f"({skipped} frames skipped), {ticks} ticks"
+          f"{f' ({resyncs} resync ticks)' if R else ''}, launches "
+          f"{launches} = {per_step(config)} per "
+          f"{'incremental ' if R else ''}tick", flush=True)
     return launches
 
 
@@ -1544,6 +1918,48 @@ def phase_e_slice4(cfg, params_np) -> None:
           f"float32 card vs CPU: max |d| {d:.3e} (atol 1e-4)", flush=True)
 
 
+def phase_e_hybrid(cfg, params_np) -> None:
+    """VapEngine(path="fast_hybrid") and run_offline(path="hybrid") on the
+    card: a few process_batch calls of 64 streams in bf16 with a resync
+    among them (finite probabilities, 7 K2 launches per incremental
+    call); the offline runner on 3 s of synthetic audio (resyncs every 50
+    frames), float32 card vs CPU at atol 1e-4."""
+    from vap_realtime_tpu_torch.runtime.engine import VapEngine
+    from vap_realtime_tpu_torch.runtime.offline import run_offline
+    from vap_realtime_tpu_torch.weights.synthetic import synthetic_audio
+
+    eng = VapEngine(cfg, params=params_np, path="fast_hybrid", batch=64,
+                    dtype=torch.bfloat16, resync_every=3, device="cuda")
+    eng.warmup()
+    rs = np.random.RandomState(26)
+    zero_counts()
+    n = 4
+    for _ in range(n):
+        out = eng.process_batch(
+            (0.1 * rs.randn(64, 2, eng.chunk_samples)).astype(np.float32))
+        pn = out["p_now"]
+        check(pn.shape == (64, 2) and np.isfinite(pn).all()
+              and (np.abs(pn.sum(-1) - 1) < 2e-2).all(),
+              f"VapEngine(fast_hybrid) p_now {pn[:2]}")
+    got = counts()
+    want = dict(per_step("bf16"), attend=7 * (n - 1))  # call 3 resyncs
+    check(got == want, f"VapEngine(fast_hybrid) launches {got}, expected "
+                       f"{want}")
+    audio = synthetic_audio(16000 * 3, seed=27)
+    outs = {dev: run_offline(params_np, audio, cfg, "hybrid", device=dev)
+            for dev in ("cuda", "cpu")}
+    d = max(np.abs(outs["cuda"][k] - outs["cpu"][k]).max()
+            for k in ("p_now", "p_future", "vad"))
+    F = outs["cuda"]["p_now"].shape[0]
+    check(d <= 1e-4 and F > cfg.context_frames,
+          f"run_offline(hybrid) card vs CPU: max |d| {d:.3e}")
+    print(f"[c] VapEngine(path='fast_hybrid', resync_every=3), 64 streams, "
+          f"bf16: {n} process_batch calls (one resync), launches {got}; "
+          f"run_offline(path='hybrid') on 3 s of audio ({F} frames, a "
+          f"resync at frame {cfg.context_frames - 1}), float32 card vs CPU: "
+          f"max |d| {d:.3e} (atol 1e-4)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1568,20 +1984,27 @@ def main() -> int:
     err_lstm = phase_a_lstm()
     err_single = phase_a_single()
     err_tail = phase_a_tail()
+    err_lab = phase_a_lab()
+    err_read = phase_a_read()
     cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
     params_np = synthetic_params(cfg.frame_hz)
     p_bf16, frames = phase_b(cfg, params_np)
     p4, frames4 = phase_b_slice4(cfg, params_np)
+    phase_b_hybrid(cfg, params_np)
     bodies, norm, compact, fused, lstm = phase_d(cfg, p_bf16, frames, gpu)
     single, tail = phase_d_slice4(cfg, p4, frames4, gpu)
+    phase_d_hybrid(cfg, p4, gpu)
     del p_bf16, frames, p4, frames4
     torch.cuda.empty_cache()
+    lab, read, run_lab = phase_d_lab(gpu)
     run_bf16 = phase_c(cfg, params_np, "bf16")
     run_q8g = phase_c(cfg, params_np, "q8g_normk")
     run_fused = phase_c(cfg, params_np, "fused_compact")
     run_kv = phase_c(cfg, params_np, "kv")
+    run_hybrid = phase_c(cfg, params_np, "fast_hybrid")
     phase_e(cfg, params_np)
     phase_e_slice4(cfg, params_np)
+    phase_e_hybrid(cfg, params_np)
 
     print(gpu, flush=True)
     src = "vap_realtime_tpu_torch/csrc/"
@@ -1589,7 +2012,7 @@ def main() -> int:
         dict(name="attend_pair", route="cuda", source=src + "attend_pair.cu",
              replaces="vap_realtime_tpu/ops/pallas/attend.py:454",
              launches=run_bf16["attend"] + run_q8g["attend"]
-             + run_kv["attend"],
+             + run_kv["attend"] + run_hybrid["attend"],
              max_abs_err=max(err_main, err_int8),
              **bodies["K2 bf16 staged"], bodies=bodies),
         dict(name="channel_norm_relu", route="cuda",
@@ -1618,6 +2041,13 @@ def main() -> int:
              source=src + "cpc_conv_tail.cu",
              replaces="vap_realtime_tpu/ops/pallas/cpc_conv.py:108",
              launches=run_kv["tail"], max_abs_err=err_tail, **tail),
+        # K11 and K12: the lab tools' kernels, launched over their runs
+        dict(name="attend_lab", route="cuda", source=src + "attend_lab.cu",
+             replaces="tools/attend_lab.py:304", launches=run_lab["lab"],
+             max_abs_err=err_lab, **lab),
+        dict(name="cache_read", route="cuda", source=src + "cache_read.cu",
+             replaces="tools/component_bench.py:393",
+             launches=run_lab["read"], max_abs_err=err_read, **read),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,5 @@
-"""PyTorch port: the serving arena (paths "fast", "kv" and "full")
-against the JAX package's arena, and the native server over loopback
-(CPU)."""
+"""PyTorch port: the serving arena (every path) against the JAX
+package's arena, and the native server over loopback (CPU)."""
 
 import socket
 import threading
@@ -117,17 +116,61 @@ def test_kv_and_full_arenas_match_jax_arena(path):
                                            err_msg=f"{k} slot {s} tick {tick}")
 
 
+@pytest.mark.parametrize("path", ["hybrid", "fast_hybrid"])
+def test_hybrid_arenas_match_jax_arena(path):
+    """StreamArena(path="hybrid" | "fast_hybrid", resync_every=5) against
+    the JAX arena through an add / partial ticks / remove / re-add / reset
+    lifecycle: the warm-up ticks count in the cadence, resync ticks fall
+    on merge ticks and on others (staged slots, merge every 8), the ring
+    wraps (T = 20, 23 ticks); every served output at atol 1e-4.  The JAX
+    hybrid arena runs the einsum attend; the port's passes attend_impl
+    through (here the kernel's plain version)."""
+    jc = jcfg.VapConfig(**NARROW)
+    init = jax.jit(init_vap_params, static_argnums=1)
+    jp = jax.tree_util.tree_map(np.asarray, init(jax.random.PRNGKey(4), jc))
+    kw = dict(capacity=3, path=path, resync_every=5)
+    ja = JaxArena(jc, jp, attend_impl="pallas", **kw)
+    ta = StreamArena(VapConfig(**NARROW), jp, device="cpu", **kw)
+    assert ta.chunk_samples == ja.chunk_samples
+    ja.warmup()
+    ta.warmup()
+    assert ta.state.kv.step == ja._tick == 3
+    slots = [ja.add_stream() for _ in range(2)]
+    assert [ta.add_stream() for _ in range(2)] == slots
+    rs = np.random.RandomState(2)
+    for tick in range(23):
+        if tick == 6:
+            ja.remove_stream(slots[1])
+            ta.remove_stream(slots[1])
+        if tick == 8:
+            s_j, s_t = ja.add_stream(), ta.add_stream()
+            assert s_j == s_t == slots[1]
+        if tick == 15:
+            ja.reset_slots([slots[0]])
+            ta.reset_slots([slots[0]])
+        live = [s for s in slots if s in ta._active]
+        feed = [s for i, s in enumerate(live) if (tick + i) % 4 != 1]
+        chunks = {s: (0.1 * rs.randn(2, ta.chunk_samples))
+                  .astype(np.float32) for s in feed}
+        out_j, out_t = ja.step(chunks), ta.step(chunks)
+        for s in feed:
+            for k in ("p_now", "p_future", "vad", "H"):
+                np.testing.assert_allclose(out_t[s][k], out_j[s][k],
+                                           atol=1e-4,
+                                           err_msg=f"{k} slot {s} tick {tick}")
+
+
 def test_arena_defaults_to_cuda():
     """Entry points run on the card unless asked for the CPU; without
-    CUDA they raise instead of falling back."""
+    CUDA they raise instead of falling back; an unknown path raises."""
+    with pytest.raises(ValueError, match="unknown path"):
+        StreamArena(VapConfig(**NARROW), synthetic_params(20),
+                    path="hybrid2", device="cpu")
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StreamArena(VapConfig(**NARROW), synthetic_params(20), capacity=2)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 8"):
-        StreamArena(VapConfig(**NARROW), synthetic_params(20),
-                    path="hybrid", device="cpu")
 
 
 def _send_hops(sock, pcm, hops):
@@ -163,8 +206,8 @@ def test_native_server_int16_matches_arena():
 
     cfg = VapConfig(frame_hz=20, context_len_sec=1.0)
     params = synthetic_params(20)
-    arena = StreamArena(cfg, params, capacity=2, wire_dtype=np.int16,
-                        device="cpu")
+    arena = StreamArena(cfg, params, capacity=2, path="fast",
+                        wire_dtype=np.int16, device="cpu")
     arena.warmup()
     srv = NativeVapServer(arena, port=0, wire_int16=True)
     assert srv.ingest.frame_samples == cfg.frame_shift
@@ -186,8 +229,8 @@ def test_native_server_int16_matches_arena():
     assert not th.is_alive()
     assert len(results) == 4
 
-    ref = StreamArena(cfg, params, capacity=2, wire_dtype=np.int16,
-                      device="cpu")
+    ref = StreamArena(cfg, params, capacity=2, path="fast",
+                      wire_dtype=np.int16, device="cpu")
     ref.warmup()
     slot = ref.add_stream()
     shift = cfg.frame_shift

@@ -49,7 +49,8 @@ def golden_wavs(tmp_path_factory):
     return golden, left, right, tmp
 
 
-@pytest.mark.parametrize("path", ["full", "kv", "fast"])
+@pytest.mark.parametrize("path", ["full", "kv", "fast", "hybrid",
+                                  "fast_hybrid"])
 def test_offline_main_matches_jax_and_golden(golden_wavs, path):
     """main(--engine_path path --device cpu) writes the reference CSV;
     every row equals the JAX runner's on the same WAV audio at 1e-4; the
@@ -81,9 +82,15 @@ def test_offline_main_matches_jax_and_golden(golden_wavs, path):
 
 
 def test_hybrid_paths_raise():
-    """The hybrid paths name the ROADMAP item they wait in."""
+    """The hybrid paths, refused before slice 5, now run: one row per
+    frame, with the framing of their incremental twins; an unknown path
+    raises."""
     audio = np.zeros((2, 4000), np.float32)
-    for path in ("hybrid", "fast_hybrid"):
-        with pytest.raises(ValueError, match="Queue 1 item 8"):
-            run_offline(synthetic_params(20), audio, VapConfig(), path,
-                        device="cpu")
+    for path, twin in (("hybrid", "kv"), ("fast_hybrid", "fast")):
+        got, want = (run_offline(synthetic_params(20), audio, VapConfig(), p,
+                                 device="cpu") for p in (path, twin))
+        np.testing.assert_array_equal(got["t"], want["t"])
+        assert got["p_now"].shape == want["p_now"].shape
+    with pytest.raises(ValueError, match="unknown path"):
+        run_offline(synthetic_params(20), audio, VapConfig(), "hybrid2",
+                    device="cpu")

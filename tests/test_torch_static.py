@@ -32,7 +32,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_every_port_module_is_scanned():
     """The scan reaches each kernel wrapper and runtime module, those of
     the fused encoder, LSTM scan, engine, conv tail, full-recompute path,
-    offline runner and WAV IO included."""
+    offline runner, WAV IO, the lab kernels and the lab tools included."""
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     pkg = "vap_realtime_tpu_torch/"
     for mod in ("ops/cuda/attend.py", "ops/cuda/channorm.py",
@@ -42,7 +42,9 @@ def test_every_port_module_is_scanned():
                 "runtime/incremental.py", "runtime/streaming.py",
                 "runtime/offline.py", "io/audio.py",
                 "runtime/arena.py", "runtime/engine.py",
-                "runtime/server_native.py", "profile_step.py"):
+                "runtime/server_native.py", "profile_step.py",
+                "ops/cuda/attend_lab.py", "ops/cuda/lab.py",
+                "tools/attend_lab.py", "tools/component_bench.py"):
         assert pkg + mod in rel, mod
 
 

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -94,16 +94,21 @@ def attend_full(q: Tensor, k: Tensor, v: Tensor, bias: Tensor,
 
 
 def mha(params: Params, q_in: Tensor, kv_in: Tensor, bias: Tensor,
-        num_heads: int, allowed=None) -> Tensor:
+        num_heads: int, allowed=None, kv_out: Optional[list] = None
+        ) -> Tensor:
     """Multi-head attention over full sequences.
 
     q_in: (B, Tq, D); kv_in: (B, Tk, D); bias: (H, Tq, Tk) additive;
     allowed: optional (B, 1, Tq, Tk) boolean mask (see `attend_full`).
     Scale is 1/sqrt(D) with the FULL dim (reference modules.py:52).
+    kv_out: a list that receives this call's (k, v), each (B, Tk, D), as
+    the KV cache stores them (the hybrid resync rebuilds the cache so).
     """
+    k_lin, v_lin = linear(kv_in, params["k"]), linear(kv_in, params["v"])
+    if kv_out is not None:
+        kv_out.append((k_lin, v_lin))
     q = _heads(linear(q_in, params["q"]), num_heads)
-    k = _heads(linear(kv_in, params["k"]), num_heads)
-    v = _heads(linear(kv_in, params["v"]), num_heads)
+    k, v = _heads(k_lin, num_heads), _heads(v_lin, num_heads)
     return linear(attend_full(q, k, v, bias[None], allowed), params["proj"])
 
 
@@ -113,15 +118,17 @@ def ffn(params: Params, x: Tensor) -> Tensor:
 
 
 def transformer_layer(params: Params, x: Tensor, bias: Tensor,
-                      num_heads: int, src=None, allowed=None) -> Tensor:
+                      num_heads: int, src=None, allowed=None,
+                      kv_out: Optional[list] = None) -> Tensor:
     """Pre-LN layer with optional cross-attention (modules.py:257-286);
-    allowed: an optional attention mask (see `mha`)."""
+    allowed, kv_out: see `mha` (self-attention's (k, v) first)."""
     z = layer_norm(x, params["ln_self"]["w"], params["ln_self"]["b"])
-    x = x + mha(params["attn"], z, z, bias, num_heads, allowed)
+    x = x + mha(params["attn"], z, z, bias, num_heads, allowed, kv_out)
     if src is not None:
         z = layer_norm(x, params["ln_src"]["w"], params["ln_src"]["b"])
         # K/V come from the RAW src (the reference does not normalise it)
-        x = x + mha(params["attn_cross"], z, src, bias, num_heads, allowed)
+        x = x + mha(params["attn_cross"], z, src, bias, num_heads, allowed,
+                    kv_out)
     h = layer_norm(x, params["ln_ffn"]["w"], params["ln_ffn"]["b"])
     return x + ffn(params["ffn"], h)
 

@@ -9,7 +9,8 @@ with a plain C interface, compiled for Hopper (`sm_90a`) into
 
 No PyTorch headers are included, so a build takes seconds.  `build_all`
 starts one nvcc per source at once and waits for all of them.  A library
-newer than its source is reused.  ptxas's register / spill report lands
+newer than its source and than every shared header (`csrc/*.cuh`) is
+reused.  ptxas's register / spill report lands
 in `build/lib<name>.log`.
 """
 
@@ -52,9 +53,10 @@ def lib_path(name: str) -> str:
 
 def _stale(name: str) -> bool:
     out = lib_path(name)
-    src = os.path.join(CSRC, f"{name}.cu")
+    deps = [os.path.join(CSRC, f"{name}.cu")] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
     return (not os.path.exists(out)
-            or os.path.getmtime(out) < os.path.getmtime(src))
+            or os.path.getmtime(out) < max(map(os.path.getmtime, deps)))
 
 
 def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:

@@ -1,15 +1,18 @@
 """Where a serving step's time goes on the card.
 
     python -m vap_realtime_tpu_torch.profile_step [--batch 4096] [--steps 16]
-        [--engine_path fast|kv|full]
+        [--engine_path fast|kv|full|hybrid|fast_hybrid]
         [--quant_cache row|global] [--conv_impl conv|normk|fused|blocked]
         [--attend_impl kernel|kernel3 --slots staged|stream|global]
 
 Full-width model (vap, 20 Hz, 2.5 s context, synthetic weights), bf16,
 all streams active.  --engine_path: "fast" (the default; the streaming
 encoder over fresh samples + the KV step), "kv" (the chunked encoder
-over overlapped frames + the KV step) or "full" (the chunked encoder +
-the full-recompute trunk over the 50-frame buffer, no attend kernel).
+over overlapped frames + the KV step), "full" (the chunked encoder +
+the full-recompute trunk over the 50-frame buffer, no attend kernel), or
+"hybrid" / "fast_hybrid" (kv / fast with a full-trunk resync: their
+incremental tick and their resync tick are timed apart, with the mean
+over a cadence of resync_every = context_frames ticks).
 The KV steps use staged slots and the kernel attend unless asked
 otherwise (`--attend_impl kernel3 --slots stream`: the compact attend
 kernel); the cache is bf16 or, with --quant_cache, int8 (per-row or
@@ -39,7 +42,9 @@ from vap_realtime_tpu_torch.models.encoder import (
     CONV_IMPLS, encode_chunk, encode_chunk_streaming,
 )
 from vap_realtime_tpu_torch.runtime import incremental as inc
-from vap_realtime_tpu_torch.runtime.arena import init_path_state, path_step
+from vap_realtime_tpu_torch.runtime.arena import (
+    FRESH_PATHS, HYBRID_PATHS, init_path_state, path_step,
+)
 from vap_realtime_tpu_torch.weights.convert import params_to_torch
 from vap_realtime_tpu_torch.weights.synthetic import synthetic_params
 
@@ -69,8 +74,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=16)
-    ap.add_argument("--engine_path", choices=["fast", "kv", "full"],
-                    default="fast")
+    ap.add_argument("--engine_path", default="fast",
+                    choices=["fast", "kv", "full", "hybrid", "fast_hybrid"])
     ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
                     choices=["row", "global"])
     ap.add_argument("--conv_impl", choices=list(CONV_IMPLS), default="conv")
@@ -91,29 +96,50 @@ def main(argv=None) -> None:
     cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
     p = params_to_torch(synthetic_params(cfg.frame_hz), "cuda", dt)
     g = torch.Generator(device="cuda").manual_seed(0)
-    chunk = cfg.frame_shift if path == "fast" else cfg.frame_samples
+    chunk = cfg.frame_shift if path in FRESH_PATHS else cfg.frame_samples
     frames = (0.1 * torch.randn(8, B, 2, chunk, generator=g,
                                 device="cuda")).to(dt)
     st = init_path_state(path, cfg, B, dt, "cuda", staged=staged,
                          quant=quant, conv_impl=conv_impl)
 
-    def step(i):
+    def step(i, resync_mode="never"):
         nonlocal st
         st, out = path_step(path, p, st, frames[i % 8], cfg, slots=slots,
-                            attend_impl=attend_impl, conv_impl=conv_impl)
+                            attend_impl=attend_impl, conv_impl=conv_impl,
+                            resync_mode=resync_mode)
         return out
+
+    def tick_ms(resync_mode, reps):
+        """ms per tick (host clock around synchronized ticks)."""
+        torch.cuda.synchronize()
+        t = time.time()
+        for i in range(reps):
+            step(i, resync_mode)
+        torch.cuda.synchronize()
+        return (time.time() - t) * 1e3 / reps
 
     for i in range(4):
         step(i)
-    torch.cuda.synchronize()
-    t = time.time()
-    for i in range(n):
-        step(i)
-    torch.cuda.synchronize()
-    step_ms = (time.time() - t) * 1e3 / n
+    step_ms = tick_ms("never", n)
+    if path in HYBRID_PATHS:
+        # the resync tick apart (warmed once), and the mean over one
+        # cadence of R ticks
+        step(0, "force")
+        resync_ms = tick_ms("force", max(2, n // 4))
+        R = cfg.context_frames
+        mean_ms = ((R - 1) * step_ms + resync_ms) / R
+        period = 1e3 / cfg.frame_hz
+        print(f"[profile] B={B} bf16 {path} ticks: incremental "
+              f"{step_ms:.3f} ms, resync {resync_ms:.3f} ms, mean over "
+              f"resync_every={R} {mean_ms:.3f} ms -> {B * period / mean_ms:.0f}"
+              f" realtime streams per card at {cfg.frame_hz} Hz amortised, "
+              f"{B * period / resync_ms:.0f} if every tick must fit the "
+              f"{period:.0f} ms period; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {gpu}",
+              flush=True)
 
     h0 = torch.zeros(2 * B, cfg.dim, device="cuda", dtype=dt)
-    if path == "fast":
+    if path in FRESH_PATHS:
         conv = inc.init_fast_state(cfg, B, dt, device="cuda",
                                    conv_impl=conv_impl).conv
         enc_ms = cuda_ms(lambda: encode_chunk_streaming(
@@ -125,16 +151,18 @@ def main(argv=None) -> None:
             cfg.downsample_kernel), n)
     what = ("full recompute" if path == "full" else
             f"cache {f'int8 {quant}' if quant else 'bf16'}, "
-            f"{conv_impl if path == 'fast' else 'chunked encoder'}, "
+            f"{conv_impl if path in FRESH_PATHS else 'chunked encoder'}, "
             f"{attend_impl}")
     name = "full" if path == "full" else f"{path} {slots}"
+    if path in HYBRID_PATHS:
+        name += " incremental tick"
     if path == "full":
         print(f"[profile] B={B} bf16 {name} step ({what}): {step_ms:.3f} "
               f"ms/step; encoder {enc_ms:.3f} ms; trunk and heads "
               f"{step_ms - enc_ms:.3f} ms | {gpu}", flush=True)
     else:
-        att_ms = attend_ms(st.kv if path == "fast" else st, cfg, B, dt,
-                           staged, impl, g, n)
+        att_ms = attend_ms(getattr(st, "kv", st), cfg, B, dt, staged, impl,
+                           g, n)
         print(f"[profile] B={B} bf16 {name} step ({what}): "
               f"{step_ms:.3f} ms/step; encoder {enc_ms:.3f} ms; 7 attend "
               f"launches {att_ms:.3f} ms; trunk rest "

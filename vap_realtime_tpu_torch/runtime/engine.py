@@ -1,23 +1,26 @@
 """VapEngine — the user-facing streaming engine (the `VAPRealTime`
 analogue): params, one step and the carried state behind `process()`.
 
-Port of `vap_realtime_tpu/runtime/engine.py` for three paths:
+Port of `vap_realtime_tpu/runtime/engine.py`, all five paths:
+- "kv":   the chunked encoder + incremental KV step (the default; exact
+  until the context window slides);
 - "full": the parity-exact full recompute per frame (reference
   semantics; runtime/streaming.py);
-- "kv":   the chunked encoder + incremental KV step (exact until the
-  context window slides);
+- "hybrid": kv with a full-trunk resync every `resync_every` frames
+  (resync frames are parity-exact and flush the cached-K/V drift);
 - "fast": the seamless streaming conv + incremental KV step, which
   consumes FRESH samples only (chunk length = frame_shift, no 320-sample
-  overlap).
-"full" and "kv" take whole overlapped frames (frame_samples).  The
-hybrid paths wait for a later slice (ROADMAP.md Queue 1 item 8) and
-raise.  The engine runs on the card unless the caller passes
-`device="cpu"`; without CUDA it raises instead of falling back.
+  overlap);
+- "fast_hybrid": fast with the periodic resync from the embedding ring.
+The fresh-sample paths take frame_shift samples, the others whole
+overlapped frames (frame_samples).  The engine runs on the card unless
+the caller passes `device="cpu"`; without CUDA it raises instead of
+falling back.
 
-Differences of form from the JAX engine: the default path is "fast" and
-the default attend is "kernel" (the hand-written attend; the JAX engine
-defaults to "kv" and "einsum"); the kv and fast steps update the state in
-place, so `warmup` steps a throw-away state.
+Differences of form from the JAX engine: the default attend is "kernel"
+(the hand-written attend; the JAX engine defaults to "einsum" and its
+hybrid path drops `attend_impl`); the steps update the state in place,
+so `warmup` steps a throw-away state.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 
 from vap_realtime_tpu_torch.config import FRAME_CONTEXT_PADDING, VapConfig
 from vap_realtime_tpu_torch.runtime.arena import (
-    check_path, init_path_state, path_step, resolve_device,
+    FRESH_PATHS, check_path, init_path_state, path_step, resolve_device,
 )
 from vap_realtime_tpu_torch.weights.convert import (
     load_pytree_npz, params_to_torch,
@@ -45,19 +48,23 @@ class VapEngine:
     def __init__(self, cfg: Optional[VapConfig] = None,
                  params: Optional[Params] = None,
                  checkpoint_npz: Optional[str] = None,
-                 path: str = "fast", batch: int = 1,
-                 dtype=torch.float32, attend_impl: str = "kernel",
-                 quant_cache: Any = False, slots: Optional[str] = None,
-                 conv_impl: str = "conv", conv_chunks: int = 1,
-                 device="cuda"):
+                 path: str = "kv", batch: int = 1,
+                 dtype=torch.float32, resync_every: Optional[int] = None,
+                 attend_impl: str = "kernel", quant_cache: Any = False,
+                 slots: Optional[str] = None, conv_impl: str = "conv",
+                 conv_chunks: int = 1, device="cuda"):
         """params: the params pytree with numpy (or array-like) leaves,
         or checkpoint_npz: a pytree .npz (weights/convert.py); cast to
-        `dtype` on `device`.  path: "fast", "kv" or "full".  slots
-        (default "staged"), attend_impl, quant_cache (kv and fast),
-        conv_impl and conv_chunks (fast): see incremental.fast_step,
-        kv_step and init_fast_state."""
+        `dtype` on `device`.  path: "kv", "full", "hybrid", "fast" or
+        "fast_hybrid".  slots (default "staged"), attend_impl,
+        quant_cache (all but full), conv_impl and conv_chunks (the
+        fresh-sample paths), resync_every (the hybrid paths; default
+        cfg.context_frames): see incremental.kv_step, fast_step,
+        hybrid_step and fast_hybrid_step."""
         check_path(path)
         self.cfg = cfg or VapConfig()
+        self.resync_every = (self.cfg.context_frames if resync_every is None
+                             else resync_every)
         self.batch = batch
         self.path = path
         self.dtype = dtype
@@ -92,7 +99,8 @@ class VapEngine:
         return path_step(self.path, self.params, state, chunk, self.cfg,
                          slots=self.slots, attend_impl=self.attend_impl,
                          conv_impl=self.conv_impl,
-                         conv_chunks=self.conv_chunks)
+                         conv_chunks=self.conv_chunks,
+                         resync_every=self.resync_every)
 
     @property
     def audio_frame_size(self) -> int:
@@ -101,16 +109,16 @@ class VapEngine:
     @property
     def chunk_samples(self) -> int:
         """Samples the engine consumes per frame: frame_shift (fresh
-        samples only) on the fast path, frame_samples (with the
+        samples only) on the fast paths, frame_samples (with the
         320-sample overlap) elsewhere."""
-        return (self.cfg.frame_shift if self.path == "fast"
+        return (self.cfg.frame_shift if self.path in FRESH_PATHS
                 else self.cfg.frame_samples)
 
     @property
     def frame_contxt_padding(self) -> int:
         """Samples of left-context overlap per frame: none on the fast
-        path, FRAME_CONTEXT_PADDING on the others."""
-        return 0 if self.path == "fast" else FRAME_CONTEXT_PADDING
+        paths, FRAME_CONTEXT_PADDING on the others."""
+        return 0 if self.path in FRESH_PATHS else FRAME_CONTEXT_PADDING
 
     def warmup(self) -> None:
         """Build the kernels and warm the libraries ahead of the first

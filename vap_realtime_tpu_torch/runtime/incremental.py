@@ -1,7 +1,9 @@
 """Incremental streaming steps — per-frame KV-cache append, single-query
 attention, no full-context recompute: `kv_step` (the chunked encoder over
 overlapped frames) and `fast_step` (the streaming encoder over fresh
-samples, the fast serving path).
+samples, the fast serving path); and their hybrid twins `hybrid_step` /
+`fast_hybrid_step`, which every `resync_every` ticks recompute the trunk
+over an embedding ring and rewrite the cache drift-free.
 
 Port of `vap_realtime_tpu/runtime/incremental.py`: the same phase-major
 cache layout, per-stream stamps, slot policies, staged merge and int8
@@ -48,7 +50,9 @@ from vap_realtime_tpu_torch.ops.basic import gelu, layer_norm, linear
 from vap_realtime_tpu_torch.ops.cuda.attend import (
     DEAD, attend_pair, attend_pair_plain,
 )
-from vap_realtime_tpu_torch.runtime.streaming import scan_frames
+from vap_realtime_tpu_torch.runtime.streaming import (
+    _masked_bias, scan_frames, trunk_full,
+)
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
@@ -214,18 +218,24 @@ def kv_step(params: Params, state: KVState, chunk: Tensor, cfg: VapConfig,
     FROZEN (recurrent state, count and cached rows unchanged; outputs to
     be ignored).  slots, attend_impl, merge: see `_kv_core`.
     """
+    active = _all_active(chunk, active)
+    e, h_new, c_new = _chunked_encode(params, state, chunk, cfg)
+    outs = _kv_core(params, state, e, h_new, c_new, cfg, active, slots,
+                    attend_impl, merge)
+    return state, outs
+
+
+def _chunked_encode(params: Params, kv: KVState, chunk: Tensor,
+                    cfg: VapConfig):
+    """The chunked encoder over overlapped frames (B, 2, frame_samples):
+    (e, h_new, c_new), each (B, 2, D); e in the state dtype."""
     B = chunk.shape[0]
-    if active is None:
-        active = torch.ones((B,), dtype=torch.bool, device=chunk.device)
     e, h_new, c_new = encode_chunk(
         params["encoder"], chunk.reshape(B * 2, -1),
-        state.lstm_h.reshape(B * 2, -1), state.lstm_c.reshape(B * 2, -1),
+        kv.lstm_h.reshape(B * 2, -1), kv.lstm_c.reshape(B * 2, -1),
         cfg.downsample_kernel)
-    e = e.reshape(B, 2, cfg.dim).to(state.lstm_h.dtype)
-    outs = _kv_core(params, state, e, h_new.reshape(B, 2, -1),
-                    c_new.reshape(B, 2, -1), cfg, active, slots, attend_impl,
-                    merge)
-    return state, outs
+    return (e.reshape(B, 2, cfg.dim).to(kv.lstm_h.dtype),
+            h_new.reshape(B, 2, -1), c_new.reshape(B, 2, -1))
 
 
 def run_frames_kv(params: Params, state: KVState, frames: Tensor,
@@ -636,13 +646,30 @@ def fast_step(params: Params, state: FastState, new: Tensor,
     conv_chunks > 1 runs the encoder over that many sequential
     sub-batches (smaller transient activations; identical numerics).
     """
+    active = _all_active(new, active)
+    e, h_new, c_new = _fast_encode(params, state, new, cfg, active,
+                                   conv_impl, conv_chunks)
+    outs = _kv_core(params, state.kv, e, h_new, c_new, cfg, active, slots,
+                    attend_impl, merge)
+    return state, outs
+
+
+def _all_active(x: Tensor, active: Optional[Tensor]) -> Tensor:
+    """`active`, or every stream of the (B, ...) frame batch x."""
+    if active is not None:
+        return active
+    return torch.ones((x.shape[0],), dtype=torch.bool, device=x.device)
+
+
+def _fast_encode(params: Params, state, new: Tensor, cfg: VapConfig,
+                 active: Tensor, conv_impl: str, conv_chunks: int):
+    """The fast path's streaming encoder over FRESH samples (B, 2, L):
+    updates the active streams' conv tails in `state.conv` in place and
+    returns (e, h_new, c_new), each (B, 2, D); e in the state dtype."""
     B = new.shape[0]
     D = cfg.dim
     kv = state.kv
     dtype = kv.lstm_h.dtype
-    if active is None:
-        active = torch.ones((B,), dtype=torch.bool, device=new.device)
-
     flat = new.reshape(B * 2, -1)
     h0 = kv.lstm_h.reshape(B * 2, -1)
     c0 = kv.lstm_c.reshape(B * 2, -1)
@@ -665,9 +692,7 @@ def fast_step(params: Params, state: FastState, new: Tensor,
         conv2 = torch.cat([p[1][name] for p in parts])
         state.conv[name] = torch.where(act2, conv2.to(dtype),
                                        state.conv[name])
-    outs = _kv_core(params, kv, e, h_new, c_new, cfg, active, slots,
-                    attend_impl, merge)
-    return state, outs
+    return e, h_new, c_new
 
 
 def run_frames_fast(params: Params, state: FastState, frames: Tensor,
@@ -678,3 +703,270 @@ def run_frames_fast(params: Params, state: FastState, frames: Tensor,
     return scan_frames(functools.partial(
         fast_step, slots=slots, attend_impl=attend_impl,
         conv_impl=conv_impl), params, state, frames, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Hybrid paths: the incremental KV step with a periodic full-trunk resync
+# ---------------------------------------------------------------------------
+
+RESYNC_MODES = ("auto", "never", "force")
+
+
+@dataclass
+class HybridState:
+    """KVState plus the embedding ring a resync rebuilds the cache from.
+
+    e_ctx: (B, 2, T, D) encoder embeddings in the state dtype.  Frame c of
+    a stream sits at slot c % T (the cache's own slot rule), so a tick
+    writes one row per active stream in place; the JAX package keeps the
+    buffer right-aligned (newest at T-1) and rolls it every tick.
+    `right_aligned` gives that order.  Encoder outputs do not depend on
+    the path, so a full trunk over the ring reproduces the parity-exact
+    (`stream_step`) values and flushes the drift of the cached K/V.
+    """
+
+    kv: KVState
+    e_ctx: Tensor
+
+
+@dataclass
+class FastHybridState:
+    """FastState plus the embedding ring (see `HybridState`): the resync
+    trunk recomputes from the FAST encoder's own embeddings, so resync
+    frames are exact against a full trunk over them."""
+
+    kv: KVState
+    conv: Dict[str, Tensor]
+    e_ctx: Tensor
+
+
+def init_hybrid_state(cfg: VapConfig, batch: int = 1, dtype=torch.float32,
+                      staged: bool = False, device=None, *,
+                      quant: Any = False) -> HybridState:
+    """staged=True: the incremental ticks use the staged slot policy
+    (else "stream"); quant: see `init_kv_state`."""
+    return HybridState(
+        kv=init_kv_state(cfg, batch, dtype, staged, device, quant=quant),
+        e_ctx=torch.zeros((batch, 2, cfg.context_frames, cfg.dim),
+                          dtype=dtype, device=device))
+
+
+def init_fast_hybrid_state(cfg: VapConfig, batch: int = 1,
+                           dtype=torch.float32, staged: bool = False,
+                           device=None, *, quant: Any = False,
+                           conv_impl: str = "conv") -> FastHybridState:
+    fast = init_fast_state(cfg, batch, dtype, staged, device, quant=quant,
+                           conv_impl=conv_impl)
+    return FastHybridState(
+        kv=fast.kv, conv=fast.conv,
+        e_ctx=torch.zeros((batch, 2, cfg.context_frames, cfg.dim),
+                          dtype=dtype, device=device))
+
+
+def right_aligned(e_ctx: Tensor, count: Tensor) -> Tensor:
+    """The ring (B, 2, T, D) in the JAX package's right-aligned order for
+    streams that have seen `count` (B,) frames: position j holds frame
+    count - T + j (slot (count - T + j) % T)."""
+    B, _, T, D = e_ctx.shape
+    j = torch.arange(T, device=e_ctx.device)
+    idx = torch.remainder(count[:, None] - T + j, T)          # (B, T)
+    return e_ctx.gather(2, idx[:, None, :, None].expand(B, 2, T, D))
+
+
+def _trunk_rows(params: Params, e_ctx: Tensor, count: Tensor,
+                cfg: VapConfig) -> Tuple[Dict[str, Tensor], Tensor]:
+    """The masked full trunk over a RIGHT-ALIGNED embedding buffer (B, 2,
+    T, D), capturing every sublayer's K/V (the values `kv_step` would have
+    cached had no frame ever left the window).
+
+    Returns (the newest frame's probabilities {name: (B, ...)}, rows (B,
+    P, T, 4D) phase-major in cache_layout order, buffer order on the T
+    axis).  `streaming.trunk_full` with a K/V capture (JAX
+    incremental.py:922)."""
+    B, _, T, _ = e_ctx.shape
+    valid = torch.clamp(count, max=T)
+    bias = _masked_bias(cfg, valid, e_ctx.dtype)
+    kv: List[Tuple[Tensor, Tensor]] = []
+    trunk = trunk_full(params, e_ctx[:, 0], e_ctx[:, 1], bias, cfg, kv)
+    probs = probs_from_outputs(heads_forward(params, trunk, cfg), cfg)
+    it = iter(kv)
+    named: Dict[str, Tensor] = {}
+    for li in range(cfg.channel_layers):
+        k, v = next(it)                     # both channels, 2B rows
+        for ch in (0, 1):
+            named[f"ch{li}.{ch}.k"] = k[ch * B:(ch + 1) * B]
+            named[f"ch{li}.{ch}.v"] = v[ch * B:(ch + 1) * B]
+    for li in range(cfg.cross_layers):
+        for tw in (0, 1):
+            for kind in ("s", "c"):         # self, then cross
+                (named[f"x{li}.{tw}.{kind}k"],
+                 named[f"x{li}.{tw}.{kind}v"]) = next(it)
+    layout = cache_layout(cfg)
+    rows = torch.stack(
+        [torch.cat([named[n] for n in layout[4 * ph:4 * ph + 4]], dim=-1)
+         for ph in range(len(layout) // 4)], dim=1)
+    return {k: v[:, -1] for k, v in probs.items()}, rows
+
+
+def _resync(params: Params, kv: KVState, e_ctx: Tensor, h_new: Tensor,
+            c_new: Tensor, cfg: VapConfig, active: Tensor
+            ) -> Dict[str, Tensor]:
+    """The resync tick, in place on `kv`: the full trunk over the ring,
+    every cached row rewritten (requantised for an int8 cache) at its own
+    stream's slot, the stamps rebuilt and the stage invalidated."""
+    B = active.shape[0]
+    T = cfg.context_frames
+    dtype = kv.lstm_h.dtype
+    count2 = kv.count + active.to(torch.int32)
+    probs, rows = _trunk_rows(params, right_aligned(e_ctx, count2), count2,
+                              cfg)
+    # buffer position j holds frame c_j = count2 - T + j; it goes to the
+    # stream's OWN slot c_j % T, so later ring writes evict in order
+    s = torch.arange(T, device=count2.device)
+    jj = torch.remainder(s[None, :] - count2[:, None], T)     # (B, T)
+    c_at = count2[:, None] - T + jj
+    D4 = rows.shape[-1]
+    idx = jj[:, :, None].expand(B, T, D4)
+    quant = kv.quant
+    for ph in range(rows.shape[1]):
+        r = rows[:, ph].gather(1, idx)                        # (B, T, 4D)
+        if quant == "row":
+            kv.cache[:, ph], kv.scale[:, ph] = quantize_rows(r)
+        elif quant == "global":
+            # unset scales of active streams calibrate from the WHOLE
+            # rebuilt ring; set ones stay frozen and the codes clamp
+            f = r.float().view(B, T, 4, D4 // 4)
+            fresh = torch.clamp(f.abs().amax((1, 3)) * (QG_MARGIN / 127.0),
+                                min=1e-8)                      # (B, 4)
+            old = kv.scale[:, ph, 0]
+            gs = torch.where((old == 0) & active[:, None], fresh, old)
+            kv.scale[:, ph, 0] = gs
+            sc = torch.where(gs == 0, 1.0, gs)
+            kv.cache[:, ph] = torch.clamp(
+                torch.round(f / sc[:, None, :, None]), -127, 127
+            ).to(torch.int8).view(B, T, D4)
+        else:
+            kv.cache[:, ph] = r
+    kv.stamp = torch.where(c_at >= 0, c_at, -1).to(torch.int32)
+    # the LSTM state stays in its own dtype, never the int8 cache's
+    a3 = active.view(B, 1, 1)
+    kv.lstm_h = torch.where(a3, h_new.to(dtype), kv.lstm_h)
+    kv.lstm_c = torch.where(a3, c_new.to(dtype), kv.lstm_c)
+    kv.count = count2
+    kv.step += 1
+    if kv.stage_stamp is not None:
+        # every row now sits in the ring: a staged row and its rewrite
+        # share a stamp and would be attended twice
+        kv.stage_stamp.fill_(-1)
+    return probs
+
+
+def _hybrid_core(params: Params, kv: KVState, e_ctx: Tensor, e: Tensor,
+                 h_new: Tensor, c_new: Tensor, cfg: VapConfig,
+                 active: Tensor, resync_every: int,
+                 attend_impl: str = "einsum", resync_mode: str = "auto",
+                 merge: str = "auto") -> Dict[str, Tensor]:
+    """Post-encoder hybrid step, in place on `kv` and `e_ctx`: the ring
+    write of the active streams' embeddings, then a resync tick or an
+    incremental one (`_kv_core` with the state's slot policy, staged or
+    stream).  Shared by `hybrid_step` and `fast_hybrid_step`: the resync
+    recomputes from the ring, whichever encoder filled it.
+
+    resync_mode: "auto" resyncs when (step + 1) % resync_every == 0
+    (never for resync_every <= 0), decided on the host from `kv.step`;
+    "never" / "force" let the caller decide.  A resync tick takes
+    precedence over a staged merge (it invalidates the stage).  merge:
+    the incremental tick's staged merge (see `_kv_core`)."""
+    if resync_mode not in RESYNC_MODES:
+        raise ValueError(f"resync_mode {resync_mode!r} not in "
+                         f"{RESYNC_MODES}")
+    T = cfg.context_frames
+    _scatter_rows(e_ctx, e, torch.remainder(kv.count, T), active)
+    if resync_mode == "force" or (
+            resync_mode == "auto" and resync_every > 0
+            and (kv.step + 1) % resync_every == 0):
+        return _resync(params, kv, e_ctx, h_new, c_new, cfg, active)
+    return _kv_core(params, kv, e, h_new, c_new, cfg, active,
+                    "staged" if kv.stage is not None else "stream",
+                    attend_impl, merge)
+
+
+def hybrid_step(params: Params, state: HybridState, chunk: Tensor,
+                cfg: VapConfig, active: Optional[Tensor] = None,
+                resync_every: int = 0, attend_impl: str = "einsum",
+                resync_mode: str = "auto", merge: str = "auto"
+                ) -> Tuple[HybridState, Dict[str, Tensor]]:
+    """`kv_step` with a full-trunk resync every `resync_every`-th tick
+    (global cadence; 0 = never): chunk (B, 2, frame_samples).  A resync
+    frame's outputs equal `stream_step`'s and the whole cache is rewritten
+    drift-free, so between resyncs the deviation is bounded by at most
+    `resync_every` frames of drift.  Updates `state` in place and returns
+    it with the outputs."""
+    active = _all_active(chunk, active)
+    e, h_new, c_new = _chunked_encode(params, state.kv, chunk, cfg)
+    outs = _hybrid_core(params, state.kv, state.e_ctx, e, h_new, c_new, cfg,
+                        active, resync_every, attend_impl, resync_mode,
+                        merge)
+    return state, outs
+
+
+def fast_hybrid_step(params: Params, state: FastHybridState, new: Tensor,
+                     cfg: VapConfig, active: Optional[Tensor] = None,
+                     resync_every: int = 0, attend_impl: str = "einsum",
+                     conv_impl: str = "conv", conv_chunks: int = 1,
+                     resync_mode: str = "auto", merge: str = "auto"
+                     ) -> Tuple[FastHybridState, Dict[str, Tensor]]:
+    """`fast_step` with a full-trunk resync every `resync_every`-th tick:
+    new (B, 2, frame_shift) FRESH samples.  A resync frame is exact
+    against the full trunk over the fast encoder's embeddings
+    (`resync_every=1` is that oracle).  conv_impl / conv_chunks: see
+    `fast_step`.  Updates `state` in place and returns it."""
+    active = _all_active(new, active)
+    e, h_new, c_new = _fast_encode(params, state, new, cfg, active,
+                                   conv_impl, conv_chunks)
+    outs = _hybrid_core(params, state.kv, state.e_ctx, e, h_new, c_new, cfg,
+                        active, resync_every, attend_impl, resync_mode,
+                        merge)
+    return state, outs
+
+
+def run_frames_hybrid(params: Params, state: HybridState, frames: Tensor,
+                      cfg: VapConfig, resync_every: int,
+                      attend_impl: str = "einsum"):
+    """hybrid_step over (F, B, 2, frame_samples) frames; returns (state,
+    {name: (F, B, ...)})."""
+    return scan_frames(functools.partial(
+        hybrid_step, resync_every=resync_every, attend_impl=attend_impl),
+        params, state, frames, cfg)
+
+
+def run_frames_fast_hybrid(params: Params, state: FastHybridState,
+                           frames: Tensor, cfg: VapConfig,
+                           resync_every: int, attend_impl: str = "einsum",
+                           conv_impl: str = "conv",
+                           host_cadence: bool = False):
+    """fast_hybrid_step over (F, B, 2, frame_shift) frames; returns
+    (state, {name: (F, B, ...)}).
+
+    host_cadence=True runs the resync-aligned blocked form, as the JAX
+    package compiles it: per block of `resync_every` frames, that many
+    minus one incremental ticks (resync_mode="never"), then one resync
+    tick ("force").  It needs a state at a block boundary (step %
+    resync_every == 0) and whole blocks; it gives the same outputs as the
+    per-tick cadence."""
+    step = functools.partial(fast_hybrid_step, resync_every=resync_every,
+                             attend_impl=attend_impl, conv_impl=conv_impl)
+    if not host_cadence:
+        return scan_frames(step, params, state, frames, cfg)
+    R = resync_every
+    if R <= 0 or frames.shape[0] % R or state.kv.step % R:
+        raise ValueError(f"host_cadence needs whole blocks of resync_every="
+                         f"{R} frames from a block boundary (got "
+                         f"{frames.shape[0]} frames at step "
+                         f"{state.kv.step})")
+
+    def blocked(p, st, frame, c):
+        mode = "force" if (st.kv.step + 1) % R == 0 else "never"
+        return step(p, st, frame, c, resync_mode=mode)
+
+    return scan_frames(blocked, params, state, frames, cfg)

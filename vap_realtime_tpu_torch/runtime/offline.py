@@ -4,10 +4,10 @@ Slides a frame-size window with shift = frame - 320 over two WAVs and
 writes `time_sec,p_now(0=left),p_now(1=right),p_future(0=left),
 p_future(1=right)` rows, the reference output format
 (rvap/vap_main/vap_offline.py:39-88).  Port of
-`vap_realtime_tpu/runtime/offline.py` for the "full", "kv" and "fast"
-paths; the hybrid paths wait for ROADMAP.md Queue 1 item 8 and raise.
-The frames run through one Python loop of steps on the card unless
-`--device cpu` is given.
+`vap_realtime_tpu/runtime/offline.py` for every engine path ("full",
+"kv", "hybrid", "fast", "fast_hybrid"; the hybrid paths resync every
+`context_frames` frames, as there).  The frames run through one Python
+loop of steps on the card unless `--device cpu` is given.
 
 Run:
     python -m vap_realtime_tpu_torch.runtime.offline \\
@@ -29,7 +29,7 @@ from vap_realtime_tpu_torch.config import VapConfig
 from vap_realtime_tpu_torch.io.audio import read_wav
 from vap_realtime_tpu_torch.runtime import streaming
 from vap_realtime_tpu_torch.runtime.arena import (
-    check_path, init_path_state, path_step, resolve_device,
+    FRESH_PATHS, check_path, init_path_state, path_step, resolve_device,
 )
 from vap_realtime_tpu_torch.weights.convert import params_to_torch
 
@@ -40,11 +40,13 @@ def run_offline(params, audio: np.ndarray, cfg: VapConfig,
     """audio: (2, N) float32 -> dict of per-frame outputs (F, ...) and
     their timestamps "t".  params: the params pytree with numpy leaves,
     run in float32 on `device` (None = CUDA).  path: "full" (the
-    parity-exact recompute), "kv" or "fast"; attend_impl and quant_cache
-    apply to kv and fast (global slots: all frames are active)."""
+    parity-exact recompute), "kv", "hybrid", "fast" or "fast_hybrid";
+    attend_impl and quant_cache apply to all but full (kv and fast on
+    global slots: all frames are active; the hybrid paths on stream
+    slots, resyncing every context_frames frames)."""
     check_path(path)
     dev = resolve_device(device)
-    if path == "fast":
+    if path in FRESH_PATHS:
         # fresh-sample chunks; frame k summarises audio ending at
         # (k+1)*frame_shift (no 320-sample look-ahead)
         shift = cfg.frame_shift
@@ -59,7 +61,8 @@ def run_offline(params, audio: np.ndarray, cfg: VapConfig,
     state = init_path_state(path, cfg, 1, torch.float32, dev, staged=False,
                             quant=quant_cache)
     step = functools.partial(path_step, path, slots="global",
-                             attend_impl=attend_impl)
+                             attend_impl=attend_impl,
+                             resync_every=cfg.context_frames)
     _, outs = streaming.scan_frames(step, params_to_torch(params, dev), state,
                                     x.to(dev), cfg)
     res = {k: v[:, 0].float().cpu().numpy() for k, v in outs.items()}
@@ -95,10 +98,11 @@ def main(argv: Optional[list] = None) -> None:
                     default="full",
                     help="'full' = parity-exact recompute, 'kv' = "
                          "incremental KV cache, 'fast' = streaming conv + "
-                         "KV; the hybrid paths are not ported yet")
+                         "KV; 'hybrid' / 'fast_hybrid' = kv / fast with a "
+                         "full-trunk resync every context_frames frames")
     ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
                     choices=["row", "global"],
-                    help="int8 KV cache (kv and fast): bare flag or 'row' = "
+                    help="int8 KV cache (all but full): bare flag or 'row' = "
                          "per-row scales; 'global' = per-stream frozen "
                          "scales")
     ap.add_argument("--attend_impl",

@@ -105,30 +105,36 @@ def _masked_bias(cfg: VapConfig, valid: Tensor, dtype=torch.float32
 
 
 def _masked_layer(layer, x: Tensor, base: Tensor, key_ok: Tensor,
-                  cfg: VapConfig, src: Optional[Tensor] = None) -> Tensor:
+                  cfg: VapConfig, src: Optional[Tensor] = None,
+                  kv_out: Optional[list] = None) -> Tensor:
     """`transformer_layer` with the factored (H, T, T) bias + (B, T) key
     mask (the diagonal always allowed)."""
     eye = torch.eye(x.shape[1], dtype=torch.bool, device=x.device)
     allowed = key_ok[:, None, None, :] | eye[None, None]      # (B,1,T,T)
-    return transformer_layer(layer, x, base, cfg.num_heads, src, allowed)
+    return transformer_layer(layer, x, base, cfg.num_heads, src, allowed,
+                             kv_out)
 
 
 def trunk_full(params, e1: Tensor, e2: Tensor, bias: Tuple[Tensor, Tensor],
-               cfg: VapConfig) -> Dict[str, Tensor]:
+               cfg: VapConfig, kv_out: Optional[list] = None
+               ) -> Dict[str, Tensor]:
     """Stereo trunk over fixed-size buffers with the factored masking:
     `models.vap.trunk_forward` with per-stream validity for the growing
-    cold-start context."""
+    cold-start context.  kv_out: a list that receives every attention's
+    (k, v) in call order — per channel layer one pair for both channels
+    (2B leading rows, channel 0 first), per stereo layer tower 1's self
+    and cross pairs, then tower 2's."""
     B = e1.shape[0]
     base, key_ok = bias
     x = torch.cat([e1, e2])
     key_ok2 = torch.cat([key_ok, key_ok])
     for layer in params["ar_channel"]["layers"]:
-        x = _masked_layer(layer, x, base, key_ok2, cfg)
+        x = _masked_layer(layer, x, base, key_ok2, cfg, kv_out=kv_out)
     o1, o2 = x[:B], x[B:]
     x1, x2 = o1, o2
     for layer in params["ar"]["layers"]:
-        x1, x2 = (_masked_layer(layer, x1, base, key_ok, cfg, src=x2),
-                  _masked_layer(layer, x2, base, key_ok, cfg, src=x1))
+        x1, x2 = (_masked_layer(layer, x1, base, key_ok, cfg, x2, kv_out),
+                  _masked_layer(layer, x2, base, key_ok, cfg, x1, kv_out))
     xc = combinator(params["ar"]["combinator"], x1, x2)
     return {"x": xc, "x1": x1, "x2": x2, "o1": o1, "o2": o2}
 
