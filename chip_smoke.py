@@ -36,8 +36,9 @@ Phases (any failed check raises, so the script exits non-zero):
            rows: float32 (atol 1e-4), bf16, int8 with row scales and
            int8 codes under the frozen-scale fold (atol/rtol 2e-2 in float
            units), mixed live/DEAD and all-DEAD (output == v_cur);
-         - lstm_scan (K5) at (8192, 5, 256): float32 at atol 1e-5, bf16
-           outputs within one bf16 step (rtol 2^-7, atol 1e-5);
+         - lstm_scan (K5) at (8192, 5, 256) and (100, 5, 256) (a partial
+           block): float32 at atol 1e-5, bf16 outputs within one bf16
+           step (rtol 2^-7, atol 1e-5);
          - fused_attend (K8, one k/v slot pair) at B=4096 and 64, T=50,
            all 14 slot pairs, float32 (atol 1e-4) and bf16 (atol/rtol
            2e-2), mixed live/DEAD and all-DEAD (output == v_cur), against
@@ -45,7 +46,8 @@ Phases (any failed check raises, so the script exits non-zero):
            raises;
          - cpc_conv_tail (K9) at 8192 channel-streams x L0 = 224 (20 Hz),
            float32 (atol 1e-4, TF32 off) and bf16 x0 (one bf16 step of the
-           output, |d| <= 2^-7 (1 + |plain|)), and 64 x L0 = 384 and 128;
+           output, |d| <= 2^-7 (1 + |plain|)), 67 x 224 (a ragged last
+           tile), 64 x L0 = 384 and 128, and 4 x 1200 (row chunks);
          - attend_lab (K11) in every ablated mode at 1 and 2 streams per
            block, B=4096 and 64, T=50: float32 caches at atol = rtol 1e-4,
            bf16 caches and int8 codes (dma, q8glb) with bf16 q at 2e-2
@@ -87,7 +89,12 @@ Phases (any failed check raises, so the script exits non-zero):
          dequantised bf16 rows, torch.nn.LSTM on cuDNN; the port never
          calls them; K7 has none, so the `conv` and `normk` stacks' times
          stand beside it; K8 against scaled_dot_product_attention; K9 against
-         the cuDNN conv1-4 + ChannelNorm tail of cpc_conv_stack), and the
+         the cuDNN conv1-4 + ChannelNorm tail of cpc_conv_stack; K5 and K9,
+         which take their float32 products as 3xTF32 on the tensor cores,
+         beside both floors: three TF32 passes at 495 TFLOP/s (their
+         bound) and float32 on the CUDA cores at 67 TFLOP/s; K5 and
+         lstm_fused in bf16 and float32 against torch.nn.LSTM in the same
+         dtype), and the
          ms/step at B=4096 of the fast step in six configurations and of
          the kv and full steps; the hybrid paths' incremental and resync
          ticks at B=4096; and the lab tools (the slice-5 path): the attend
@@ -121,6 +128,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import itertools
 import json
 import socket
 import sys
@@ -137,6 +145,7 @@ SERVER_CAPACITY = 64
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12             # H100 SXM, float32 outside tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
+TF32_FLOP_PER_S = 495e12           # H100 SXM, dense TF32 tensor cores
 BF16_TOL = 2e-2                    # attend, bf16: atol and rtol
 CODE_SCALE = 3.0 / 127             # int8 scale of rows with max-abs ~3
 L_NEW = 800                        # fresh samples per frame at 20 Hz
@@ -613,27 +622,29 @@ def phase_a_compact() -> float:
     return worst
 
 
-def lstm_inputs(seed: int, dtype):
-    """(8192, 5, 256) LSTM scan inputs on the card: gates, h0, c0 in
-    `dtype`; W_hh^T (256, 1024) and b_hh in float32."""
+def lstm_inputs(seed: int, dtype, N: int = 2 * B):
+    """(N, 5, 256) LSTM scan inputs on the card (N = 8192 by default):
+    gates, h0, c0 in `dtype`; W_hh^T (256, 1024) and b_hh in float32."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
-    N, Hh = 2 * B, C
+    Hh = C
     return ((0.5 * rn(N, 5, 4 * Hh)).to(dtype), (0.1 * rn(N, Hh)).to(dtype),
             (0.1 * rn(N, Hh)).to(dtype), rn(Hh, 4 * Hh) / Hh ** 0.5,
             0.06 * rn(4 * Hh))
 
 
 def phase_a_lstm() -> float:
-    """lstm_scan (K5) vs plain at (8192, 5, 256); returns the max abs
-    error in bf16."""
+    """lstm_scan (K5) vs plain at (8192, 5, 256) and (100, 5, 256) (a
+    partial block of 64 streams); returns the max abs error in bf16 at
+    8192."""
     from vap_realtime_tpu_torch.ops.cuda.lstm import (
         lstm_scan, lstm_scan_plain,
     )
 
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        args = lstm_inputs(11, dtype)
+    for N, dtype in itertools.product((2 * B, 100),
+                                      (torch.float32, torch.bfloat16)):
+        args = lstm_inputs(11, dtype, N)
         got = lstm_scan(*args)
         want = lstm_scan_plain(*args)
         torch.cuda.synchronize()
@@ -648,11 +659,11 @@ def phase_a_lstm() -> float:
             check(bool((d <= tol).all()), f"lstm_scan vs plain {dtype} "
                   f"{name}: max |d| {d.max().item():.3e}")
             err = max(err, d.max().item())
-        print(f"[a] lstm_scan {str(dtype)[6:]} ({2 * B}, 5, {C}): max "
+        print(f"[a] lstm_scan {str(dtype)[6:]} ({N}, 5, {C}): max "
               f"|kernel - plain| {err:.3e} ("
               + ("atol 1e-5" if dtype == torch.float32 else
                  "rtol 2^-7, atol 1e-5") + ")", flush=True)
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 and N == 2 * B:
             worst = err
     return worst
 
@@ -736,16 +747,18 @@ def tail_inputs(seed: int, nb: int, L0: int, dtype):
 
 
 def phase_a_tail() -> float:
-    """cpc_conv_tail (K9) vs plain at 8192 channel-streams x 224 (20 Hz)
-    and 64 x 384 / 128 (10 / 50 Hz); returns the max abs error with a
-    bf16 x0 at the 20 Hz shape."""
+    """cpc_conv_tail (K9) vs plain at 8192 channel-streams x 224 (20 Hz),
+    67 x 224 (a ragged last tile: half a group of 2 streams in conv1, 3 of
+    a group of 16 in conv4), 64 x 384 / 128 (10 / 50 Hz) and 4 x 1200
+    (streams longer than a tile, cut into row chunks in conv1 and conv2);
+    returns the max abs error with a bf16 x0 at 8192 x 224."""
     from vap_realtime_tpu_torch.ops.cuda.cpc_conv import (
         cpc_conv_tail, cpc_conv_tail_plain, tail_out_len,
     )
 
     worst = 0.0
-    for nb, L0 in ((2 * B, L0_TAIL), (SERVER_CAPACITY, 384),
-                   (SERVER_CAPACITY, 128)):
+    for nb, L0 in ((2 * B, L0_TAIL), (67, L0_TAIL), (SERVER_CAPACITY, 384),
+                   (SERVER_CAPACITY, 128), (4, 1200)):
         for dtype in (torch.float32, torch.bfloat16):
             x0, packed = tail_inputs(16, nb, L0, dtype)
             got = cpc_conv_tail(x0, packed)
@@ -764,7 +777,7 @@ def phase_a_tail() -> float:
                   f"{C}): max |kernel - plain| {d.max().item():.3e} ("
                   + ("atol 1e-4" if dtype == torch.float32 else
                      "|d| <= 2^-7 (1 + |plain|)") + ")", flush=True)
-            if dtype == torch.bfloat16 and L0 == L0_TAIL:
+            if dtype == torch.bfloat16 and nb == 2 * B and L0 == L0_TAIL:
                 worst = d.max().item()
             del x0, got, want, d
     torch.cuda.empty_cache()
@@ -1251,10 +1264,12 @@ def time_single(gpu) -> dict:
 
 def time_tail(p_bf16, gpu) -> dict:
     """K9 at 8192 channel-streams x L0 = 224, with a bf16 x0 (the kv
-    path's dtype) and a float32 one: ms per launch, the float32-CUDA-core
-    bound, the plain version; and the cuDNN conv1-4 + ChannelNorm tail of
-    cpc_conv_stack over the same x0 (the yardstick: no single PyTorch call
-    computes the tail)."""
+    path's dtype) and a float32 one: ms per call (four launches), the
+    bound (the 3xTF32 floor: three TF32 passes per product at 495
+    TFLOP/s, two in conv1 with a bf16 x0; or the bytes) beside the
+    float32 CUDA-core bound (67 TFLOP/s), the plain version; and the
+    cuDNN conv1-4 + ChannelNorm tail of cpc_conv_stack over the same x0
+    (the yardstick: no single PyTorch call computes the tail)."""
     from vap_realtime_tpu_torch.ops.basic import channel_norm, conv1d
     from vap_realtime_tpu_torch.ops.cuda.cpc_conv import (
         TAIL_SPECS, cpc_conv_tail, cpc_conv_tail_plain, tail_out_len,
@@ -1262,8 +1277,9 @@ def time_tail(p_bf16, gpu) -> dict:
     from vap_realtime_tpu_torch.profile_step import cuda_ms
 
     N, lens = 2 * B, tail_out_len(L0_TAIL)
-    flops = 2 * N * C * C * sum(L * k for L, (k, _, _) in zip(lens,
-                                                              TAIL_SPECS))
+    flops_l = [2 * N * C * C * L * k for L, (k, _, _) in zip(lens,
+                                                            TAIL_SPECS)]
+    flops = sum(flops_l)
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
         x0, packed = tail_inputs(20, N, L0_TAIL, dtype)
@@ -1278,25 +1294,33 @@ def time_tail(p_bf16, gpu) -> dict:
                                             n["w"], n["b"]))
             return x
 
-        ms = cuda_ms(lambda: cpc_conv_tail(x0, packed), reps=5, warm=1)
+        # the kernel and the cuDNN tail in turns: kernel, tail, tail, kernel
+        kernel = lambda: cpc_conv_tail(x0, packed)
+        ms, tail_ms, tail2, ms2 = (cuda_ms(f, reps=5, warm=1) for f in
+                                   (kernel, cudnn_tail, cudnn_tail, kernel))
+        ms, tail_ms = (ms + ms2) / 2, (tail_ms + tail2) / 2
         plain_ms = cuda_ms(lambda: cpc_conv_tail_plain(x0, packed), reps=3,
                            warm=1)
-        tail_ms = cuda_ms(cudnn_tail, reps=5, warm=1)
         es = x0.element_size()
         nbytes = (N * (L0_TAIL + lens[-1]) * C * es
                   + sum(t.numel() for t in packed) * 4)
-        bound_ms, bound_by = bound(nbytes, flops)
+        passes = [2 if dtype == torch.bfloat16 else 3, 3, 3, 3]
+        tf32_ops = sum(n * f for n, f in zip(passes, flops_l))
+        bound_ms, bound_by = bound(nbytes, tf32_ops, TF32_FLOP_PER_S)
+        f32_ms = bound(nbytes, flops)[0]
         name = str(dtype)[6:]
         print(f"[d] cpc_conv_tail (K9) {name} x0 ({N}, {L0_TAIL}, {C}): "
-              f"{ms:.4f} ms/launch, bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{flops / 1e12:.3f} TFLOP at 67 TFLOP/s float32; "
-              f"{nbytes / 1e9:.3f} GB) = {100 * bound_ms / ms:.1f}% of bound;"
-              f" plain {plain_ms:.4f} ms; no single PyTorch call: the cuDNN "
-              f"conv1-4 + ChannelNorm tail {tail_ms:.4f} ms | {gpu}",
-              flush=True)
+              f"{ms:.4f} ms/call (4 launches); bound {bound_ms:.4f} ms "
+              f"({bound_by}: 3xTF32 {tf32_ops / 1e12:.3f} TFLOP of TF32 at "
+              f"495 TFLOP/s; {nbytes / 1e9:.3f} GB) = "
+              f"{100 * bound_ms / ms:.1f}% of bound; float32 bound "
+              f"{f32_ms:.4f} ms ({flops / 1e12:.3f} TFLOP at 67 TFLOP/s) "
+              f"= {100 * f32_ms / ms:.1f}%; plain {plain_ms:.4f} ms; no "
+              f"single PyTorch call: the cuDNN conv1-4 + ChannelNorm tail "
+              f"{tail_ms:.4f} ms | {gpu}", flush=True)
         res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None,
-                         cudnn_tail_ms=tail_ms)
+                         bound_f32_ms=f32_ms, cudnn_tail_ms=tail_ms)
         del x0
     torch.cuda.empty_cache()
     return dict(res["bfloat16"], bodies=res)
@@ -1350,52 +1374,70 @@ def time_fused(p_bf16, frames, gpu) -> dict:
 
 
 def time_lstm(p_bf16, gpu) -> dict:
-    """K5 at (8192, 5, 256), bf16 gates and state (the encoder's dtype):
-    ms per launch, its bound, the plain version; lstm_fused (input
-    projection + scan) against torch.nn.LSTM on cuDNN over the same
-    problem (the yardstick; the port never calls it)."""
+    """K5 at (8192, 5, 256), with bf16 gates and state (the encoder's
+    dtype) and with float32 ones (W_hh^T is float32 in both): ms per
+    launch, the bound (the 3xTF32 floor at 495 TFLOP/s, or the bytes)
+    beside the float32 CUDA-core bound (67 TFLOP/s), the plain version;
+    and lstm_fused (input projection + scan) against torch.nn.LSTM on
+    cuDNN over the same problem in the same dtype (TF32 off): the
+    yardstick, like for like; the port never calls it.  Returns the bf16
+    numbers, both dtypes under "bodies"."""
     from vap_realtime_tpu_torch.ops.cuda.lstm import (
         lstm_fused, lstm_scan, lstm_scan_plain,
     )
     from vap_realtime_tpu_torch.profile_step import cuda_ms
 
-    bf = torch.bfloat16
     N, Hh, Tn = 2 * B, C, 5
-    g = p_bf16["encoder"]["lstm"]
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    x = torch.randn(N, Tn, Hh, generator=gen, device="cuda").to(bf)
-    h0 = (0.1 * torch.randn(N, Hh, generator=gen, device="cuda")).to(bf)
-    c0 = (0.1 * torch.randn(N, Hh, generator=gen, device="cuda")).to(bf)
-    gi = torch.matmul(x, g["w_ih"].T) + g["b_ih"]
-    scan = (gi, h0, c0, g["w_hh"].T, g["b_hh"])
-    ms = cuda_ms(lambda: lstm_scan(*scan), reps=20, warm=3)
-    plain_ms = cuda_ms(lambda: lstm_scan_plain(*scan), reps=5)
-    fused_ms = cuda_ms(lambda: lstm_fused(x, h0, c0, g["w_ih"], g["w_hh"],
-                                          g["b_ih"], g["b_hh"]), reps=20)
-    net = torch.nn.LSTM(Hh, Hh, batch_first=True).to("cuda", bf)
-    with torch.no_grad():
-        for name, attr in (("w_ih", "weight_ih_l0"), ("w_hh", "weight_hh_l0"),
-                           ("b_ih", "bias_ih_l0"), ("b_hh", "bias_hh_l0")):
-            getattr(net, attr).copy_(g[name])
-        net.flatten_parameters()
-        lib = lambda: net(x, (h0[None], c0[None]))
-        library_ms = cuda_ms(lib, reps=20, warm=3)
-        d = (lib()[0].float()
-             - lstm_fused(x, h0, c0, g["w_ih"], g["w_hh"], g["b_ih"],
-                          g["b_hh"])[0].float()).abs().max().item()
     flops = 2 * N * Tn * Hh * 4 * Hh
-    nbytes = (gi.numel() * 2 + 4 * N * Hh * 2 + Hh * 4 * Hh * 4 + 4 * Hh * 4
-              + N * Tn * Hh * 2)
-    bound_ms, bound_by = bound(nbytes, flops)
-    print(f"[d] lstm_scan bf16 ({N}, {Tn}, {Hh}): {ms:.4f} ms/launch, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP at 67 "
-          f"TFLOP/s float32) = {100 * bound_ms / ms:.1f}% of bound; plain "
-          f"{plain_ms:.4f} ms; lstm_fused (projection + scan) "
-          f"{fused_ms:.4f} ms vs torch.nn.LSTM (cuDNN) {library_ms:.4f} ms "
-          f"(max |nn.LSTM - lstm_fused| {d:.3e}) | {gpu}", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms,
-                lstm_fused_ms=fused_ms)
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        g = {k: v.to(dt) for k, v in p_bf16["encoder"]["lstm"].items()}
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        x = torch.randn(N, Tn, Hh, generator=gen, device="cuda").to(dt)
+        h0 = (0.1 * torch.randn(N, Hh, generator=gen, device="cuda")).to(dt)
+        c0 = (0.1 * torch.randn(N, Hh, generator=gen, device="cuda")).to(dt)
+        gi = torch.matmul(x, g["w_ih"].T) + g["b_ih"]
+        scan = (gi, h0, c0, g["w_hh"].T, g["b_hh"])
+        fused = lambda: lstm_fused(x, h0, c0, g["w_ih"], g["w_hh"],
+                                   g["b_ih"], g["b_hh"])
+        ms = cuda_ms(lambda: lstm_scan(*scan), reps=20, warm=3)
+        plain_ms = cuda_ms(lambda: lstm_scan_plain(*scan), reps=5)
+        net = torch.nn.LSTM(Hh, Hh, batch_first=True).to("cuda", dt)
+        with torch.no_grad():
+            for name, attr in (("w_ih", "weight_ih_l0"),
+                               ("w_hh", "weight_hh_l0"),
+                               ("b_ih", "bias_ih_l0"), ("b_hh", "bias_hh_l0")):
+                getattr(net, attr).copy_(g[name])
+            net.flatten_parameters()
+            lib = lambda: net(x, (h0[None], c0[None]))
+            # lstm_fused and nn.LSTM in turns: fused, lib, lib, fused
+            fused_ms, library_ms, lib2, fused2 = (
+                cuda_ms(f, reps=20, warm=3) for f in (fused, lib, lib, fused))
+            fused_ms, library_ms = (fused_ms + fused2) / 2, (library_ms
+                                                             + lib2) / 2
+            d = (lib()[0].float() - fused()[0].float()).abs().max().item()
+        es = x.element_size()
+        nbytes = ((gi.numel() + 4 * N * Hh + N * Tn * Hh) * es
+                  + Hh * 4 * Hh * 4 + 4 * Hh * 4)
+        bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
+        f32_ms = bound(nbytes, flops)[0]
+        name = str(dt)[6:]
+        print(f"[d] lstm_scan {name} ({N}, {Tn}, {Hh}): {ms:.4f} ms/launch, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: 3xTF32 "
+              f"{3 * flops / 1e9:.2f} GFLOP of TF32 at 495 TFLOP/s; "
+              f"{nbytes / 1e9:.3f} GB) = {100 * bound_ms / ms:.1f}% of "
+              f"bound; float32 bound {f32_ms:.4f} ms ({flops / 1e9:.2f} "
+              f"GFLOP at 67 TFLOP/s) = {100 * f32_ms / ms:.1f}%; plain "
+              f"{plain_ms:.4f} ms; lstm_fused (projection + scan) "
+              f"{fused_ms:.4f} ms vs torch.nn.LSTM (cuDNN, {name} weights) "
+              f"{library_ms:.4f} ms (max |nn.LSTM - lstm_fused| {d:.3e}) | "
+              f"{gpu}", flush=True)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms,
+                         bound_f32_ms=f32_ms, lstm_fused_ms=fused_ms)
+        del gi, x, net
+    torch.cuda.empty_cache()
+    return dict(res["bfloat16"], bodies=res)
 
 
 # --- slice 5: the lab kernels (K11, K12) and the hybrid paths -------------

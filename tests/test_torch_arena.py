@@ -160,6 +160,45 @@ def test_hybrid_arenas_match_jax_arena(path):
                                            err_msg=f"{k} slot {s} tick {tick}")
 
 
+@pytest.mark.parametrize("path", ["hybrid", "fast_hybrid"])
+def test_hybrid_reset_keeps_ring_order_with_global_scales(path):
+    """A slot reset of a hybrid arena with quant_cache="global", at a count
+    that is no multiple of the ring length (26 frames, T = 20), with the
+    stream's next active tick a resync tick: the resync calibrates the
+    stream's frozen scales over the WHOLE ring, the previous stream's
+    stale rows included, so the port's ring must hold those rows in the
+    JAX package's order.  Frozen scales at 5e-5 after every tick, every
+    served output at 1e-4, before and after the reset."""
+    jc = jcfg.VapConfig(**NARROW)
+    init = jax.jit(init_vap_params, static_argnums=1)
+    jp = jax.tree_util.tree_map(np.asarray, init(jax.random.PRNGKey(6), jc))
+    kw = dict(capacity=2, path=path, resync_every=5, quant_cache="global")
+    ja = JaxArena(jc, jp, attend_impl="pallas", **kw)
+    ta = StreamArena(VapConfig(**NARROW), jp, device="cpu", **kw)
+    ja.warmup()
+    ta.warmup()
+    assert ta.state.kv.step == ja._tick == 3   # resync when tick % 5 == 1
+    slots = [ja.add_stream() for _ in range(2)]
+    assert [ta.add_stream() for _ in range(2)] == slots
+    rs = np.random.RandomState(5)
+    for tick in range(29):
+        if tick == 26:
+            assert int(ta.state.kv.count[slots[0]]) == 26
+            ja.reset_slots([slots[0]])
+            ta.reset_slots([slots[0]])
+        chunks = {s: (0.1 * rs.randn(2, ta.chunk_samples))
+                  .astype(np.float32) for s in slots}
+        out_j, out_t = ja.step(chunks), ta.step(chunks)
+        np.testing.assert_allclose(
+            ta.state.kv.scale.numpy(), np.asarray(ja.state.kv.scale),
+            atol=5e-5, err_msg=f"frozen scales after tick {tick}")
+        for s in slots:
+            for k in ("p_now", "p_future", "vad"):
+                np.testing.assert_allclose(out_t[s][k], out_j[s][k],
+                                           atol=1e-4,
+                                           err_msg=f"{k} slot {s} tick {tick}")
+
+
 def test_arena_defaults_to_cuda():
     """Entry points run on the card unless asked for the CPU; without
     CUDA they raise instead of falling back; an unknown path raises."""

@@ -10,7 +10,7 @@ import torch
 from vap_realtime_tpu.ops.pallas.lstm import lstm_pallas
 from vap_realtime_tpu_torch.ops.basic import lstm
 from vap_realtime_tpu_torch.ops.cuda.lstm import (
-    lstm_fused, lstm_scan, lstm_scan_plain,
+    lstm_fused, lstm_scan, lstm_scan_plain, pack_w_hh,
 )
 
 T_ = torch.as_tensor
@@ -82,3 +82,27 @@ def test_wrapper_cpu_dispatch_and_checks():
     m = lambda t: t.to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         lstm_scan(m(gi), m(h0), m(c0), m(w_hh.T), m(b_hh))
+
+
+def test_pack_w_hh_layout():
+    """The kernel's weight layout (4, H / 2, H, 2): column j = 32 w + 8 nt
+    + 2 q + e of pass p is gate 2 (q & 1) + e of unit 64 p + 8 w + 4 (q >>
+    1) + nt (lanes q and q ^ 1 of an MMA tile share a unit; a lane's four
+    column tiles are consecutive units), K rows in pairs; every column of
+    W_hh^T lands once."""
+    H = 256
+    w = torch.from_numpy(np.random.RandomState(4).randn(H, 4 * H)
+                         .astype(np.float32))
+    wp = pack_w_hh(w)
+    assert wp.shape == (4, H // 2, H, 2) and wp.dtype == torch.float32
+    j = np.arange(H)
+    wg, r = np.divmod(j, 32)
+    nt, r = np.divmod(r, 8)
+    q, e = np.divmod(r, 2)
+    seen = []
+    for p in range(4):
+        cols = (2 * (q & 1) + e) * H + 64 * p + 8 * wg + 4 * (q >> 1) + nt
+        by_k = wp[p].permute(0, 2, 1).reshape(H, H)      # (k, j)
+        assert torch.equal(by_k, w[:, cols])
+        seen.append(cols)
+    assert sorted(np.concatenate(seen).tolist()) == list(range(4 * H))

@@ -8,16 +8,21 @@ the padded, non-streaming conv1-4 of the chunked encoder
 time-major, everything in float32 inside.  Like the JAX package's, the
 serving paths do not call it: it is the drop-in for conv1-4 of
 `cpc_conv_stack`.  The kernel is
-`vap_realtime_tpu_torch/csrc/cpc_conv_tail.cu`, hand-written for Hopper;
-see its header for the design.
+`vap_realtime_tpu_torch/csrc/cpc_conv_tail.cu`, hand-written for Hopper:
+one launch per layer, each an implicit GEMM on the tensor cores in
+3xTF32 (float32 accuracy from three TF32 MMAs, `ops/cuda/tf32.py`), a
+block holding whole channel-streams over all 256 output channels so the
+ChannelNorm + ReLU epilogue stays in the block; see its header.
 
 Bound on the H100: operations.  At 2B = 8192 channel-streams and L0 = 224
 (20 Hz): 0.69 TFLOP of float32 products, 10.3 ms at 67 TFLOP/s on the
-CUDA cores; x0 is 1.88 GB in float32 (0.56 ms at 3.35 TB/s).
+CUDA cores; as 3xTF32 2.07 TFLOP of TF32, 4.19 ms at 495 TFLOP/s (3.22
+ms with a bf16 x0, whose conv1 needs two passes); x0 is 1.88 GB in
+float32 (0.56 ms at 3.35 TB/s).
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs `cpc_conv_tail_plain`.  `cpc_conv_tail.launches` counts
-kernel launches.
+calls (four kernel launches each).
 """
 
 from __future__ import annotations
@@ -63,14 +68,14 @@ def pack_tail_params(enc_params: Dict[str, Any]) -> Tuple[Tensor, ...]:
 
 
 def _phase_conv(x: Tensor, w_taps: Tensor, b: Tensor, k: int, s: int,
-                p: int, L_out: int) -> Tensor:
-    """One padded strided conv, time-major, float32: x (B, L, C) ->
-    (B, L_out, C) = b + sum_i x[s t + i - p] @ w_taps[i], the taps summed
-    in order as the TPU kernel's `_phase_conv`."""
+                p: int, L_out: int, matmul=torch.matmul) -> Tensor:
+    """One padded strided conv, time-major: x (B, L, C) -> (B, L_out, C)
+    = b + sum_i x[s t + i - p] @ w_taps[i], the taps summed in order as
+    the TPU kernel's `_phase_conv`."""
     xp = F.pad(x, (0, 0, p, p + s))            # zero rows outside [0, L)
     out = b.expand(x.shape[0], L_out, -1)
     for i in range(k):
-        out = out + xp[:, i:i + s * (L_out - 1) + 1:s] @ w_taps[i]
+        out = out + matmul(xp[:, i:i + s * (L_out - 1) + 1:s], w_taps[i])
     return out
 
 
@@ -83,18 +88,21 @@ def _channel_norm_relu(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     return torch.relu(cent * torch.rsqrt(var + 1e-5) * w + b)
 
 
-def cpc_conv_tail_plain(x0: Tensor, tail_params: Tuple[Tensor, ...]
-                        ) -> Tensor:
+def cpc_conv_tail_plain(x0: Tensor, tail_params: Tuple[Tensor, ...],
+                        matmul=torch.matmul) -> Tensor:
     """Plain PyTorch version of the kernel, with its rounding points: x0
     and the weights cast to float32, float32 products and sums, the
     activations between layers in float32, the output cast to x0's dtype.
-    x0 (B, L0, C); returns (B, L4, C)."""
-    f = [t.float() for t in tail_params]
+    A float64 x0 runs everything in float64 (a reference for the
+    rounding); `matmul` takes each tap's product (the tests pass
+    `tf32.matmul_3xtf32`).  x0 (B, L0, C); returns (B, L4, C)."""
+    ct = torch.float64 if x0.dtype == torch.float64 else torch.float32
+    f = [t.to(ct) for t in tail_params]
     ws, bs, nws, nbs = f[0:4], f[4:8], f[8:12], f[12:16]
-    x = x0.float()
+    x = x0.to(ct)
     for li, ((k, s, p), L) in enumerate(zip(TAIL_SPECS,
                                             tail_out_len(x0.shape[1]))):
-        x = _phase_conv(x, ws[li], bs[li], k, s, p, L)
+        x = _phase_conv(x, ws[li], bs[li], k, s, p, L, matmul)
         x = _channel_norm_relu(x, nws[li], nbs[li])
     return x.to(x0.dtype)
 
@@ -106,8 +114,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.cpc_conv_tail_launch
     fn.restype = ctypes.c_int
     P, I = ctypes.c_void_p, ctypes.c_int
-    # dtype; x0, W, aux, out; N, L0, C; stream
-    fn.argtypes = [I, P, P, P, P, I, I, I, P]
+    # dtype; x0, W, aux, out; y1, y2, y3 (scratch); N, L0, C; stream
+    fn.argtypes = [I, P, P, P, P, P, P, P, I, I, I, P]
     return lib
 
 
@@ -117,7 +125,8 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def cpc_conv_tail(x0: Tensor, tail_params: Tuple[Tensor, ...]) -> Tensor:
-    """conv1..conv4 (+ ChannelNorm + ReLU each) in one kernel.
+    """conv1..conv4 (+ ChannelNorm + ReLU each), one kernel launch per
+    layer.
 
     x0: (B, L0, 256) conv0's normalised and ReLU'd output, time-major,
     float32 or bf16; tail_params: `pack_tail_params`'s tuple (any float
@@ -141,15 +150,20 @@ def cpc_conv_tail(x0: Tensor, tail_params: Tuple[Tensor, ...]) -> Tensor:
                    f"bias / norm parameters of layer {li + 1} must be ({C},)")
     for t in tail_params:
         _check(t.device == x0.device, "all tensors on one device")
-    W = torch.cat([w.float().reshape(-1, C, C) for w in tail_params[:4]])
+    # the taps of conv1..4, input channels in pairs: (20, C / 2, C, 2)
+    W = (torch.cat([w.float().reshape(-1, C, C) for w in tail_params[:4]])
+         .reshape(-1, C // 2, 2, C).transpose(2, 3).contiguous())
     aux = torch.stack([t.float().reshape(C) for li in range(4)
                        for t in tail_params[4 + li::4]])
     x = x0.contiguous()
     out = torch.empty((B, lens[-1], C), dtype=x0.dtype, device=x0.device)
+    # conv1..conv3's outputs stay float32 between the launches
+    ys = [torch.empty((B, L, C), dtype=torch.float32, device=x0.device)
+          for L in lens[:3]]
     with torch.cuda.device(x0.device):
         rc = _lib().cpc_conv_tail_launch(
             _DTYPES[x0.dtype], x.data_ptr(), W.data_ptr(), aux.data_ptr(),
-            out.data_ptr(), B, L0, C,
+            out.data_ptr(), *(y.data_ptr() for y in ys), B, L0, C,
             torch.cuda.current_stream(x0.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cpc_conv_tail: kernel launch failed, "

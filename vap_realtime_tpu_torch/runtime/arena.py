@@ -109,12 +109,23 @@ def _reset_slot(state, mask: torch.Tensor) -> None:
     state of any path.  Cache, stage and embedding-buffer rows stay:
     their stamps or the count invalidate them.  Per-row scales stay too
     (read only for live rows); the frozen scales of quant="global" are
-    zeroed, so the next stream calibrates anew."""
+    zeroed, so the next stream calibrates anew.
+
+    A reset stream's embedding ring is first rotated into the JAX
+    package's right-aligned order (slot j = position j), so later writes
+    at slot count % T evict the rows the JAX roll evicts: a resync
+    calibrates unset global scales over the whole ring, stale rows
+    included."""
     conv = getattr(state, "conv", None)
     if conv is not None:
         m2 = mask.repeat_interleave(2).view(-1, 1, 1)  # conv tails per channel
         for v in conv.values():
             v.masked_fill_(m2, 0)
+    if isinstance(state, (incremental.HybridState,
+                          incremental.FastHybridState)):
+        aligned = incremental.right_aligned(state.e_ctx, state.kv.count)
+        state.e_ctx.copy_(torch.where(mask.view(-1, 1, 1, 1), aligned,
+                                      state.e_ctx))
     state = getattr(state, "kv", state)
     state.lstm_h.masked_fill_(mask.view(-1, 1, 1), 0)
     state.lstm_c.masked_fill_(mask.view(-1, 1, 1), 0)
