@@ -26,12 +26,14 @@ Phases (any failed check raises, so the script exits non-zero):
            bf16 within one bf16 rounding step at each of its three
            rounding points, |d| <= 2^-6 |w y| + 2^-7 |out| + 1e-6 (y the
            float32 normalised value);
-         - conv_stack_fused (K7) on 8192 channel-streams x 800 samples,
-           three frames, each carrying its own state: float32 at atol 1e-4
-           (TF32 off); bf16 within four bf16 steps, |d| <= 2^-6 (1 +
-           |plain|) (both accumulate in float32 in other orders, and a
-           value moved across a rounding boundary travels on through the
-           later layers); the new carries too (c0 bit-equal);
+         - conv_stack_fused (K7) on 8192 channel-streams x 800 samples
+           and beside it a ragged 8195 and 5 streams, L = 320 (both
+           dtypes) and L = 1600 (bf16; the float32 body's shared memory
+           refuses it), three frames, each carrying its own state: float32
+           at atol 1e-4 (TF32 off); bf16 within four bf16 steps, |d| <=
+           2^-6 (1 + |plain|) (both accumulate in float32 in other orders,
+           and a value moved across a rounding boundary travels on through
+           the later layers); the new carries too (c0 bit-equal);
          - the compact attend (K10) at B=4096 and 64, all 7 phases, ring
            rows: float32 (atol 1e-4), bf16, int8 with row scales and
            int8 codes under the frozen-scale fold (atol/rtol 2e-2 in float
@@ -88,9 +90,12 @@ Phases (any failed check raises, so the script exits non-zero):
          yardstick where one exists (scaled_dot_product_attention on the
          dequantised bf16 rows, torch.nn.LSTM on cuDNN; the port never
          calls them; K7 has none, so the `conv` and `normk` stacks' times
-         stand beside it; K8 against scaled_dot_product_attention; K9 against
-         the cuDNN conv1-4 + ChannelNorm tail of cpc_conv_stack; K5 and K9,
-         which take their float32 products as 3xTF32 on the tensor cores,
+         stand beside it, with its float32 body's time, the device time of
+         each of the bf16 body's five launches, its L2 weight bytes per
+         call and the fused fast step's time in the same call; K8 against
+         scaled_dot_product_attention; K9 against the cuDNN conv1-4 +
+         ChannelNorm tail of cpc_conv_stack; K5 and K9, which take their
+         float32 products as 3xTF32 on the tensor cores,
          beside both floors: three TF32 passes at 495 TFLOP/s (their
          bound) and float32 on the CUDA cores at 67 TFLOP/s; K5 and
          lstm_fused in bf16 and float32 against torch.nn.LSTM in the same
@@ -502,10 +507,10 @@ def phase_a_norm() -> float:
     return worst
 
 
-def fused_inputs(seed: int, dtype):
-    """Serving-shaped K7 inputs on the card: 2B channel-streams, three
-    frames of fresh samples, random carries (post-ReLU-like rows), and
-    the synthetic encoder's packed weights in `dtype`."""
+def fused_inputs(seed: int, dtype, N: int = 2 * B, L: int = L_NEW):
+    """K7 inputs on the card: N channel-streams, three frames of L fresh
+    samples, random carries (post-ReLU-like rows), and the synthetic
+    encoder's packed weights in `dtype`."""
     from vap_realtime_tpu_torch.ops.cuda.encoder import (
         TAIL_KS, pack_fused_params,
     )
@@ -514,54 +519,66 @@ def fused_inputs(seed: int, dtype):
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
-    N = 2 * B
     enc = params_to_torch(synthetic_params(20)["encoder"], "cuda", dtype)
     carries = tuple(rn(N, k - s, C).abs().to(dtype) for k, s in TAIL_KS)
-    news = [(0.1 * rn(N, L_NEW)).to(dtype) for _ in range(3)]
+    news = [(0.1 * rn(N, L)).to(dtype) for _ in range(3)]
     return (0.1 * rn(N, 5)).to(dtype), news, carries, \
         pack_fused_params(enc, dtype), enc
 
 
+# K7's cases in (a): (channel-streams, samples per frame) per dtype; 2B + 3
+# and 5 are ragged against the bf16 body's 128-row tiles, L = 1600 runs in
+# bf16 only (the float32 body's shared memory refuses it)
+FUSED_CASES = {torch.float32: [(2 * B, 800), (2 * B + 3, 800), (5, 800),
+                               (2 * B, 320), (5, 320)],
+               torch.bfloat16: [(2 * B, 800), (2 * B + 3, 800), (5, 800),
+                                (2 * B, 320), (5, 320), (2 * B, 1600),
+                                (2 * B + 3, 1600)]}
+
+
 def phase_a_fused() -> float:
-    """conv_stack_fused (K7) vs plain at the serving shape, three frames
-    each carrying its own state; returns the max abs error in bf16."""
+    """conv_stack_fused (K7) vs plain over FUSED_CASES, three frames each
+    carrying its own state; returns the max abs error in bf16."""
     from vap_realtime_tpu_torch.ops.cuda.encoder import (
         conv_stack_fused, conv_stack_fused_plain,
     )
 
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        c0, news, carries, packed, _ = fused_inputs(8, dtype)
-        st_k = st_p = (c0, *carries)
-        err = 0.0
-        for f, new in enumerate(news):
-            zk, st_k = conv_stack_fused(st_k[0], new, st_k[1:], *packed)
-            zp, st_p = conv_stack_fused_plain(st_p[0], new, st_p[1:],
-                                              *packed)
-            torch.cuda.synchronize()
-            check(zk.dtype == dtype and zk.shape == (2 * B, 5, C)
-                  and torch.isfinite(zk).all().item(),
-                  f"conv_stack_fused output {dtype} frame {f}")
-            check(torch.equal(st_k[0], st_p[0]),
-                  f"conv_stack_fused carry c0 {dtype} frame {f}")
-            for name, got, want in [("z", zk, zp)] + [
-                    (f"c{i}", a, b) for i, (a, b) in
-                    enumerate(zip(st_k[1:], st_p[1:]), start=1)]:
-                d = (got.float() - want.float()).abs()
-                tol = (1e-4 if dtype == torch.float32
-                       else 2 ** -6 * (1 + want.float().abs()))
-                check(bool((d <= tol).all()),
-                      f"conv_stack_fused vs plain {dtype} frame {f} {name}: "
-                      f"max |d| {d.max().item():.3e}")
-                err = max(err, d.max().item())
-        print(f"[a] conv_stack_fused {str(dtype)[6:]} ({2 * B} x {L_NEW}), 3 "
-              f"frames: max |kernel - plain| over z and carries {err:.3e} ("
-              + ("atol 1e-4" if dtype == torch.float32 else
-                 "|d| <= 2^-6 (1 + |plain|)") + ")", flush=True)
-        if dtype == torch.bfloat16:
-            worst = err
-        del news, carries
-    torch.cuda.empty_cache()
+    for dtype, cases in FUSED_CASES.items():
+        for N, L in cases:
+            c0, news, carries, packed, _ = fused_inputs(8, dtype, N, L)
+            st_k = st_p = (c0, *carries)
+            err = 0.0
+            for f, new in enumerate(news):
+                zk, st_k = conv_stack_fused(st_k[0], new, st_k[1:], *packed)
+                zp, st_p = conv_stack_fused_plain(st_p[0], new, st_p[1:],
+                                                  *packed)
+                torch.cuda.synchronize()
+                what = f"{dtype} N={N} L={L} frame {f}"
+                check(zk.dtype == dtype and zk.shape == (N, L // 160, C)
+                      and torch.isfinite(zk).all().item(),
+                      f"conv_stack_fused output {what}")
+                check(torch.equal(st_k[0], st_p[0]),
+                      f"conv_stack_fused carry c0 {what}")
+                for name, got, want in [("z", zk, zp)] + [
+                        (f"c{i}", a, b) for i, (a, b) in
+                        enumerate(zip(st_k[1:], st_p[1:]), start=1)]:
+                    d = (got.float() - want.float()).abs()
+                    tol = (1e-4 if dtype == torch.float32
+                           else 2 ** -6 * (1 + want.float().abs()))
+                    check(bool((d <= tol).all()),
+                          f"conv_stack_fused vs plain {what} {name}: max "
+                          f"|d| {d.max().item():.3e}")
+                    err = max(err, d.max().item())
+            print(f"[a] conv_stack_fused {str(dtype)[6:]} ({N} x {L}), 3 "
+                  f"frames: max |kernel - plain| over z and carries "
+                  f"{err:.3e} (" + ("atol 1e-4" if dtype == torch.float32
+                                    else "|d| <= 2^-6 (1 + |plain|)") + ")",
+                  flush=True)
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            del news, carries, st_k, st_p, zk, zp
+            torch.cuda.empty_cache()
     return worst
 
 
@@ -1169,6 +1186,8 @@ def phase_d(cfg, p_bf16, frames, gpu):
         torch.cuda.synchronize()
         step_ms = (time.time() - t0) * 1e3 / steps
         streams = B * (1e3 / cfg.frame_hz) / step_ms
+        if config == "fused":
+            fused.update(fused_step_ms=step_ms, fused_step_streams=streams)
         print(f"[d] fast {step_kw['slots']} step bf16 {config}, B={B}, "
               f"kernels: {step_ms:.3f} ms/step (host clock, {steps} steps"
               f"{' incl. 3 merges' if init_kw['staged'] else ''}) -> "
@@ -1176,6 +1195,9 @@ def phase_d(cfg, p_bf16, frames, gpu):
               f"Hz | {gpu}", flush=True)
         del st
         torch.cuda.empty_cache()
+    print(f"[d] conv_stack_fused (K7) {fused['ms']:.4f} ms/call against the "
+          f"fused fast step's {fused['fused_step_ms']:.3f} ms/step (same "
+          f"call, one K7 call per step, B={B}) | {gpu}", flush=True)
     return (bodies, dict(norm, bound_by="bytes", library_ms=None,
                          layers=layers), compact, fused, lstm)
 
@@ -1327,50 +1349,83 @@ def time_tail(p_bf16, gpu) -> dict:
 
 
 def time_fused(p_bf16, frames, gpu) -> dict:
-    """K7 at the serving shape in bf16: ms per launch, its bound, the
-    plain version, and the `conv` and `normk` stacks over the same
-    frame (no single PyTorch call computes the stack)."""
+    """K7 at the serving shape (8192 channel-streams x 800 samples): ms per
+    call in bf16 (the serving dtype; the JSON's numbers) and in float32,
+    each beside its bound and its plain version, the CUDA launches a call
+    makes, the bf16 body's per-launch device times and L2 weight bytes per
+    call, and the `conv` and `normk` stacks over the same frame (no single
+    PyTorch call computes the stack)."""
     from vap_realtime_tpu_torch.models.encoder import (
         cpc_conv_stack_streaming, cpc_conv_stack_streaming_normk,
     )
     from vap_realtime_tpu_torch.ops.cuda.encoder import (
-        TAIL_KS, conv_stack_fused, conv_stack_fused_plain,
+        CUDA_LAUNCHES, TAIL_KS, conv_stack_fused, conv_stack_fused_plain,
         init_conv_stream_state_fused, pack_fused_params, tail_lens,
+        weight_l2_bytes,
     )
     from vap_realtime_tpu_torch.profile_step import cuda_ms
+    from vap_realtime_tpu_torch.tools.k7_ablate import time_call
 
-    bf = torch.bfloat16
     N = 2 * B
-    enc = p_bf16["encoder"]
-    st = init_conv_stream_state_fused(N, dtype=bf, device="cuda")
-    new = frames[0].reshape(N, L_NEW)
-    w0, wts, aux = pack_fused_params(enc, bf)
-    args = (st["c0"][:, 0], new, tuple(st[f"c{i}"] for i in range(1, 5)),
-            w0, wts, aux)
-    ms = cuda_ms(lambda: conv_stack_fused(*args), reps=10, warm=2)
-    plain_ms = cuda_ms(lambda: conv_stack_fused_plain(*args), reps=3)
-    conv_ms = cuda_ms(lambda: cpc_conv_stack_streaming(enc, new, st), 10)
-    normk_ms = cuda_ms(lambda: cpc_conv_stack_streaming_normk(enc, new, st),
-                       10)
     T0 = L_NEW // 5
     flops = 2 * N * C * (T0 * 10 + sum(
         t_out * k * C for (k, _), (_, t_out) in zip(TAIL_KS,
                                                     tail_lens(T0))))
-    carry = (5 + sum(k - s for k, s in TAIL_KS) * C) * 2
-    nbytes = (N * (L_NEW * 2 + 2 * carry + 5 * C * 2)
-              + (w0.numel() + sum(w.numel() for w in wts)) * 2
-              + aux.numel() * 4)
-    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-    print(f"[d] conv_stack_fused bf16 ({N} x {L_NEW}): {ms:.4f} ms/launch, "
-          f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e12:.3f} TFLOP "
-          f"at 989 TFLOP/s bf16; {nbytes / 1e9:.3f} GB) = "
-          f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.4f} ms; "
-          f"no single PyTorch call: the conv stack (cuDNN convs + plain "
-          f"ChannelNorm) {conv_ms:.4f} ms, the normk stack {normk_ms:.4f} "
-          f"ms | {gpu}", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, conv_stack_ms=conv_ms,
-                normk_stack_ms=normk_ms)
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        enc = {k: {n: v.to(dt) for n, v in layer.items()}
+               for k, layer in p_bf16["encoder"].items()}  # two levels
+        st = init_conv_stream_state_fused(N, dtype=dt, device="cuda")
+        new = frames[0].reshape(N, L_NEW).to(dt)
+        w0, wts, aux = pack_fused_params(enc, dt)
+        args = (st["c0"][:, 0], new, tuple(st[f"c{i}"] for i in range(1, 5)),
+                w0, wts, aux)
+        run = lambda: conv_stack_fused(*args)
+        ms = cuda_ms(run, reps=10, warm=2)
+        plain_ms = cuda_ms(lambda: conv_stack_fused_plain(*args), reps=3)
+        es = new.element_size()
+        carry = (5 + sum(k - s for k, s in TAIL_KS) * C) * es
+        nbytes = (N * (L_NEW * es + 2 * carry + 5 * C * es)
+                  + (w0.numel() + sum(w.numel() for w in wts)) * es
+                  + aux.numel() * 4)
+        name = str(dt)[6:]
+        if dt == torch.bfloat16:
+            bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            peak = "989 TFLOP/s bf16"
+            # the five launches of one call, by device time
+            _, per = time_call(run, reps=5)
+            l2 = weight_l2_bytes(N, L_NEW)
+            conv_ms = cuda_ms(lambda: cpc_conv_stack_streaming(enc, new, st),
+                              10)
+            normk_ms = cuda_ms(
+                lambda: cpc_conv_stack_streaming_normk(enc, new, st), 10)
+            extra = (f"; {CUDA_LAUNCHES[dt]} CUDA launches a call (conv0 "
+                     f"{per[0]:.4f}, conv1-4 "
+                     + ", ".join(f"{t:.4f}" for t in per[1:])
+                     + f" ms); L2 weight reads {l2 / 1e9:.3f} GB a call; no "
+                     f"single PyTorch call: the conv stack (cuDNN convs + "
+                     f"plain ChannelNorm) {conv_ms:.4f} ms, the normk stack "
+                     f"{normk_ms:.4f} ms")
+            res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None,
+                             cuda_launches=CUDA_LAUNCHES[dt],
+                             launch_ms=per, weight_l2_bytes=l2,
+                             conv_stack_ms=conv_ms, normk_stack_ms=normk_ms)
+        else:
+            bound_ms, bound_by = bound(nbytes, flops)
+            peak = "67 TFLOP/s float32 CUDA cores"
+            extra = f"; {CUDA_LAUNCHES[dt]} CUDA launch a call"
+            res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by,
+                             cuda_launches=CUDA_LAUNCHES[dt])
+        print(f"[d] conv_stack_fused {name} ({N} x {L_NEW}): {ms:.4f} "
+              f"ms/call, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{flops / 1e12:.3f} TFLOP at {peak}; {nbytes / 1e9:.3f} GB) "
+              f"= {100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.4f} "
+              f"ms{extra} | {gpu}", flush=True)
+        del st, new, args
+        torch.cuda.empty_cache()
+    return dict(res["bfloat16"], float32=res["float32"])
 
 
 def time_lstm(p_bf16, gpu) -> dict:

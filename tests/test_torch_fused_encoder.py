@@ -265,3 +265,113 @@ def test_wrapper_cpu_dispatch_and_checks():
                                 tuple(map(meta, args[2])),
                                 *map(meta, packed[:1]),
                                 tuple(map(meta, packed[1])), meta(packed[2]))
+
+
+def _emulate_hopper_body(c0, new, carries, w0, wts, aux):
+    """Plain-torch emulation of the bf16 body's data path (any dtype):
+    conv0 writes X1 = [c1 | conv0 rows] and the carries into X2..X4's
+    first rows; each tail layer reads X_l as the flat (B (T_out + 1),
+    s C) matrix of stride blocks of ALL streams, takes tiles of
+    TILE_ROWS output rows m with A = xm[m0 : m0 + 128] and xm[m0 + 1 :
+    m0 + 129] (rows past the end zero, as TMA fills them) against the
+    kernel-private W^T, and the epilogue writes row m = n (T_out + 1) + t
+    to the next input's row n (T_out + 2) + 2 + t (z: n T_out + t),
+    dropping the junk rows t = T_out and the ragged rows m >= M."""
+    B, L = new.shape
+    dt, f32 = new.dtype, torch.float32
+    xc0 = torch.cat([c0.to(dt), new], dim=-1)
+    y = (torch.matmul(tfused.conv0_patches(xc0).to(f32), w0.to(f32))
+         + aux[0])
+    x0 = tfused._cnorm_relu(y, aux[1].to(dt), aux[2].to(dt), dt)
+    geo = tfused.layer_geometry(B, L)
+    xs = [torch.cat([carries[0].to(dt), x0], dim=1)]
+    for li, g in enumerate(geo[:3]):
+        buf = torch.full((B, g["T_out"] + 2, 256), float("nan"), dtype=dt)
+        buf[:, :2] = carries[li + 1].to(dt)
+        xs.append(buf)
+    z = torch.full((B, geo[-1]["T_out"], 256), float("nan"), dtype=dt)
+    outs = [n.reshape(B, -1, 256) for n in xs[1:]] + [z]
+    new_carries = [xc0[:, -5:], xs[0][:, -4:].clone()]
+    for li, (g, Wt) in enumerate(zip(geo, tfused.hopper_weights(wts))):
+        M, T, half = g["M"], g["T_out"], g["s"] * 256
+        xm = xs[li].reshape(M, half).to(f32)
+        rows = g["tiles"] * tfused.TILE_ROWS
+        xz = torch.cat([xm, torch.zeros(rows + 1 - M, half)])
+        Wt = Wt.to(f32)
+        cn = 2 if li < 3 else 0
+        flat = outs[li].reshape(-1, 256)
+        for m0 in range(0, rows, tfused.TILE_ROWS):
+            a0 = xz[m0:m0 + tfused.TILE_ROWS]
+            a1 = xz[m0 + 1:m0 + tfused.TILE_ROWS + 1]
+            y = (torch.matmul(a0, Wt[:, :half].T)
+                 + torch.matmul(a1, Wt[:, half:].T) + aux[3 * (li + 1)])
+            o = tfused._cnorm_relu(y, aux[3 * (li + 1) + 1].to(dt),
+                                   aux[3 * (li + 1) + 2].to(dt), dt)
+            m = torch.arange(m0, m0 + tfused.TILE_ROWS)
+            n, t = m // (T + 1), m % (T + 1)
+            keep = (m < M) & (t < T)
+            flat[(n * (T + cn) + cn + t)[keep]] = o[keep]
+        if li < 3:
+            new_carries.append(outs[li][:, -2:].clone())
+    return z, tuple(new_carries)
+
+
+@pytest.mark.parametrize("L,dtype", [(320, "float32"), (800, "float32"),
+                                     (1600, "float32"), (800, "bfloat16")])
+def test_hopper_layout_emulation_matches_plain(L, dtype):
+    """The bf16 body's data path (the W^T repack, M stacked over all
+    channel-streams with its masked ragged last tile, the stride-block A
+    views with their dropped junk rows), emulated in plain torch, against
+    conv_stack_fused_plain: B = 13 (ragged against the 128-row tiles at
+    every L), three frames carrying state.  float32 at atol 1e-6; bf16
+    (the serving dtype: the same rounding points) at |d| <= 2^-6 (1 +
+    |plain|), chip_smoke.py's kernel tolerance."""
+    _, jp = _params()
+    td = getattr(torch, dtype)
+    enc = params_to_torch(jp["encoder"], dtype=td)
+    w0, wts, aux = tfused.pack_fused_params(enc, td)
+    n = 13
+    st = {k: T_(v).to(td) for k, v in _random_carries(n, 13).items()}
+    st_e = st_p = (st["c0"][:, 0], *(st[f"c{i}"] for i in range(1, 5)))
+    rs = np.random.RandomState(14)
+    for f in range(3):
+        new = T_((0.1 * rs.randn(n, L)).astype(np.float32)).to(td)
+        z_e, st_e = _emulate_hopper_body(st_e[0], new, st_e[1:], w0, wts,
+                                         aux)
+        z_p, st_p = tfused.conv_stack_fused_plain(st_p[0], new, st_p[1:],
+                                                  w0, wts, aux)
+        for name, a, b in [("z", z_e, z_p)] + [
+                (f"c{i}", a, b) for i, (a, b) in enumerate(zip(st_e, st_p))]:
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+            assert torch.isfinite(a.float()).all(), f"{name} frame {f}"
+            d = (a.float() - b.float()).abs()
+            tol = (1e-6 if dtype == "float32"
+                   else 2 ** -6 * (1 + b.float().abs()))
+            assert bool((d <= tol).all()), (
+                f"L={L} {dtype} {name} frame {f}: max |d| "
+                f"{d.max().item():.3e}")
+
+
+def test_layer_geometry_and_weight_traffic():
+    """layer_geometry at the serving shape (8192 channel-streams x 800
+    samples): M = N (T_out + 1) per layer, 128-row tiles with only the last
+    one ragged, and the L2 weight bytes per call those tiles imply; the
+    W^T repack is cached per weight tensor."""
+    geo = tfused.layer_geometry(8192, 800)
+    assert [g["T_out"] for g in geo] == [40, 20, 10, 5]
+    for g in geo:
+        assert g["M"] == 8192 * (g["T_out"] + 1)
+        assert (g["tiles"] - 1) * 128 < g["M"] <= g["tiles"] * 128
+    assert [g["tiles"] for g in geo] == [2624, 1344, 704, 384]
+    assert tfused.weight_l2_bytes(8192, 800) == sum(
+        t * k * 256 * 2 for t, k in zip([2624, 1344, 704, 384],
+                                        [2048, 1024, 1024, 1024]))
+    assert tfused.CUDA_LAUNCHES == {torch.float32: 1, torch.bfloat16: 5}
+    _, jp = _params()
+    _, wts, _ = tfused.pack_fused_params(params_to_torch(jp["encoder"]),
+                                         torch.float32)
+    wt = tfused.hopper_weights(wts)
+    assert all(a is b for a, b in zip(wt, tfused.hopper_weights(wts)))
+    for W, Wt in zip(wts, wt):
+        assert Wt.is_contiguous()
+        assert torch.equal(Wt, W.reshape(-1, 256).T)

@@ -1,6 +1,6 @@
 // The whole streaming CPC conv stack (conv0..conv4, each followed by
-// ChannelNorm + ReLU) in one kernel, for Hopper (sm_90a).  Hand-written
-// replacement of the TPU kernel `conv_stack_fused_call`
+// ChannelNorm + ReLU), for Hopper (sm_90a).  Hand-written replacement of
+// the TPU kernel `conv_stack_fused_call`
 // (vap_realtime_tpu/ops/pallas/encoder.py:291, bodies `_kernel`:190 and
 // `_kernel_v3`:89; its modes are VMEM layouts of this one function).
 //
@@ -9,9 +9,9 @@
 //   conv0: y[t] = sum_j xc0[5t + j] w0[j, :] + b0          (k 10, s 5)
 //   conv1-4 (k = 2s; s = 4, 2, 2, 2): x = [carry (k-s rows) | previous
 //     output], channels-last (T_in, 256); y[t] = sum_{j<k} x[st + j] W_j + b
-//     (the TPU kernel's two stride-block matmuls y = xm[t] W0 + xm[t+1] W1
-//     are this sum split at j = s); T_out = T_in / s - 1 = 40, 20, 10, 5
-//     at L = 800
+//     = xm[t] W[0] + xm[t+1] W[1] over the stride blocks xm[t] = x rows
+//     [st, st + s) laid end to end (the TPU kernel's two stride-block
+//     matmuls); T_out = T_in / s - 1 = 40, 20, 10, 5 at L = 800
 //   after each conv (`_cnorm_relu`, encoder.py:76): float32 sum and sum of
 //     squares over the 256 channels, var = max((s2 - n mean^2)/(n-1), 0),
 //     (y - mean) * rsqrt(var + 1e-5) in float32, cast to the activation
@@ -21,120 +21,99 @@
 //     layer's input, in the activation dtype; output z = conv4's (5, 256).
 // Products are of activation-dtype values, accumulated in float32 with a
 // float32 bias (so bf16 results are MORE precise than the cuDNN `conv`
-// path, which rounds every conv output to bf16).  float32 activations
-// compute in float32 on the CUDA cores: no TF32.
+// path, which rounds every conv output to bf16).
 //
-// Design: one block of 256 threads (8 warps) per channel-stream.  The
-// activations never leave shared memory: the samples, buffer A (conv1's
-// input, 164 x 256 at L = 800; later conv3's) and buffer B (conv2's input,
-// 42 x 256; later conv4's), channels-last, written straight by the
-// previous layer's epilogue after its carry rows.  Buffer A is the widest
-// activation, 84 KB in bf16 (two blocks per SM) and 168 KB in float32
-// (one).  conv0 (K = 10) runs on the CUDA cores, thread c computing output
-// channel c of every row from the shared samples (float32, a sliding
-// window of 10 in registers).
-//   conv1-4, bf16: on the tensor cores (warp-level wmma 16 x 16 x 16 bf16
-//     tiles, float32 accumulators).  The A operand is the layer's input
-//     itself: row t of the (T_out x k*C) im2col matrix is input rows
-//     [s t, s t + k), i.e. stride blocks t and t + 1 of s rows, so no copy
-//     is made.  Each layer input is laid out in stride blocks with 16
-//     elements of padding after each block: without it the 16 rows of an
-//     A tile (s*C elements apart, a multiple of 128 bytes) fell on the
-//     same shared-memory banks, and the 8-way conflicts dominated.  Warp
-//     w owns output columns [32w, 32w + 32) for all 16-row tiles (3 at
-//     T_out = 40).  The weights stream from L2 once per block (2.6 MB per
-//     channel-stream, ~21 GB of L2 reads per step at 8192 streams): the
-//     16 rows of each k step are copied with 16-byte cp.async into a
-//     two-stage ring in shared memory while the previous step multiplies;
-//     each warp copies and reads only its own 32 columns, so it waits for
-//     its own copies and the warps need no block-wide barrier per step.
-//     The ring borrows rows of the buffer the layer will write (its
-//     epilogue fills them only after the products), so a block needs
-//     ~112 KB and two blocks fit an SM.  The float32 results go to shared
-//     memory over the now-dead input buffer.
-//   conv1-4, float32: on the CUDA cores (no TF32).  Thread c owns output
-//     channel c; a layer runs in chunks of RT output rows (RT divides
-//     T_out: 40, 20, 10, 5 at L = 800) with RT float32 accumulators; the
-//     thread streams its weight column from L2 (4 k at a time, coalesced
-//     across the warp) and reads the RT input rows as 4-element vectors
-//     that the whole warp shares (a shared-memory broadcast).
-// The epilogue (bias, ChannelNorm, ReLU) has thread c hold column c of a
-// chunk of rows: the row sums are a warp butterfly plus an 8-warp exchange
-// through shared memory, one lane per row turns them into (mean, rstd),
-// then each thread normalises its column and writes the next layer's
-// input row (or z).
+// bf16 body: five launches a call.
+//   conv0 (K = 10, 0.8 of the ~61 MFLOP a channel-stream): per 16 output
+//     rows of a stream, a (16 x 16) . (16 x 256) product on mma.sync
+//     m16n8k16 (samples as A, taps 10-15 zero), taken twice, 8 columns at
+//     a time: once for each row's sums, once to normalise.  A lane thus
+//     holds 4 accumulators, not 128, and 16 warps fit an SM.  It writes
+//     conv1's input X1 = [c1 | conv0 rows] (N, T0 + 4, 256) to device
+//     memory, the new c0 and c1, and the carries c2-c4 into the first rows
+//     of X2-X4.
+//   conv1-4: one launch each of an implicit GEMM on wgmma.  Its M runs
+//     over the stride-block rows of ALL channel-streams at once: X_l is
+//     (N, T_in, 256) contiguous, i.e. the (N (T_out + 1), s 256) matrix xm
+//     of stride blocks, so output row m = xm[m] W[0] + xm[m + 1] W[1] for
+//     every m; the row m = n (T_out + 1) + T_out, which straddles streams
+//     n and n + 1, is junk and is dropped by the epilogue (1 row in
+//     T_out + 1: 2.4% of conv1's work at L = 800).  A tile is 128 such
+//     rows over all 256 output channels: two consumer warpgroups of 64
+//     rows each, so every weight tile staged in shared memory serves 128
+//     rows, whatever the stream boundaries; only the launch's last tile
+//     is ragged (TMA fills its rows past the end with zeros; the epilogue
+//     masks them).  The A tile of k slice [k0, k0 + 64) is the box of xm
+//     at (column k0 mod s 256, row m0 + (k0 >= s 256)): a TMA 2-D tensor
+//     map over xm, so the one-row offset of W[1]'s half costs nothing.
+//     The weights go in as W^T (256, 2 s 256), K-major, through a second
+//     map.  Both land 128-byte swizzled; wgmma m64n256k16 reads them
+//     through shared-memory descriptors.  One thread of a third warpgroup
+//     keeps a ring of 3 stages (16 KB of A + 32 KB of W each) in flight
+//     against full / empty mbarriers; blocks are persistent (one per SM,
+//     walking the tiles), so the producer runs ahead into the next tile
+//     while the consumers finish the epilogue.  setmaxnreg gives the
+//     consumers 232 registers a thread and the producer's warpgroup 40.
+//   Epilogue in registers: a warpgroup's m64n256 accumulator gives thread
+//     (warp w, lane l) rows 16w + l/4 and + 8, columns 8i + 2(l%4) + {0, 1}
+//     (i < 32): a row's 256 values lie in the 4 lanes of one quad, so the
+//     ChannelNorm sums are 64 in-thread adds and two shfl_xor steps: no
+//     shared-memory exchange and no barrier.  The bf16 rows go through
+//     the warp's own 16-row slice of shared memory and leave as one
+//     512-byte bulk asynchronous copy each (cp.async.bulk), to the next
+//     layer's input (after its 2 carry rows) or z, and the last two rows
+//     of a stream to the new carry too.
+//   Between the launches the activations go through device memory once:
+//     X1 is 84 KB a channel-stream in bf16 (688 MB at N = 8192, L = 800),
+//     X2-X4 21, 11 and 6 KB.
+//   L2 -> SM weight traffic per call: one 2 s 256 x 256 bf16 weight matrix
+//     per 128-row tile: ceil(N (T_out + 1) / 128) tiles a layer, 4.03 GB
+//     at N = 8192, L = 800 (conv1 2.75 GB, conv2 0.70, conv3 0.37, conv4
+//     0.20), where the one-block-per-stream body this replaced read all
+//     2.6 MB of weights per channel-stream, ~21 GB.
+//   On the H100 (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase
+//     (d), N = 8192, L = 800): 1.3339 ms a call, 37.9% of the operation
+//     bound; conv1 0.6391 ms (551 TFLOP/s with its junk rows).  What it
+//     costs beyond the products: conv0 (0.3479 ms, beside its 0.21 ms
+//     bound, the 688 MB it writes), and each GEMM's epilogue, which the
+//     two consumer warpgroups run while the tensor cores wait (~0.21 ms
+//     over conv1-4: tools/k7_ablate.py).
+// float32 body: one block of 256 threads (8 warps) per channel-stream, on
+//   the CUDA cores (no TF32).  The activations never leave shared memory:
+//   the samples, buffer A (conv1's input, 164 x 256 floats at L = 800;
+//   later conv3's) and buffer B (conv2's, later conv4's).  conv0: thread c
+//   computes output channel c of every row from the shared samples (a
+//   sliding window of 10 in registers); conv1-4: thread c owns output
+//   channel c over chunks of RT rows (RT divides T_out), streaming its
+//   weight column from L2 and reading the RT input rows as 4-element
+//   vectors the warp shares.  The epilogue has thread c hold column c of
+//   a chunk: warp butterflies plus an 8-warp exchange through shared
+//   memory give each row's (mean, rstd).  168 KB of buffer A limit it to
+//   T1 <= 40 rows (L <= 800 at 20 Hz).
 //
 // Bound on the H100: operations.  ~63.6 MFLOP per channel-stream in the
-// TPU kernel's stride-block form (61.2 in this direct form), 0.52 TFLOP
-// per step at 8192 channel-streams: 0.53 ms at the 989 TFLOP/s bf16
-// tensor-core peak (7.8 ms at the 67 TFLOP/s float32 CUDA-core peak for
-// float32).  The bytes (waveform, carries, output, 2.6 MB of weights) are
-// ~0.13 GB.  This version is far from the bound: its weight tiles come
-// from L2 for every block (several streams per block, weights staged in
-// shared memory by TMA, and wgmma are later work).
+// TPU kernel's stride-block form (61.2 in this direct form), 0.50 TFLOP
+// per call at 8192 channel-streams: 0.51 ms at the 989 TFLOP/s bf16
+// tensor-core peak (7.5 ms at the 67 TFLOP/s float32 CUDA-core peak for
+// float32).  The bytes (waveform, carries, output, weights) are ~0.13 GB.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstddef>
-#include <type_traits>
+#include <cstdint>
 
 namespace {
 
-constexpr int kC = 256;            // channels: one thread per output channel
-constexpr int kWarps = kC / 32;
+using bf16 = __nv_bfloat16;
+
+constexpr int kC = 256;            // channels
+constexpr int kWarps = kC / 32;    // float32 body: one thread per channel
 constexpr int kK0 = 10, kS0 = 5;   // conv0 kernel and stride
-constexpr int kMaxRT = 40;         // most output rows per chunk (float32)
-constexpr int kMaxRTh = 10;        // most output rows per chunk (bf16)
-constexpr int kTile = 16;          // wmma tile: 16 x 16 x 16
-constexpr int kMaxMT = 5;          // most 16-row output tiles of a layer
-// weight ring row stride (elements): 528 bytes put the 8 rows of a
-// 16 x 16 tile load on distinct banks, and 16 rows stay 32-byte aligned
-constexpr int kRS = kC + 8;
+constexpr int kMaxT1 = 80;         // most conv1 rows per stream a call takes
+constexpr int kMaxRT = 40;         // float32 body: most rows per chunk
 constexpr float kEps = 1e-5f;
-
-template <typename T>
-struct E;
-
-template <>
-struct E<float> {
-  static __device__ __forceinline__ float ld(const float* p) { return *p; }
-  static __device__ __forceinline__ void ld4(const float* p, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
-  }
-  static __device__ __forceinline__ void st(float* p, float v) { *p = v; }
-  static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <>
-struct E<__nv_bfloat16> {
-  static __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void ld4(const __nv_bfloat16* p,
-                                             float* f) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    f[0] = a.x;
-    f[1] = a.y;
-    f[2] = b.x;
-    f[3] = b.y;
-  }
-  static __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
 
 // Output rows of each layer for conv0 length T0 (-1: invalid).
 struct Lens {
@@ -155,92 +134,55 @@ __host__ __device__ inline Lens lens_of(int T0) {
   return l;
 }
 
-// Regions start on 128-byte boundaries (wmma needs 32-byte alignment).
 __host__ __device__ inline size_t align128(size_t b) {
   return (b + 127) / 128 * 128;
 }
 
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
-// Input rows a layer's 16-row tiles read: s (max(T_out, 16) - 1) + k.
-__host__ __device__ inline int tile_rows(int s, int k, int T_out) {
-  return s * (imax(T_out, kTile) - 1) + k;
+// (mean, rstd) of a row of kC values from their float32 sum and sum of
+// squares: the unbiased variance, clamped at 0.
+__device__ __forceinline__ void row_stats(float s1, float s2, float& mean,
+                                          float& rstd) {
+  const float n = static_cast<float>(kC);
+  mean = __fmul_rn(s1, 1.f / kC);  // exact: kC is a power of two
+  const float var = fmaxf(
+      __fdiv_rn(__fsub_rn(s2, __fmul_rn(__fmul_rn(n, mean), mean)), n - 1.f),
+      0.f);
+  rstd = __frsqrt_rn(__fadd_rn(var, kEps));
 }
 
-// A layer's input lies in stride blocks of s rows (s = the layer's
-// stride), each block followed by `pad` elements: 16 in bf16, which spreads
-// the tensor-core A tiles' rows (s blocks apart) over the shared-memory
-// banks; 0 in float32.  Row r is at block r / s, row r % s.
-__host__ __device__ inline int pad_of(size_t es) { return es == 2 ? 16 : 0; }
+// ---------------------------------------------------------------------
+// float32 body: one block per channel-stream, CUDA cores.
 
-// Rows per chunk the reduction scratch holds: bf16 keeps its chunks short
-// (registers; and the scratch then leaves room for two blocks per SM).
-__host__ __device__ inline int red_rt(size_t es) {
-  return es == 2 ? kMaxRTh : kMaxRT;
-}
+// Shared memory (bytes): samples, buffer A (conv1's and conv3's input),
+// buffer B (conv2's and conv4's), the reductions' two parities.
+struct Layout {
+  size_t a, b, red, total;
+};
 
 // Floats of one parity of the reduction scratch: the warps' partial sums
 // and sums of squares of each row, then each row's (mean, rstd).
-__host__ __device__ inline int red_floats(size_t es) {
-  return (2 * kWarps + 2) * red_rt(es);
-}
+constexpr int kRedFloats = (2 * kWarps + 2) * kMaxRT;
 
-template <typename T>
-struct Dst {
-  T* base;
-  int s, pad;
-  __device__ __forceinline__ T* row(int r) const {
-    return base + static_cast<size_t>(r / s) * (s * kC + pad) + (r % s) * kC;
-  }
-};
-
-__host__ __device__ inline size_t in_bytes(int rows, int s, size_t es) {
-  return static_cast<size_t>((rows + s - 1) / s) * (s * kC + pad_of(es)) *
-         es;
-}
-
-__host__ __device__ inline size_t smax(size_t a, size_t b) {
-  return a > b ? a : b;
-}
-
-// Shared memory layout (bytes): samples, buffer A (conv1's and conv3's
-// input; the bf16 weight ring of conv2 and conv4), buffer B (conv2's and
-// conv4's input; the ring of conv1 and conv3), reductions.  An input
-// buffer also takes its layer's float32 products (max(T_out, 16) rows).
-struct Layout {
-  size_t xs, a, b, red, total;
-};
-
-__host__ __device__ inline Layout layout_of(int T0, size_t es) {
+__host__ __device__ inline Layout layout_of(int T0) {
   const Lens l = lens_of(T0);
-  const size_t ring = (2 * kC + pad_of(es)) * es +
-                      2 * kTile * kRS * sizeof(__nv_bfloat16);
-  const size_t a = smax(
-      smax(in_bytes(imax(T0 + 4, tile_rows(4, 8, l.T1)), 4, es),
-           in_bytes(imax(l.T2 + 2, tile_rows(2, 4, l.T3)), 2, es)),
-      smax(ring, static_cast<size_t>(imax(imax(l.T1, l.T3), kTile)) * kC *
-                     sizeof(float)));
-  const size_t b = smax(
-      smax(in_bytes(imax(l.T1 + 2, tile_rows(2, 4, l.T2)), 2, es),
-           in_bytes(imax(l.T3 + 2, tile_rows(2, 4, l.T4)), 2, es)),
-      smax(ring, static_cast<size_t>(imax(imax(l.T2, l.T4), kTile)) * kC *
-                     sizeof(float)));
+  const size_t row = kC * sizeof(float);
   Layout s;
-  s.xs = 0;
   s.a = align128((static_cast<size_t>(T0) * kS0 + kS0) * sizeof(float));
-  s.b = s.a + align128(a);
-  s.red = s.b + align128(b);
-  s.total = s.red + 2 * red_floats(es) * sizeof(float);
+  s.b = s.a + align128(imax(T0 + 4, l.T2 + 2) * row);
+  s.red = s.b + align128(imax(l.T1 + 2, l.T3 + 2) * row);
+  s.total = s.red + 2 * kRedFloats * sizeof(float);
   return s;
 }
 
-struct Args {
-  const void* x_new;   // (B, L) fresh samples
-  const void* c[5];    // carries in: c0 (B, 5), c1 (B, 4, C), c2-c4 (B, 2, C)
-  const void* w[5];    // w0 (10, C); w1..w4 (k*C, C): tap j rows [jC, (j+1)C)
+struct F32Args {
+  const float* x_new;  // (B, L) fresh samples
+  const float* c[5];   // carries in: c0 (B, 5), c1 (B, 4, C), c2-c4 (B, 2, C)
+  const float* w[5];   // w0 (10, C); w1..w4 (k*C, C): tap j rows [jC, (j+1)C)
   const float* aux;    // (15, C): per layer [bias, norm w, norm b]
-  void* z;             // (B, T4, C)
-  void* n[5];          // carries out, shaped as c
+  float* z;            // (B, T4, C)
+  float* n[5];         // carries out, shaped as c
   int B, L;
 };
 
@@ -254,19 +196,17 @@ __device__ __forceinline__ void warp_sums(float* v) {
 }
 
 // Bias + ChannelNorm + ReLU of RT complete output rows (thread c holds
-// column c of each in acc), written to out rows [row0, row0 + RT).
-// red: 2 x kWarps x kMaxRT floats of this chunk's parity.
-template <typename T, int RT>
+// column c of each in acc), written to out rows [0, RT) (row stride C).
+// red: this chunk's parity of the reduction scratch.
+template <int RT>
 __device__ __forceinline__ void epilogue(float* acc, const float* aux_row,
-                                         const Dst<T>& out, int row0,
-                                         float* red) {
-  constexpr int R = static_cast<int>(sizeof(T)) == 2 ? kMaxRTh : kMaxRT;
-  static_assert(RT <= R, "chunk longer than the reduction scratch");
+                                         float* out, float* red) {
+  static_assert(RT <= kMaxRT, "chunk longer than the reduction scratch");
   const int col = threadIdx.x;
   const int lane = col & 31, warp = col >> 5;
   const float bias = aux_row[col];
-  const float nw = E<T>::round(aux_row[kC + col]);
-  const float nb = E<T>::round(aux_row[2 * kC + col]);
+  const float nw = aux_row[kC + col];
+  const float nb = aux_row[2 * kC + col];
   float s1[RT], s2[RT];
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
@@ -279,55 +219,45 @@ __device__ __forceinline__ void epilogue(float* acc, const float* aux_row,
   if (lane == 0) {
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
-      red[warp * R + r] = s1[r];
-      red[(kWarps + warp) * R + r] = s2[r];
+      red[warp * kMaxRT + r] = s1[r];
+      red[(kWarps + warp) * kMaxRT + r] = s2[r];
     }
   }
   __syncthreads();
   // warp w finishes the statistics of rows w, w + 8, ...: lanes 0-7 hold
   // the 8 warps' partial sums; lane 0 stores (mean, rstd) once per row
-  float* stats = red + 2 * kWarps * R;
-  const float n = static_cast<float>(kC);
+  float* stats = red + 2 * kWarps * kMaxRT;
   for (int r = warp; r < RT; r += kWarps) {
-    float t1 = lane < kWarps ? red[lane * R + r] : 0.f;
-    float t2 = lane < kWarps ? red[(kWarps + lane) * R + r] : 0.f;
+    float t1 = lane < kWarps ? red[lane * kMaxRT + r] : 0.f;
+    float t2 = lane < kWarps ? red[(kWarps + lane) * kMaxRT + r] : 0.f;
 #pragma unroll
     for (int o = kWarps / 2; o > 0; o >>= 1) {
       t1 += __shfl_xor_sync(0xffffffffu, t1, o);
       t2 += __shfl_xor_sync(0xffffffffu, t2, o);
     }
-    if (lane == 0) {
-      const float mean = __fdiv_rn(t1, n);
-      const float var = fmaxf(
-          __fdiv_rn(__fsub_rn(t2, __fmul_rn(__fmul_rn(n, mean), mean)),
-                    n - 1.f),
-          0.f);
-      stats[2 * r] = mean;
-      stats[2 * r + 1] = __frsqrt_rn(__fadd_rn(var, kEps));
-    }
+    if (lane == 0) row_stats(t1, t2, stats[2 * r], stats[2 * r + 1]);
   }
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
-    const float mean = stats[2 * r], rstd = stats[2 * r + 1];
-    const float y = E<T>::round(__fmul_rn(__fsub_rn(acc[r], mean), rstd));
-    const float o =
-        E<T>::round(__fadd_rn(E<T>::round(__fmul_rn(y, nw)), nb));
-    E<T>::st(out.row(row0 + r) + col, fmaxf(o, 0.f));
+    const float y = __fmul_rn(__fsub_rn(acc[r], stats[2 * r]),
+                              stats[2 * r + 1]);
+    out[static_cast<size_t>(r) * kC + col] =
+        fmaxf(__fadd_rn(__fmul_rn(y, nw), nb), 0.f);
   }
 }
 
-// conv0 over chunks of RT rows: samples xs (T0*5 + 5, float32) -> out
-// rows.  Row t reads samples [5t, 5t + 10): the thread keeps that window in
-// registers and loads only the 5 new samples of each row.
-template <typename T, int RT>
-__device__ void conv0(const float* xs, int T0, const T* __restrict__ w0,
-                      const float* aux, const Dst<T>& out, int row0,
-                      float* red, int& parity) {
+// conv0 over chunks of RT rows: samples xs (T0*5 + 5) -> out rows.  Row t
+// reads samples [5t, 5t + 10): the thread keeps that window in registers
+// and loads only the 5 new samples of each row.
+template <int RT>
+__device__ void conv0_f32(const float* xs, int T0, const float* __restrict__ w0,
+                          const float* aux, float* out, float* red,
+                          int& parity) {
   const int col = threadIdx.x;
   float w[kK0];
 #pragma unroll
-  for (int j = 0; j < kK0; ++j) w[j] = E<T>::ld(w0 + j * kC + col);
+  for (int j = 0; j < kK0; ++j) w[j] = w0[j * kC + col];
   for (int r0 = 0; r0 < T0; r0 += RT) {
     float acc[RT], win[kK0];
 #pragma unroll
@@ -344,25 +274,23 @@ __device__ void conv0(const float* xs, int T0, const T* __restrict__ w0,
 #pragma unroll
       for (int j = 0; j < kS0; ++j) win[j] = win[kS0 + j];
     }
-    epilogue<T, RT>(acc, aux, out, row0 + r0,
-                    red + parity * red_floats(sizeof(T)));
+    epilogue<RT>(acc, aux, out + static_cast<size_t>(r0) * kC,
+                 red + parity * kRedFloats);
     parity ^= 1;
   }
 }
 
-// conv with kernel k = 2s over a channels-last float32 input (rows of C,
-// no padding): output row t = sum_{j<k} in[s t + j] . W_j, in chunks of RT
-// rows.
-template <typename T, int RT>
-__device__ void conv_tail(const T* in, int s, int k, int T_out,
-                          const T* __restrict__ W, const float* aux,
-                          const Dst<T>& out, int row0, float* red,
-                          int& parity) {
+// conv with kernel k = 2s over a channels-last input (rows of C): output
+// row t = sum_{j<k} in[s t + j] . W_j, in chunks of RT rows.
+template <int RT>
+__device__ void conv_tail(const float* in, int s, int k, int T_out,
+                          const float* __restrict__ W, const float* aux,
+                          float* out, float* red, int& parity) {
   const int col = threadIdx.x;
   const int K = k * kC;
   const size_t rs = static_cast<size_t>(s) * kC;  // input stride of a row
   for (int r0 = 0; r0 < T_out; r0 += RT) {
-    const T* a = in + r0 * rs;
+    const float* a = in + r0 * rs;
     float acc[RT];
 #pragma unroll
     for (int r = 0; r < RT; ++r) acc[r] = 0.f;
@@ -370,317 +298,813 @@ __device__ void conv_tail(const T* in, int s, int k, int T_out,
       float w[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        w[i] = E<T>::ld(W + static_cast<size_t>(kk + i) * kC + col);
+        w[i] = W[static_cast<size_t>(kk + i) * kC + col];
 #pragma unroll
       for (int r = 0; r < RT; ++r) {
-        float x[4];
-        E<T>::ld4(a + r * rs + kk, x);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[r] = fmaf(x[i], w[i], acc[r]);
+        const float4 x = *reinterpret_cast<const float4*>(a + r * rs + kk);
+        acc[r] = fmaf(x.x, w[0], acc[r]);
+        acc[r] = fmaf(x.y, w[1], acc[r]);
+        acc[r] = fmaf(x.z, w[2], acc[r]);
+        acc[r] = fmaf(x.w, w[3], acc[r]);
       }
     }
-    epilogue<T, RT>(acc, aux, out, row0 + r0,
-                    red + parity * red_floats(sizeof(T)));
+    epilogue<RT>(acc, aux, out + static_cast<size_t>(r0) * kC,
+                 red + parity * kRedFloats);
     parity ^= 1;
   }
 }
 
-// 16-byte asynchronous copy global -> shared (cp.async, L2 only).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// bf16 on the tensor cores: output rows t = sum_{j<k} in[s t + j] . W_j
-// as one (T_out x k*C) x (k*C x C) product of wmma 16 x 16 x 16 tiles with
-// float32 accumulators.  A row t of the A operand is in[s t .. s t + k) laid
-// end to end: stride blocks t and t + 1 (k = 2s), so the A tile of a k step
-// in the first (second) half is block t0 (t0 + 1) onwards with leading
-// dimension s*C + pad (no im2col copy; the pad spreads the rows over the
-// banks).  Warp w owns output columns [32w, 32w + 32), two 16-column
-// tiles, for all MT row tiles, so each weight tile is loaded (from L2)
-// once per block.  Row tiles start at min(16 i, T_out - 16), so a layer
-// with T_out >= 16 reads no row past its input; the tiles of a smaller
-// layer read up to tile_rows() rows (the buffers hold them) and their
-// extra output rows are dropped.  The float32 results land in y (row
-// stride C), which may alias `in`: every warp finishes its products first.
-template <int MT>
-__device__ void mma_rows(const __nv_bfloat16* in, int s, int k, int T_out,
-                         const __nv_bfloat16* __restrict__ W, float* y,
-                         __nv_bfloat16* ring) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x >> 5;
-  const int half = s * kC;                     // K of one stride block
-  const int lda = half + pad_of(sizeof(__nv_bfloat16));
-  const int K = k * kC;
-  int t0[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-    t0[i] = T_out >= kTile ? min(kTile * i, T_out - kTile) : 0;
-  wmma::fragment<wmma::accumulator, kTile, kTile, kTile, float> acc[MT][2];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    wmma::fill_fragment(acc[i][0], 0.f);
-    wmma::fill_fragment(acc[i][1], 0.f);
-  }
-  // the warp's 16 x 32 weight tile of step st + 1 (1 KB) copies into its
-  // own columns of the two-stage ring with 16-byte cp.async (two per lane)
-  // while step st multiplies; as no warp reads another's columns, a warp
-  // waits only for its own copies (no block-wide barrier per step)
-  const int lane = threadIdx.x & 31;
-  const int steps = K / kTile;
-  auto stage = [&](int step) {
-    const __nv_bfloat16* src =
-        W + static_cast<size_t>(step) * kTile * kC + 32 * warp;
-    __nv_bfloat16* dst = ring + (step & 1) * kTile * kRS + 32 * warp;
-    for (int c = lane; c < kTile * 4; c += 32) {  // 16 rows x 4 chunks
-      const int r = c >> 2, q = c & 3;
-      cp_async16(dst + r * kRS + q * 8, src + r * kC + q * 8);
-    }
-    cp_async_commit();
-  };
-  stage(0);
-  for (int st = 0; st < steps; ++st) {
-    const int kk = st * kTile;
-    const int blk = kk / half, kin = kk - blk * half;
-    cp_async_wait_all();
-    __syncwarp();  // step st landed; the warp is done with step st - 1
-    if (st + 1 < steps) stage(st + 1);
-    wmma::fragment<wmma::matrix_b, kTile, kTile, kTile, __nv_bfloat16,
-                   wmma::row_major>
-        b0, b1;
-    const __nv_bfloat16* wt = ring + (st & 1) * kTile * kRS + 32 * warp;
-    wmma::load_matrix_sync(b0, wt, kRS);
-    wmma::load_matrix_sync(b1, wt + kTile, kRS);
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      wmma::fragment<wmma::matrix_a, kTile, kTile, kTile, __nv_bfloat16,
-                     wmma::row_major>
-          a;
-      wmma::load_matrix_sync(
-          a, in + static_cast<size_t>(t0[i] + blk) * lda + kin, lda);
-      wmma::mma_sync(acc[i][0], a, b0, acc[i][0]);
-      wmma::mma_sync(acc[i][1], a, b1, acc[i][1]);
-    }
-  }
-  __syncthreads();  // every warp has read `in`
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    float* yt = y + static_cast<size_t>(t0[i]) * kC + 32 * warp;
-    wmma::store_matrix_sync(yt, acc[i][0], kC, wmma::mem_row_major);
-    wmma::store_matrix_sync(yt + kTile, acc[i][1], kC, wmma::mem_row_major);
-  }
-  __syncthreads();
-}
-
-// Epilogue of the tensor-core layer over chunks of RT rows of y.
-template <int RT>
-__device__ void epilogue_rows(const float* y, int T_out, const float* aux,
-                              const Dst<__nv_bfloat16>& out, int row0,
-                              float* red, int& parity) {
-  for (int r0 = 0; r0 < T_out; r0 += RT) {
-    float acc[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r)
-      acc[r] = y[static_cast<size_t>(r0 + r) * kC + threadIdx.x];
-    epilogue<__nv_bfloat16, RT>(
-        acc, aux, out, row0 + r0,
-        red + parity * red_floats(sizeof(__nv_bfloat16)));
-    parity ^= 1;
-  }
-}
-
-__device__ void conv_mma(__nv_bfloat16* in, int s, int k, int T_out,
-                         const __nv_bfloat16* W, const float* aux,
-                         const Dst<__nv_bfloat16>& out, int row0, float* red,
-                         int& parity, __nv_bfloat16* ring) {
-  float* y = reinterpret_cast<float*>(in);  // the input is dead after mma
-  switch ((imax(T_out, kTile) + kTile - 1) / kTile) {
-    case 1: mma_rows<1>(in, s, k, T_out, W, y, ring); break;
-    case 2: mma_rows<2>(in, s, k, T_out, W, y, ring); break;
-    case 3: mma_rows<3>(in, s, k, T_out, W, y, ring); break;
-    case 4: mma_rows<4>(in, s, k, T_out, W, y, ring); break;
-    default: mma_rows<5>(in, s, k, T_out, W, y, ring); break;
-  }
-  // chunks of at most 10 rows keep the bf16 kernel's registers within two
-  // blocks per SM
-  if (T_out % 10 == 0)
-    epilogue_rows<10>(y, T_out, aux, out, row0, red, parity);
+// One tail layer, with chunks of the largest of 40, 20, 10, 5, 4, 1 rows
+// dividing T_out.
+__device__ void conv_any(const float* in, int s, int k, int T_out,
+                         const float* W, const float* aux, float* out,
+                         float* red, int& parity) {
+  if (T_out % 40 == 0)
+    conv_tail<40>(in, s, k, T_out, W, aux, out, red, parity);
+  else if (T_out % 20 == 0)
+    conv_tail<20>(in, s, k, T_out, W, aux, out, red, parity);
+  else if (T_out % 10 == 0)
+    conv_tail<10>(in, s, k, T_out, W, aux, out, red, parity);
   else if (T_out % 5 == 0)
-    epilogue_rows<5>(y, T_out, aux, out, row0, red, parity);
+    conv_tail<5>(in, s, k, T_out, W, aux, out, red, parity);
   else if (T_out % 4 == 0)
-    epilogue_rows<4>(y, T_out, aux, out, row0, red, parity);
+    conv_tail<4>(in, s, k, T_out, W, aux, out, red, parity);
   else
-    epilogue_rows<1>(y, T_out, aux, out, row0, red, parity);
+    conv_tail<1>(in, s, k, T_out, W, aux, out, red, parity);
 }
 
-// One tail layer: bf16 on the tensor cores, float32 on the CUDA cores
-// with chunks of the largest of 40, 20, 10, 5, 4, 1 rows dividing T_out.
-template <typename T>
-__device__ void conv_any(T* in, int s, int k, int T_out, const T* W,
-                         const float* aux, const Dst<T>& out, int row0,
-                         float* red, int& parity, T* ring) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    conv_mma(in, s, k, T_out, W, aux, out, row0, red, parity, ring);
-  } else {
-    if (T_out % 40 == 0)
-      conv_tail<T, 40>(in, s, k, T_out, W, aux, out, row0, red, parity);
-    else if (T_out % 20 == 0)
-      conv_tail<T, 20>(in, s, k, T_out, W, aux, out, row0, red, parity);
-    else if (T_out % 10 == 0)
-      conv_tail<T, 10>(in, s, k, T_out, W, aux, out, row0, red, parity);
-    else if (T_out % 5 == 0)
-      conv_tail<T, 5>(in, s, k, T_out, W, aux, out, row0, red, parity);
-    else if (T_out % 4 == 0)
-      conv_tail<T, 4>(in, s, k, T_out, W, aux, out, row0, red, parity);
-    else
-      conv_tail<T, 1>(in, s, k, T_out, W, aux, out, row0, red, parity);
-  }
-}
-
-template <typename T>
-__device__ void conv0_any(const float* xs, int T0, const T* w0,
-                          const float* aux,
-                          const Dst<T>& out, int row0, float* red,
+__device__ void conv0_any(const float* xs, int T0, const float* w0,
+                          const float* aux, float* out, float* red,
                           int& parity) {
-  // float32: long chunks; bf16: at most 10 rows (registers, see conv_mma)
-  constexpr bool kLong = std::is_same<T, float>::value;
-  if (kLong && T0 % 40 == 0)
-    conv0<T, kLong ? 40 : 10>(xs, T0, w0, aux, out, row0, red, parity);
+  if (T0 % 40 == 0)
+    conv0_f32<40>(xs, T0, w0, aux, out, red, parity);
   else if (T0 % 10 == 0)
-    conv0<T, 10>(xs, T0, w0, aux, out, row0, red, parity);
+    conv0_f32<10>(xs, T0, w0, aux, out, red, parity);
   else if (T0 % 4 == 0)
-    conv0<T, 4>(xs, T0, w0, aux, out, row0, red, parity);
+    conv0_f32<4>(xs, T0, w0, aux, out, red, parity);
   else
-    conv0<T, 1>(xs, T0, w0, aux, out, row0, red, parity);
+    conv0_f32<1>(xs, T0, w0, aux, out, red, parity);
 }
 
 // Copy `rows` rows of C (thread c: column c) between row-major buffers.
-template <typename T>
-__device__ __forceinline__ void copy_rows(T* dst, const T* src, int rows) {
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int rows) {
   for (int r = 0; r < rows; ++r)
     dst[static_cast<size_t>(r) * kC + threadIdx.x] =
         src[static_cast<size_t>(r) * kC + threadIdx.x];
 }
 
 // grid: B blocks (one channel-stream each); block: 256 threads.
-template <typename T>
-__global__ void __launch_bounds__(kC, sizeof(T) == 2 ? 2 : 1)
-    conv_stack_fused_kernel(const Args a) {
+__global__ void __launch_bounds__(kC, 1) f32_stack_kernel(const F32Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = blockIdx.x;
   const int L = a.L;
   const int T0 = L / kS0;
   const Lens ln = lens_of(T0);
-  const Layout lay = layout_of(T0, sizeof(T));
-  float* xs = reinterpret_cast<float*>(smem + lay.xs);
-  T* bufA = reinterpret_cast<T*>(smem + lay.a);
-  T* bufB = reinterpret_cast<T*>(smem + lay.b);
+  const Layout lay = layout_of(T0);
+  float* xs = reinterpret_cast<float*>(smem);
+  float* bufA = reinterpret_cast<float*>(smem + lay.a);
+  float* bufB = reinterpret_cast<float*>(smem + lay.b);
   float* red = reinterpret_cast<float*>(smem + lay.red);
-  const T* c[5];
-  const T* w[5];
-  T* nout[5];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    c[i] = static_cast<const T*>(a.c[i]);
-    w[i] = static_cast<const T*>(a.w[i]);
-    nout[i] = static_cast<T*>(a.n[i]);
-  }
   const size_t C = kC;
-  const int pad = pad_of(sizeof(T));
   int parity = 0;
-  // the layer inputs: conv1's (stride 4) and conv3's (stride 2) in A,
-  // conv2's and conv4's (stride 2) in B; z rows unpadded
-  const Dst<T> in1{bufA, 4, pad}, in2{bufB, 2, pad}, in3{bufA, 2, pad},
-      in4{bufB, 2, pad};
-  const Dst<T> zout{static_cast<T*>(a.z) + static_cast<size_t>(n) * ln.T4 * C,
-                    1, 0};
-  // the bf16 weight rings: past block 0 (the carry) of the buffer the layer
-  // does not read, whose rows its epilogue writes only after the products
-  T* ringA = bufA + 2 * C + pad;
-  T* ringB = bufB + 2 * C + pad;
 
-  // samples [c0 | new]; the carries fill block 0 of each layer input (the
-  // k - s = s carry rows are exactly one stride block)
-  const T* xn = static_cast<const T*>(a.x_new) + static_cast<size_t>(n) * L;
+  // samples [c0 | new]; the carries fill the first k - s rows of each
+  // layer's input
+  const float* xn = a.x_new + static_cast<size_t>(n) * L;
   for (int i = threadIdx.x; i < L + kS0; i += kC)
-    xs[i] = E<T>::ld(i < kS0 ? c[0] + n * kS0 + i : xn + i - kS0);
-  copy_rows(bufA, c[1] + n * 4 * C, 4);
-  copy_rows(bufB, c[2] + n * 2 * C, 2);
+    xs[i] = i < kS0 ? a.c[0][n * kS0 + i] : xn[i - kS0];
+  copy_rows(bufA, a.c[1] + n * 4 * C, 4);
+  copy_rows(bufB, a.c[2] + n * 2 * C, 2);
   __syncthreads();
-  if (threadIdx.x < kS0)
-    E<T>::st(nout[0] + n * kS0 + threadIdx.x, xs[L + threadIdx.x]);
+  if (threadIdx.x < kS0) a.n[0][n * kS0 + threadIdx.x] = xs[L + threadIdx.x];
 
-  conv0_any<T>(xs, T0, w[0], a.aux, in1, 4, red, parity);
+  conv0_any(xs, T0, a.w[0], a.aux, bufA + 4 * C, red, parity);
   __syncthreads();
-  copy_rows(nout[1] + n * 4 * C, in1.row(T0), 4);
-  conv_any<T>(bufA, 4, 8, ln.T1, w[1], a.aux + 3 * C, in2, 2, red, parity,
-              ringB);
+  copy_rows(a.n[1] + n * 4 * C, bufA + T0 * C, 4);
+  conv_any(bufA, 4, 8, ln.T1, a.w[1], a.aux + 3 * C, bufB + 2 * C, red,
+           parity);
   __syncthreads();
-  copy_rows(nout[2] + n * 2 * C, in2.row(ln.T1), 2);
-  copy_rows(bufA, c[3] + n * 2 * C, 2);
+  copy_rows(a.n[2] + n * 2 * C, bufB + ln.T1 * C, 2);
+  copy_rows(bufA, a.c[3] + n * 2 * C, 2);
   __syncthreads();
-  conv_any<T>(bufB, 2, 4, ln.T2, w[2], a.aux + 6 * C, in3, 2, red, parity,
-              ringA);
+  conv_any(bufB, 2, 4, ln.T2, a.w[2], a.aux + 6 * C, bufA + 2 * C, red,
+           parity);
   __syncthreads();
-  copy_rows(nout[3] + n * 2 * C, in3.row(ln.T2), 2);
-  copy_rows(bufB, c[4] + n * 2 * C, 2);
+  copy_rows(a.n[3] + n * 2 * C, bufA + ln.T2 * C, 2);
+  copy_rows(bufB, a.c[4] + n * 2 * C, 2);
   __syncthreads();
-  conv_any<T>(bufA, 2, 4, ln.T3, w[3], a.aux + 9 * C, in4, 2, red, parity,
-              ringB);
+  conv_any(bufA, 2, 4, ln.T3, a.w[3], a.aux + 9 * C, bufB + 2 * C, red,
+           parity);
   __syncthreads();
-  copy_rows(nout[4] + n * 2 * C, in4.row(ln.T3), 2);
-  conv_any<T>(bufB, 2, 4, ln.T4, w[4], a.aux + 12 * C, zout, 0, red, parity,
-              ringA);
+  copy_rows(a.n[4] + n * 2 * C, bufB + ln.T3 * C, 2);
+  conv_any(bufB, 2, 4, ln.T4, a.w[4], a.aux + 12 * C,
+           a.z + static_cast<size_t>(n) * ln.T4 * C, red, parity);
 }
 
-template <typename T>
-int launch(const Args& a, cudaStream_t stream) {
-  const Layout lay = layout_of(a.L / kS0, sizeof(T));
-  cudaError_t e = cudaFuncSetAttribute(
-      conv_stack_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(lay.total));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  conv_stack_fused_kernel<T><<<a.B, kC, lay.total, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+// ---------------------------------------------------------------------
+// bf16 body: conv0 on mma.sync, conv1-4 implicit GEMMs on wgmma.
+
+constexpr int kBM = 128;            // GEMM rows a tile: 2 warpgroups x 64
+constexpr int kBK = 64;             // K of a stage: one 128-byte swizzle row
+constexpr int kStages = 3;          // ring depth
+constexpr int kConsumers = 256;     // two warpgroups
+constexpr int kGemmThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr uint32_t kABytes = kBM * kBK * sizeof(bf16);  // 16 KB
+constexpr uint32_t kWBytes = kC * kBK * sizeof(bf16);   // 32 KB
+// a staged output row (bf16): 528 bytes put the 8 rows a warp's store
+// instruction touches on distinct banks
+constexpr int kOutLd = kC + 8;
+constexpr uint32_t kOutBytes = kBM * kOutLd * sizeof(bf16);  // 66 KB
+// + the layer's bias and norm parameters, the barriers, the alignment
+constexpr size_t kGemmSmem = kStages * (kABytes + kWBytes) + kOutBytes +
+                             3 * kC * sizeof(float) +
+                             2 * kStages * sizeof(uint64_t) + 1024;
+constexpr int kConv0Warps = 4;      // conv0: warps a block, 16 rows a task
+
+struct Conv0Args {
+  const bf16* x_new;  // (N, L)
+  const bf16* c[5];   // carries in
+  const bf16* w0;     // (10, C)
+  const float* aux;   // conv0's bias, norm w, norm b (3, C)
+  bf16* x[4];         // layer inputs X1 (N, T0 + 4, C), X2-X4 (N, T + 2, C)
+  bf16* n0;           // (N, 5)
+  bf16* n1;           // (N, 4, C)
+  int N, L, T0, T1, T2, T3;
+};
+
+// Two bf16 in one 32-bit word (lo in the low half).
+__device__ __forceinline__ uint32_t pack_bits(uint16_t lo, uint16_t hi) {
+  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+// The normalised pair (y0, y1) of a row with (mean, rstd) through the
+// affine (w2, b2: packed bf16) and ReLU, as two packed bf16: the cast to
+// bf16 before the affine, then a bf16 multiply and a bf16 add, each
+// rounded to nearest on its own (.rn: never contracted into one fma).
+// float32 has more than twice bf16's bits, so each equals the float32
+// operation rounded to bf16, as the plain version computes them.
+__device__ __forceinline__ uint32_t norm_affine_relu2(float y0, float y1,
+                                                      float mean, float rstd,
+                                                      uint32_t w2,
+                                                      uint32_t b2) {
+  const __nv_bfloat162 v =
+      __floats2bfloat162_rn(__fmul_rn(__fsub_rn(y0, mean), rstd),
+                            __fmul_rn(__fsub_rn(y1, mean), rstd));
+  uint32_t o = *reinterpret_cast<const uint32_t*>(&v);
+  asm("mul.rn.bf16x2 %0, %0, %1;\n"
+      "add.rn.bf16x2 %0, %0, %2;\n"
+      "max.bf16x2 %0, %0, %3;\n"
+      : "+r"(o)
+      : "r"(w2), "r"(b2), "r"(0u));
+  return o;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Bulk asynchronous copy of `bytes` (a multiple of 16) from shared to
+// global memory, in this thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+// Wait until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk stores have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The 16 rows staged in `stage` go out as one 512-byte bulk copy each,
+// lane rr issuing row rr's to where rows(rr, dst, car) says (and to the
+// carry too if car; null: dropped); the warp goes on without waiting for
+// them.  Before it writes `stage` again, a warp calls bulk_wait_read().
+template <class Rows>
+__device__ __forceinline__ void flush_rows16(const bf16* stage,
+                                             const Rows& rows) {
+  const int lane = threadIdx.x & 31;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if (lane < 16) {
+    bf16* dst;
+    bf16* car;
+    rows(lane, dst, car);
+    const bf16* src = stage + lane * kOutLd;
+    if (dst != nullptr) bulk_store(dst, src, kC * sizeof(bf16));
+    if (car != nullptr) bulk_store(car, src, kC * sizeof(bf16));
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+
+// Bias + ChannelNorm + ReLU of the 16 rows a warp holds in the m16n8
+// accumulator layout (that of wgmma m64n256 too, a warp's quarter of it):
+// d[4i + {0, 1}] is row lane / 4, columns 8i + 2 (lane % 4) + {0, 1};
+// d[4i + {2, 3}] row lane / 4 + 8.  A row's 256 values lie in the 4 lanes
+// of one quad: its sums are 64 adds and two shfl_xor steps.  The bf16
+// rows are staged in the warp's own 16 x kOutLd slice of shared memory
+// and leave through flush_rows16.  The caller waits for the copies
+// (bulk_wait) before it exits.
+// aux: bias, norm w, norm b (3, C) float32, in shared memory.
+template <class Rows>
+__device__ __forceinline__ void norm_rows16(float* d, const float* aux,
+                                            bf16* stage, const Rows& rows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, cq = 2 * (lane & 3);
+  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float2 b = *reinterpret_cast<const float2*>(aux + 8 * i + cq);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float& y0 = d[4 * i + 2 * h];
+      float& y1 = d[4 * i + 2 * h + 1];
+      y0 = __fadd_rn(y0, b.x);
+      y1 = __fadd_rn(y1, b.y);
+      s1[h] += y0 + y1;
+      s2[h] += __fmul_rn(y0, y0) + __fmul_rn(y1, y1);
+    }
+  }
+  float mean[2], rstd[2];
+  bulk_wait_read();  // the slice's previous rows have gone out
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      s1[h] += __shfl_xor_sync(0xffffffffu, s1[h], o);
+      s2[h] += __shfl_xor_sync(0xffffffffu, s2[h], o);
+    }
+    row_stats(s1[h], s2[h], mean[h], rstd[h]);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = 8 * i + cq;
+    const float2 w = *reinterpret_cast<const float2*>(aux + kC + c);
+    const float2 b = *reinterpret_cast<const float2*>(aux + 2 * kC + c);
+    const __nv_bfloat162 wv = __floats2bfloat162_rn(w.x, w.y);
+    const __nv_bfloat162 bv = __floats2bfloat162_rn(b.x, b.y);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(stage + (g + 8 * h) * kOutLd + c) =
+          norm_affine_relu2(d[4 * i + 2 * h], d[4 * i + 2 * h + 1], mean[h],
+                            rstd[h], *reinterpret_cast<const uint32_t*>(&wv),
+                            *reinterpret_cast<const uint32_t*>(&bv));
+  }
+  flush_rows16(stage, rows);
+}
+
+// conv0's row t0 + rr of stream n: X1 row n (T0 + 4) + 4 + t, and the new
+// c1 for the last 4.
+struct Conv0Rows {
+  bf16* x1;
+  bf16* n1;
+  int T0, n, t0;
+  __device__ __forceinline__ void operator()(int rr, bf16*& dst,
+                                             bf16*& car) const {
+    const int t = t0 + rr;
+    dst = x1 + (static_cast<size_t>(n) * (T0 + 4) + 4 + t) * kC;
+    car = t >= T0 - 4
+              ? n1 + (static_cast<size_t>(n) * 4 + t - (T0 - 4)) * kC
+              : nullptr;
+  }
+};
+
+// One m16n8k16 product on the tensor cores: c = A B (bf16 fragments,
+// float32 accumulators from zero).
+__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint2 b) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.x), "r"(b.y));
+}
+
+// conv0 as a (16 x 16) . (16 x 256) product per 16 output rows on
+// mma.sync m16n8k16 (bf16 in, float32 accumulators): row r of A is
+// samples xc0[5 (t0 + r) + k], k < 10, zero for k >= 10; B the (10, C)
+// weight, zero rows 10-15, its fragments in shared memory.  Each warp
+// takes tasks (stream n, rows t0 .. t0 + 15) in turn; the warp of a
+// stream's first task also copies the carries in (c1 -> X1 rows 0-3,
+// c2..c4 -> rows 0-1 of X2..X4) and writes the new c0.  The products are
+// cheap (K = 16), so a task takes them twice, 8 columns at a time: once
+// for the rows' sums, once to normalise; a lane then holds 4 accumulators
+// instead of 128, and 4 blocks of 4 warps fit an SM.
+__global__ void __launch_bounds__(kConv0Warps * 32, 4) conv0_kernel(
+    const Conv0Args a) {
+  __shared__ __align__(16) bf16 stage[kConv0Warps * 16 * kOutLd];
+  __shared__ __align__(16) float saux[3 * kC];
+  __shared__ uint2 sb[32][32];  // B's fragments: [n tile][lane]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3, cq = 2 * q;
+  for (int i = threadIdx.x; i < 3 * kC; i += blockDim.x) saux[i] = a.aux[i];
+  const uint16_t* w0 = reinterpret_cast<const uint16_t*>(a.w0);
+  for (int i = warp; i < 32; i += kConv0Warps) {
+    const int col = 8 * i + g;
+    sb[i][lane] = make_uint2(
+        pack_bits(w0[2 * q * kC + col], w0[(2 * q + 1) * kC + col]),
+        q == 0 ? pack_bits(w0[8 * kC + col], w0[9 * kC + col]) : 0u);
+  }
+  __syncthreads();
+  bf16* st = stage + warp * 16 * kOutLd;
+  const int per = a.T0 / 16;
+  const int tasks = a.N * per;
+  for (int task = blockIdx.x * kConv0Warps + warp; task < tasks;
+       task += gridDim.x * kConv0Warps) {
+    const int n = task / per, t0 = 16 * (task - n * per);
+    const uint16_t* xn = reinterpret_cast<const uint16_t*>(a.x_new) +
+                         static_cast<size_t>(n) * a.L;
+    const uint16_t* cz = reinterpret_cast<const uint16_t*>(a.c[0]) +
+                         static_cast<size_t>(n) * kS0;
+    if (t0 == 0) {
+      const int rows_in[4] = {a.T0 + 4, a.T1 + 2, a.T2 + 2, a.T3 + 2};
+      const int kv = kC / 8;  // 16-byte words a row
+      for (int i = lane; i < 10 * kv; i += 32) {
+        const int row = i / kv, l = row < 4 ? 0 : 1 + (row - 4) / 2;
+        const int r = row < 4 ? row : (row - 4) % 2, cw = 8 * (i % kv);
+        const int kr = l == 0 ? 4 : 2;
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            a.c[l + 1] + (static_cast<size_t>(n) * kr + r) * kC + cw);
+        *reinterpret_cast<uint4*>(
+            a.x[l] + (static_cast<size_t>(n) * rows_in[l] + r) * kC + cw) = v;
+      }
+      if (lane < kS0)
+        a.n0[n * kS0 + lane] =
+            a.x_new[static_cast<size_t>(n) * a.L + a.L - kS0 + lane];
+    }
+    // sample j of [c0 | new]
+    auto smp = [&](int j) -> uint16_t {
+      return j < kS0 ? cz[j] : xn[j - kS0];
+    };
+    const int j0 = kS0 * (t0 + g), j1 = j0 + 8 * kS0;  // rows g, g + 8
+    const uint32_t a0 = pack_bits(smp(j0 + 2 * q), smp(j0 + 2 * q + 1));
+    const uint32_t a1 = pack_bits(smp(j1 + 2 * q), smp(j1 + 2 * q + 1));
+    const uint32_t a2 = q == 0 ? pack_bits(smp(j0 + 8), smp(j0 + 9)) : 0u;
+    const uint32_t a3 = q == 0 ? pack_bits(smp(j1 + 8), smp(j1 + 9)) : 0u;
+    // pass 1: the float32 sums of y = A B + b over each row's 256 channels
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float c[4];
+      mma16816(c, a0, a1, a2, a3, sb[i][lane]);
+      const float2 b = *reinterpret_cast<const float2*>(saux + 8 * i + cq);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float y0 = __fadd_rn(c[2 * h], b.x);
+        const float y1 = __fadd_rn(c[2 * h + 1], b.y);
+        s1[h] += y0 + y1;
+        s2[h] += __fmul_rn(y0, y0) + __fmul_rn(y1, y1);
+      }
+    }
+    float mean[2], rstd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        s1[h] += __shfl_xor_sync(0xffffffffu, s1[h], o);
+        s2[h] += __shfl_xor_sync(0xffffffffu, s2[h], o);
+      }
+      row_stats(s1[h], s2[h], mean[h], rstd[h]);
+    }
+    bulk_wait_read();  // the slice's previous rows have gone out
+    __syncwarp();
+    // pass 2: the same products again, normalised into the stage
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float c[4];
+      mma16816(c, a0, a1, a2, a3, sb[i][lane]);
+      const int col = 8 * i + cq;
+      const float2 b = *reinterpret_cast<const float2*>(saux + col);
+      const float2 w = *reinterpret_cast<const float2*>(saux + kC + col);
+      const float2 nb = *reinterpret_cast<const float2*>(saux + 2 * kC + col);
+      const __nv_bfloat162 wv = __floats2bfloat162_rn(w.x, w.y);
+      const __nv_bfloat162 bv = __floats2bfloat162_rn(nb.x, nb.y);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(st + (g + 8 * h) * kOutLd + col) =
+            norm_affine_relu2(__fadd_rn(c[2 * h], b.x),
+                              __fadd_rn(c[2 * h + 1], b.y), mean[h], rstd[h],
+                              *reinterpret_cast<const uint32_t*>(&wv),
+                              *reinterpret_cast<const uint32_t*>(&bv));
+    }
+    flush_rows16(st, Conv0Rows{a.x[0], a.n1, a.T0, n, t0});
+  }
+  bulk_wait();
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(b)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(b))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of barrier b has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  const uint32_t addr = smem_u32(b);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box of `map` at (column x, row y) into dst, completing on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x),
+      "r"(y)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile whose rows are 64 bf16
+// (128 bytes) with the 128-byte swizzle: 8-row groups 1024 bytes apart.
+// The tile starts on a 1024-byte boundary; +2 per 16 columns of K.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma boundaries.
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 256, float32) += A (64 x 16) . B (16 x 256), both bf16 from
+// shared memory.
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da,
+                                                 uint64_t db,
+                                                 uint32_t scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+struct Layer {
+  int M;             // stride-block rows of all streams: N (T_out + 1)
+  int T_out;         // valid output rows per stream
+  int K;             // 2 s C
+  int half;          // s C: K of one stride block
+  int tiles;         // ceil(M / kBM)
+  const float* aux;  // the layer's bias, norm w, norm b (3, C)
+  bf16* out;         // (N, T_out + cn, C): the next input, or z (cn = 0)
+  int cn;            // carry rows leading each stream in out
+  bf16* carry;       // (N, 2, C) new carry (the last 2 rows), or null
+};
+
+// Output row m0 + rr of a layer: where it goes (null: a junk or ragged
+// row), and to the new carry if it is one of a stream's last 2.
+struct GemmRows {
+  bf16* out;
+  bf16* carry;
+  int M, T_out, cn, m0;
+  __device__ __forceinline__ void operator()(int rr, bf16*& dst,
+                                             bf16*& car) const {
+    const int r = m0 + rr;
+    dst = car = nullptr;
+    if (r >= M) return;
+    const int n = r / (T_out + 1), t = r - n * (T_out + 1);
+    if (t == T_out) return;  // straddles streams n and n + 1
+    dst = out + (static_cast<size_t>(n) * (T_out + cn) + cn + t) * kC;
+    if (carry != nullptr && t >= T_out - 2)
+      car = carry + (static_cast<size_t>(n) * 2 + t - (T_out - 2)) * kC;
+  }
+};
+
+// One tail layer as an implicit GEMM: out rows = ReLU(ChannelNorm(xm[m]
+// W[0] + xm[m + 1] W[1] + b)).  mapA: xm (M rows of s C bf16), box 64 x
+// 128; mapW: W^T (C rows of 2 s C), box 64 x 256.  Persistent: block b
+// takes tiles b, b + gridDim.x, ...  Warpgroups 0 and 1 consume (rows
+// 0-63 and 64-127 of a tile, all 256 columns: 128 accumulators a
+// thread); one thread of warpgroup 2 produces.  setmaxnreg moves the
+// producer's registers to the consumers (40 / 232 of the 168 a thread
+// of 384 gets at launch).
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    conv_layer_kernel(const __grid_constant__ CUtensorMap mapA,
+                      const __grid_constant__ CUtensorMap mapW,
+                      const Layer a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  bf16* sA = reinterpret_cast<bf16*>(smem);
+  bf16* sW = reinterpret_cast<bf16*>(smem + kStages * kABytes);
+  bf16* sOut = reinterpret_cast<bf16*>(smem + kStages * (kABytes + kWBytes));
+  float* sAux = reinterpret_cast<float*>(smem + kStages * (kABytes + kWBytes) +
+                                        kOutBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sAux + 3 * kC);
+  uint64_t* empty = full + kStages;
+  const int slices = a.K / kBK;
+  for (int i = threadIdx.x; i < 3 * kC; i += blockDim.x) sAux[i] = a.aux[i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+        const int m0 = tile * kBM;
+        for (int q = 0; q < slices; ++q, ++it) {
+          const int st = it % kStages;
+          mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(&full[st], kABytes + kWBytes);
+          const int k0 = q * kBK, h = k0 >= a.half ? 1 : 0;
+          tma_load(sA + st * (kBM * kBK), &mapA, &full[st], k0 - h * a.half,
+                   m0 + h);
+          tma_load(sW + st * (kC * kBK), &mapW, &full[st], k0, 0);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    float d[128];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+#pragma unroll
+      for (int i = 0; i < 128; ++i) d[i] = 0.f;
+      int prev = 0;
+      for (int q = 0; q < slices; ++q, ++it) {
+        const int st = it % kStages;
+        mbar_wait(&full[st], (it / kStages) & 1);
+        const uint64_t da =
+            desc_sw128(sA + st * (kBM * kBK) + wg * 64 * kBK);
+        const uint64_t dw = desc_sw128(sW + st * (kC * kBK));
+        wgmma_fence();
+        fence_acc(d);
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_m64n256k16(d, da + 2 * kk, dw + 2 * kk, 1);
+        wgmma_commit();
+        fence_acc(d);
+        // the previous slice's products are done: release its stage
+        wgmma_wait<1>();
+        fence_acc(d);
+        if (q > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = st;
+      }
+      wgmma_wait<0>();
+      fence_acc(d);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      norm_rows16(d, sAux, sOut + warp * 16 * kOutLd,
+                  GemmRows{a.out, a.carry, a.M, a.T_out, a.cn,
+                           tile * kBM + 16 * warp});
+    }
+    bulk_wait();
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up in the driver at run time (no link
+// against libcuda).
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+
+EncodeFn encoder() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeFn>(p);
+  }
+  return fn;
+}
+
+// A row-major bf16 (rows x cols) matrix as a TMA map with boxes of
+// box_cols (64: 128 bytes) x box_rows, 128-byte swizzled; rows past the
+// end read as zeros.
+bool make_map(CUtensorMap* m, const void* base, uint64_t cols, uint64_t rows,
+              uint32_t box_rows) {
+  const EncodeFn fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK), box_rows};
+  const cuuint32_t es[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+            dims, strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool valid(int L) {
+  if (L <= 0 || L % kS0 != 0) return false;
+  const Lens l = lens_of(L / kS0);
+  return l.T4 > 0 && l.T1 <= kMaxT1;
 }
 
 }  // namespace
 
 // Bytes of shared memory a block needs for conv0 length T0 (dtype 0 =
-// float32, 1 = bfloat16); 0 if the stack's lengths do not divide.
+// float32, 1 = bfloat16; the bf16 GEMM blocks' need is fixed); 0 if the
+// stack's lengths do not divide or T1 > 80.
 extern "C" int conv_stack_fused_smem(int dtype, int T0) {
-  const Lens l = lens_of(T0);
-  if (T0 <= 0 || l.T4 <= 0 || (dtype != 0 && dtype != 1) ||
-      l.T1 > kMaxMT * kTile)
-    return 0;
-  return static_cast<int>(layout_of(T0, dtype == 0 ? 4 : 2).total);
+  if (T0 <= 0 || !valid(T0 * kS0) || (dtype != 0 && dtype != 1)) return 0;
+  return static_cast<int>(dtype == 0 ? layout_of(T0).total : kGemmSmem);
 }
 
-// dtype of every tensor but aux: 0 = float32, 1 = bfloat16.  All tensors
-// contiguous: new (B, L); c0/n0 (B, 5); c1/n1 (B, 4, 256); c2-c4, n2-n4
-// (B, 2, 256); w0 (10, 256); w1 (2048, 256); w2-w4 (1024, 256); aux (15,
-// 256) float32; z (B, T4, 256).  Returns the launch's cudaError_t.
-extern "C" int conv_stack_fused_launch(
-    int dtype, const void* x_new, const void* c0, const void* c1,
-    const void* c2, const void* c3, const void* c4, const void* w0,
-    const void* w1, const void* w2, const void* w3, const void* w4,
-    const float* aux, void* z, void* n0, void* n1, void* n2, void* n3,
-    void* n4, int B, int L, void* stream) {
-  if (B <= 0 || L <= 0 || L % kS0 != 0 ||
-      conv_stack_fused_smem(dtype, L / kS0) == 0)
+// float32 body.  All tensors contiguous float32: new (B, L); c0/n0 (B,
+// 5); c1/n1 (B, 4, 256); c2-c4, n2-n4 (B, 2, 256); w0 (10, 256); w1
+// (2048, 256); w2-w4 (1024, 256); aux (15, 256); z (B, T4, 256).  Returns
+// the launch's cudaError_t.
+extern "C" int conv_stack_fused_f32_launch(
+    const float* x_new, const float* c0, const float* c1, const float* c2,
+    const float* c3, const float* c4, const float* w0, const float* w1,
+    const float* w2, const float* w3, const float* w4, const float* aux,
+    float* z, float* n0, float* n1, float* n2, float* n3, float* n4, int B,
+    int L, void* stream) {
+  const int smem = conv_stack_fused_smem(0, L / kS0);
+  if (B <= 0 || L % kS0 != 0 || smem == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x_new, {c0, c1, c2, c3, c4}, {w0, w1, w2, w3, w4}, aux, z,
-               {n0, n1, n2, n3, n4}, B, L};
+  const F32Args a{x_new, {c0, c1, c2, c3, c4}, {w0, w1, w2, w3, w4}, aux, z,
+                  {n0, n1, n2, n3, n4}, B, L};
+  cudaError_t e = cudaFuncSetAttribute(
+      f32_stack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  f32_stack_kernel<<<B, kC, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 body: five launches.  new (B, L); c0/n0 (B, 5); c1/n1 (B, 4, 256);
+// c2-c4, n2-n4 (B, 2, 256); w0 (10, 256); wt1 (256, 2048) and wt2-wt4
+// (256, 1024): the stride-block weights transposed, W^T[u, j C + c] = tap
+// j from input channel c to output u; aux (15, 256) float32; z (B, T4,
+// 256); scratch x1 (B, T0 + 4, 256), x2-x4 (B, T + 2, 256) for the inputs
+// of conv2-4 (T = T1, T2, T3).  All contiguous.  Returns the first
+// failing launch's cudaError_t (cudaErrorNotSupported: no TMA encoder).
+extern "C" int conv_stack_fused_bf16_launch(
+    const void* x_new, const void* c0, const void* c1, const void* c2,
+    const void* c3, const void* c4, const void* w0, const void* wt1,
+    const void* wt2, const void* wt3, const void* wt4, const float* aux,
+    void* z, void* n0, void* n1, void* n2, void* n3, void* n4, void* x1,
+    void* x2, void* x3, void* x4, int B, int L, void* stream) {
+  if (B <= 0 || !valid(L)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(a, st) : launch<__nv_bfloat16>(a, st);
+  const Lens ln = lens_of(L / kS0);
+  const int T[5] = {ln.T0, ln.T1, ln.T2, ln.T3, ln.T4};
+  bf16* x[4] = {static_cast<bf16*>(x1), static_cast<bf16*>(x2),
+                static_cast<bf16*>(x3), static_cast<bf16*>(x4)};
+  bf16* nout[5] = {static_cast<bf16*>(n0), static_cast<bf16*>(n1),
+                   static_cast<bf16*>(n2), static_cast<bf16*>(n3),
+                   static_cast<bf16*>(n4)};
+  const Conv0Args c{static_cast<const bf16*>(x_new),
+                    {static_cast<const bf16*>(c0), static_cast<const bf16*>(c1),
+                     static_cast<const bf16*>(c2), static_cast<const bf16*>(c3),
+                     static_cast<const bf16*>(c4)},
+                    static_cast<const bf16*>(w0), aux,
+                    {x[0], x[1], x[2], x[3]}, nout[0], nout[1],
+                    B, L, ln.T0, ln.T1, ln.T2, ln.T3};
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaError_t e =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tasks0 = B * (ln.T0 / 16);  // 16 conv0 rows a warp task
+  const int blocks0 = (tasks0 + kConv0Warps - 1) / kConv0Warps;
+  conv0_kernel<<<blocks0 < 4 * sms ? blocks0 : 4 * sms, kConv0Warps * 32, 0,
+                 st>>>(c);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  e = cudaFuncSetAttribute(conv_layer_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kGemmSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const void* wt[4] = {wt1, wt2, wt3, wt4};
+  for (int l = 0; l < 4; ++l) {
+    const int s = l == 0 ? 4 : 2;
+    Layer a;
+    a.T_out = T[l + 1];
+    a.M = B * (a.T_out + 1);
+    a.half = s * kC;
+    a.K = 2 * a.half;
+    a.tiles = (a.M + kBM - 1) / kBM;
+    a.aux = aux + 3 * (l + 1) * kC;
+    a.out = l < 3 ? x[l + 1] : static_cast<bf16*>(z);
+    a.cn = l < 3 ? 2 : 0;
+    a.carry = l < 3 ? nout[l + 2] : nullptr;
+    CUtensorMap mapA, mapW;
+    if (!make_map(&mapA, x[l], a.half, a.M, kBM) ||
+        !make_map(&mapW, wt[l], a.K, kC, kC))
+      return static_cast<int>(cudaErrorNotSupported);
+    conv_layer_kernel<<<a.tiles < sms ? a.tiles : sms, kGemmThreads,
+                        kGemmSmem, st>>>(mapA, mapW, a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }

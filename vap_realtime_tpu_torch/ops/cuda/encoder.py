@@ -1,15 +1,15 @@
-"""The whole streaming CPC conv stack in one kernel: wrapper + plain version.
+"""The whole streaming CPC conv stack: kernel wrapper + plain version.
 
 `conv_stack_fused` replaces the TPU kernel `conv_stack_fused_call`
 (vap_realtime_tpu/ops/pallas/encoder.py:291, bodies `_kernel`:190 and
 `_kernel_v3`:89), reached through `conv_impl="fused"`: conv0..conv4 of
 the CPC encoder, each followed by ChannelNorm + ReLU, over one frame's
 fresh samples with the per-layer streaming carries in and out.  The
-kernel is `vap_realtime_tpu_torch/csrc/conv_stack_fused.cu`, hand-written
-for Hopper; see its header for the design.  The TPU kernel's `mode`
-values (merge8, cat8, taps20, v3) are VMEM layouts of one function, so
-the port computes that function once; its lab-only `ablate` truncations
-are not ported.
+kernels are `vap_realtime_tpu_torch/csrc/conv_stack_fused.cu`,
+hand-written for Hopper; see its header for the design.  The TPU kernel's
+`mode` values (merge8, cat8, taps20, v3) are VMEM layouts of one
+function, so the port computes that function once; its lab-only `ablate`
+truncations are not ported.
 
 Numerics (as the TPU kernel): conv0 as patch rows P[t] = xc0[5t:5t+10]
 times the (10, C) weight, conv1-4 (kernel = 2 * stride) as the two
@@ -21,14 +21,22 @@ dtype.  In float32 this is the `conv` stack's math to float noise; in
 bf16 it is more precise than the `conv` path (no bf16 rounding of the
 conv outputs), so bf16 results are compared with the plain version here.
 
+Two bodies.  bf16 (the serving dtype): five launches a call, conv0 on
+mma.sync writing conv1's input to a scratch buffer, then conv1..conv4
+each an implicit GEMM on `wgmma` whose M runs over the stride-block rows
+of all channel-streams at once (`layer_geometry`), fed by TMA from the
+scratch buffers and from the transposed weights (`hopper_weights`, a
+kernel-private repack cached beside `pack_fused_params`).  float32: one
+launch, one block per channel-stream on the CUDA cores.
+
 Bound on the H100: operations.  ~63.6 MFLOP per channel-stream in the
-stride-block form: 0.52 TFLOP per step at 2B = 8192 (0.53 ms at the bf16
-tensor-core peak, 7.8 ms at the 67 TFLOP/s float32 CUDA-core peak); the
+stride-block form: 0.50 TFLOP per step at 2B = 8192 (0.51 ms at the bf16
+tensor-core peak, 7.5 ms at the 67 TFLOP/s float32 CUDA-core peak); the
 bytes (waveform, carries, output, weights) are ~0.13 GB.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
+On a CUDA tensor the wrapper launches the kernels or raises; on a CPU
 tensor it runs `conv_stack_fused_plain`.  `conv_stack_fused.launches`
-counts kernel launches.
+counts calls (`CUDA_LAUNCHES` kernel launches each).
 """
 
 from __future__ import annotations
@@ -120,6 +128,57 @@ def pack_fused_params(enc: Params, dtype=None):
     return per[dtype]
 
 
+# the bf16 body's GEMM tile: output rows a weight tile serves
+TILE_ROWS = 128
+# CUDA kernel launches per conv_stack_fused call, per activation dtype
+CUDA_LAUNCHES = {torch.float32: 1, torch.bfloat16: 5}
+
+
+def layer_geometry(B: int, L: int) -> List[Dict[str, int]]:
+    """The bf16 body's implicit GEMMs of conv1..conv4 for B channel-streams
+    of L samples.  Layer l's input X (B, T_in, C), T_in = s (T_out + 1),
+    is the matrix xm of stride blocks (B (T_out + 1) rows of s C); output
+    row m = xm[m] W[0] + xm[m + 1] W[1] for every m, of which row t of
+    stream n is m = n (T_out + 1) + t, and the rows with t = T_out (which
+    straddle two streams) are junk, dropped.  M runs over all streams in
+    tiles of TILE_ROWS rows; the last tile's rows past M are masked.
+    Returns per layer {M, T_out, s, K (2 s C), tiles}."""
+    out = []
+    for (k, s), (_, t_out) in zip(TAIL_KS, tail_lens(L // CONV0_S)):
+        M = B * (t_out + 1)
+        out.append(dict(M=M, T_out=t_out, s=s, K=k * C,
+                        tiles=-(-M // TILE_ROWS)))
+    return out
+
+
+def weight_l2_bytes(B: int, L: int) -> int:
+    """Bytes of bf16 weights the bf16 body streams from L2 into shared
+    memory per call: one (K, C) matrix per tile of each layer."""
+    return sum(g["tiles"] * g["K"] * C * 2 for g in layer_geometry(B, L))
+
+
+# kernel-private repack per stride-block weight tensor: id -> (weak
+# reference, W^T)
+_TRANSPOSED: Dict[int, Any] = {}
+
+
+def hopper_weights(wts) -> Tuple[Tensor, ...]:
+    """`pack_fused_params`' stride-block weights -> the bf16 body's GEMM
+    operands: per layer W^T (C, 2 s C), contiguous, W^T[u, b s C + p C +
+    c] = W[b][p C + c, u] (tap b s + p, input channel c, output u): the
+    K-major B operand whose rows the kernel's TMA map cuts into 64-column
+    boxes.  Cached per weight tensor (read-only in inference)."""
+    out = []
+    for W in wts:
+        ref, Wt = _TRANSPOSED.get(id(W), (None, None))
+        if ref is None or ref() is not W:
+            Wt = W.reshape(-1, C).T.contiguous()
+            _TRANSPOSED[id(W)] = (weakref.ref(
+                W, lambda _, k=id(W): _TRANSPOSED.pop(k, None)), Wt)
+        out.append(Wt)
+    return tuple(out)
+
+
 def conv0_patches(xc0: Tensor) -> Tensor:
     """(B, L+5) carry-prefixed waveform -> (B, L/5, 10) conv0 patch rows,
     P[b, t, :] = xc0[b, 5t : 5t+10]."""
@@ -168,14 +227,21 @@ SMEM_LIMIT = 232448
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """The kernel library, built on first use, with its C signature."""
-    lib = load("conv_stack_fused")
+    """The kernel library, built on first use, with its C signatures."""
+    return bind(load("conv_stack_fused"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a build of conv_stack_fused.cu."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = lib.conv_stack_fused_launch
-    fn.restype = ctypes.c_int
-    # dtype; new, c0, c1..c4; w0, w1..w4; aux; z, n0, n1..n4; B, L; stream
-    fn.argtypes = [I] + [P] * 18 + [I, I, P]
-    lib.conv_stack_fused_smem.restype = ctypes.c_int
+    # new, c0, c1..c4; w0, w1..w4; aux; z, n0, n1..n4; B, L; stream
+    lib.conv_stack_fused_f32_launch.restype = I
+    lib.conv_stack_fused_f32_launch.argtypes = [P] * 18 + [I, I, P]
+    # new, c0, c1..c4; w0, wt1..wt4; aux; z, n0, n1..n4; x1..x4; B, L;
+    # stream
+    lib.conv_stack_fused_bf16_launch.restype = I
+    lib.conv_stack_fused_bf16_launch.argtypes = [P] * 22 + [I, I, P]
+    lib.conv_stack_fused_smem.restype = I
     lib.conv_stack_fused_smem.argtypes = [I, I]
     return lib
 
@@ -187,9 +253,10 @@ def _check(cond: bool, msg: str) -> None:
 
 def conv_stack_fused(c0: Tensor, new: Tensor, carries, w0: Tensor, wts,
                      aux: Tensor):
-    """The whole streaming conv stack in one launch: same arguments and
-    results as `conv_stack_fused_plain`.  The activation dtype (new's) is
-    float32 or bf16; every tensor lies on one device."""
+    """The whole streaming conv stack on the card (one call: one launch in
+    float32, five in bf16): same arguments and results as
+    `conv_stack_fused_plain`.  The activation dtype (new's) is float32 or
+    bf16; every tensor lies on one device."""
     if new.device.type == "cpu":
         return conv_stack_fused_plain(c0, new, carries, w0, wts, aux)
     _check(new.device.type == "cuda", f"unsupported device {new.device}")
@@ -222,16 +289,27 @@ def conv_stack_fused(c0: Tensor, new: Tensor, carries, w0: Tensor, wts,
     _check(0 < smem <= SMEM_LIMIT,
            f"L = {L} needs {smem} bytes of shared memory per block "
            f"(at most {SMEM_LIMIT})")
-    z = torch.empty((B, T4, C), dtype=dt, device=new.device)
-    n0 = torch.empty((B, CONV0_S), dtype=dt, device=new.device)
+    dev = new.device
+    z = torch.empty((B, T4, C), dtype=dt, device=dev)
+    n0 = torch.empty((B, CONV0_S), dtype=dt, device=dev)
     ns = [torch.empty_like(c) for c in cs]
-    with torch.cuda.device(new.device):
-        rc = _lib().conv_stack_fused_launch(
-            _DTYPES[dt], new.data_ptr(), c0.data_ptr(),
-            *[c.data_ptr() for c in cs], w0.data_ptr(),
-            *[W.data_ptr() for W in wts], aux.data_ptr(), z.data_ptr(),
-            n0.data_ptr(), *[n.data_ptr() for n in ns], B, L,
-            torch.cuda.current_stream(new.device).cuda_stream)
+    ptrs = [new.data_ptr(), c0.data_ptr(), *[c.data_ptr() for c in cs],
+            w0.data_ptr()]
+    outs = [aux.data_ptr(), z.data_ptr(), n0.data_ptr(),
+            *[n.data_ptr() for n in ns]]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if dt == torch.float32:
+            rc = _lib().conv_stack_fused_f32_launch(
+                *ptrs, *[W.data_ptr() for W in wts], *outs, B, L, stream)
+        else:
+            # the layer inputs X1..X4 (carry rows first), kernel scratch
+            xs = [torch.empty((B, T0 + 4, C), dtype=dt, device=dev)] + [
+                torch.empty((B, t_out + 2, C), dtype=dt, device=dev)
+                for _, t_out in lens[:3]]
+            rc = _lib().conv_stack_fused_bf16_launch(
+                *ptrs, *[W.data_ptr() for W in hopper_weights(wts)], *outs,
+                *[x.data_ptr() for x in xs], B, L, stream)
     if rc != 0:
         raise RuntimeError(f"conv_stack_fused: kernel launch failed, "
                            f"cudaError {rc}")
