@@ -37,7 +37,11 @@ Phases (any failed check raises, so the script exits non-zero):
          - the compact attend (K10) at B=4096 and 64, all 7 phases, ring
            rows: float32 (atol 1e-4), bf16, int8 with row scales and
            int8 codes under the frozen-scale fold (atol/rtol 2e-2 in float
-           units), mixed live/DEAD and all-DEAD (output == v_cur);
+           units), mixed live/DEAD and all-DEAD (output == v_cur); and
+           K10's int8 body (both modes) at a ragged B = 4097 and 3, at
+           T = 500 (B = 256: chunks of up to 52 rows through the ring;
+           mixed and all-DEAD) and with float32 q (B = 4096, 4097;
+           T = 500) at atol 1e-4 in float units;
          - lstm_scan (K5) at (8192, 5, 256) and (100, 5, 256) (a partial
            block): float32 at atol 1e-5, bf16 outputs within one bf16
            step (rtol 2^-7, atol 1e-5);
@@ -58,16 +62,18 @@ Phases (any failed check raises, so the script exits non-zero):
            / bf16 / int8: |d| <= 1e-5 x the column's sum |x|, and two
            launches bit-equal (no atomics).
   (b)    The full-width fast step (vap, 20 Hz, 2.5 s context, synthetic
-         weights) in six configurations: staged slots with the bf16
+         weights) in seven configurations: staged slots with the bf16
          cache, the int8 cache with frozen scales (quant="global") and
          with row scales (quant="row"), conv_impl="normk" and
-         conv_impl="fused"; and "compact": slots="stream" with
-         attend_impl="kernel3".  Each on a small input in float32 on the
-         card equals the CPU path (which the CPU tests hold against the
-         JAX package) at atol 1e-4; each at B=4096 bf16 over 17 frames
+         conv_impl="fused"; "compact": slots="stream" with
+         attend_impl="kernel3"; and "compact_q8g": the same on the int8
+         cache with frozen scales (K10's int8 body, 7 launches a step).
+         Each on a small input in float32 on the card equals the CPU path
+         (which the CPU tests hold against the JAX package) at atol 1e-4;
+         each at B=4096 bf16 over 17 frames
          with the kernels equals the same step with the plain versions
          (p_now atol 2e-2), and the launch counters rise by exactly 7
-         attend launches per step (K1-K4, or K10 for compact), 5
+         attend launches per step (K1-K4, or K10 for the compact ones), 5
          channel_norm_relu launches per normk step and 1 conv_stack_fused
          launch per fused step.
          The slice-4 paths at full width: the kv step (chunked encoder,
@@ -85,7 +91,10 @@ Phases (any failed check raises, so the script exits non-zero):
          B=4096 bf16 kernels vs plain (p_now atol 2e-2) with 7 K2 launches
          per incremental tick and none on a resync tick.
   (d)    Times with CUDA events after warm-up, each beside the card's name
-         and power limit: each kernel body's ms per launch and its bound,
+         and power limit: each kernel body's ms per launch and its bound
+         (the attend bodies with their achieved GB/s; K10's also with the
+         kernel's own device time from the profiler, without the
+         wrapper's host time),
          its plain version, one PyTorch call over the same problem as a
          yardstick where one exists (scaled_dot_product_attention on the
          dequantised bf16 rows, torch.nn.LSTM on cuDNN; the port never
@@ -100,7 +109,7 @@ Phases (any failed check raises, so the script exits non-zero):
          bound) and float32 on the CUDA cores at 67 TFLOP/s; K5 and
          lstm_fused in bf16 and float32 against torch.nn.LSTM in the same
          dtype), and the
-         ms/step at B=4096 of the fast step in six configurations and of
+         ms/step at B=4096 of the fast step in seven configurations and of
          the kv and full steps; the hybrid paths' incremental and resync
          ticks at B=4096; and the lab tools (the slice-5 path): the attend
          lab (vap_realtime_tpu_torch.tools.attend_lab) over every ablated
@@ -158,7 +167,9 @@ L_NEW = 800                        # fresh samples per frame at 20 Hz
 # fast_step; slots (default "staged") and attend_impl (default "kernel")
 CONFIGS = {"bf16": {}, "q8g": dict(quant="global"), "q8": dict(quant="row"),
            "normk": dict(conv_impl="normk"), "fused": dict(conv_impl="fused"),
-           "compact": dict(slots="stream", attend_impl="kernel3")}
+           "compact": dict(slots="stream", attend_impl="kernel3"),
+           "compact_q8g": dict(quant="global", slots="stream",
+                               attend_impl="kernel3")}
 STEP_CONFIGS = tuple(CONFIGS)      # phases (b) and (d)
 HYBRID_R = 6                       # resync cadence of the hybrid checks
 # the server runs' arenas (phase (c)) add two combinations
@@ -298,19 +309,19 @@ def build() -> None:
           flush=True)
 
 
-def _ages(g, case: str, nb: int):
-    """Ring (nb, T) and stage (S, nb) ages: live in [1, T+S), about a
+def _ages(g, case: str, nb: int, Tn: int = T):
+    """Ring (nb, Tn) and stage (S, nb) ages: live in [1, Tn+S), about a
     third DEAD ("mixed") or all DEAD ("dead")."""
     from vap_realtime_tpu_torch.ops.cuda.attend import DEAD
 
     dev = "cuda"
-    age = torch.randint(1, T + S, (nb, T), generator=g, device=dev).float()
-    sage = torch.randint(1, T + S, (S, nb), generator=g, device=dev).float()
+    age = torch.randint(1, Tn + S, (nb, Tn), generator=g, device=dev).float()
+    sage = torch.randint(1, Tn + S, (S, nb), generator=g, device=dev).float()
     if case == "dead":
         age.fill_(DEAD)
         sage.fill_(DEAD)
     else:
-        age[torch.rand(nb, T, generator=g, device=dev) < 0.35] = DEAD
+        age[torch.rand(nb, Tn, generator=g, device=dev) < 0.35] = DEAD
         sage[torch.rand(S, nb, generator=g, device=dev) < 0.35] = DEAD
     return age, sage
 
@@ -325,22 +336,22 @@ def attend_inputs(dtype, case: str, seed: int, nb: int = B):
     return (cache, q2, kc2, vc2, *_ages(g, case, nb), stage)
 
 
-def attend_inputs_int8(case: str, seed: int, nb: int = B):
+def attend_inputs_int8(case: str, seed: int, nb: int = B, Tn: int = T,
+                       dtype=torch.bfloat16):
     """Serving-shaped int8 attend inputs made on the card from a seed:
-    int8 codes, bf16 q / k_cur / v_cur in float units, row scales
-    CODE_SCALE x [0.5, 1.5) of the ring (nb, P, T) and the stage
+    int8 codes, q / k_cur / v_cur in float units (bf16 by default), row
+    scales CODE_SCALE x [0.5, 1.5) of the ring (nb, P, Tn) and the stage
     (S, nb, P)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     codes = lambda *s: torch.randint(-127, 128, s, generator=g,
                                      device=dev).to(torch.int8)
-    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(
-        torch.bfloat16)
-    cache, stage = codes(nb, P, T, 4 * D), codes(S, nb, P * 4 * D)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
+    cache, stage = codes(nb, P, Tn, 4 * D), codes(S, nb, P * 4 * D)
     q2, kc2, vc2 = rn(nb, 2, D), rn(nb, 2, D), rn(nb, 2, D)
-    sc = CODE_SCALE * (0.5 + torch.rand(nb, P, T, generator=g, device=dev))
+    sc = CODE_SCALE * (0.5 + torch.rand(nb, P, Tn, generator=g, device=dev))
     ssc = CODE_SCALE * (0.5 + torch.rand(S, nb, P, generator=g, device=dev))
-    age, sage = _ages(g, case, nb)
+    age, sage = _ages(g, case, nb, Tn)
     return cache, q2, kc2, vc2, age, sage, stage, sc, ssc
 
 
@@ -582,16 +593,15 @@ def phase_a_fused() -> float:
     return worst
 
 
-def phase_a_compact() -> float:
+def phase_a_compact() -> dict:
     """The compact attend (K10) vs plain at the serving shapes, ring rows:
     float32, bf16, int8 row scales, int8 under the frozen-scale fold;
-    returns the max abs error of the bf16 and int8 bodies (float
-    units)."""
+    returns the max abs error of each body (float units)."""
     from vap_realtime_tpu_torch.ops.cuda.attend import (
         attend_pair, attend_pair_plain,
     )
 
-    worst = 0.0
+    worst = {}
     for nb, case in ((B, "mixed"), (B, "dead"), (SERVER_CAPACITY, "mixed")):
         seed = 9 if case == "mixed" else 10
         for body in ("float32", "bf16", "int8 row", "int8 global"):
@@ -632,10 +642,73 @@ def phase_a_compact() -> float:
                   + ("atol 1e-4" if body == "float32" else
                      f"float units; atol {BF16_TOL:g}, rtol {BF16_TOL:g}")
                   + ")", flush=True)
-            if body != "float32":
-                worst = max(worst, err)
+            worst[body] = max(worst.get(body, 0.0), err)
             del cache
     torch.cuda.empty_cache()
+    return worst
+
+
+# K10's int8 body beyond the serving shapes: (streams, rows, q dtype,
+# ages) -- ragged B (no multiple of the persistent grid, 2 blocks on each
+# of the 132 SMs, nor of the 2 a block's ring holds), T = 500 (a plane of
+# 500 KB: 10 chunks of up to 52 rows through the ring; 0.9 GB of int8
+# cache at B = 256), float32 q
+Q8_CASES = ((4097, T, torch.bfloat16, "mixed"),
+            (3, T, torch.bfloat16, "mixed"),
+            (256, 500, torch.bfloat16, "mixed"),
+            (256, 500, torch.bfloat16, "dead"),
+            (B, T, torch.float32, "mixed"), (4097, T, torch.float32, "mixed"),
+            (256, 500, torch.float32, "mixed"))
+
+
+def phase_a_compact_q8() -> float:
+    """K10's int8 body (row scales and the frozen-scale fold) vs plain on
+    Q8_CASES, all 7 phases: bf16 q at atol/rtol BF16_TOL, float32 q at
+    atol 1e-4, in float units; all-DEAD rows give v_cur exactly.  Returns
+    the max abs error (float units)."""
+    from vap_realtime_tpu_torch.ops.cuda.attend import (
+        attend_pair, attend_pair_plain,
+    )
+
+    worst = 0.0
+    for i, (nb, Tn, dt, case) in enumerate(Q8_CASES):
+        cache, q2, kc2, vc2, age, _, _, sc, _ = attend_inputs_int8(
+            case, 20 + i, nb, Tn, dt)
+        name = "bf16" if dt == torch.bfloat16 else "float32"
+        for mode in ("row", "global"):
+            err = 0.0
+            for ph in range(P):
+                kw = dict(pair_base=2 * ph, num_heads=H, impl="compact")
+                args, unit = (cache, q2, kc2, vc2, age), 1.0
+                if mode == "row":
+                    kw["scale"] = sc[:, ph]
+                else:
+                    args, unit = (cache, *fold_global(q2, kc2, vc2),
+                                  age), CODE_SCALE
+                got = attend_pair(*args, **kw)
+                want = attend_pair_plain(*args, **kw)
+                what = (f"compact int8 {mode} {name} q B={nb} T={Tn} {case} "
+                        f"phase {ph}")
+                if dt == torch.float32:
+                    torch.cuda.synchronize()
+                    d = (got - want).abs().max().item() * unit
+                    check(d <= 1e-4 and torch.isfinite(got).all().item(),
+                          f"{what}: max |d| {d:.3e}")
+                else:
+                    d = _compare(got, want, unit, what)
+                if case == "dead":
+                    check(torch.equal(got, args[3]),
+                          f"{what}: all-DEAD rows must give v_cur")
+                err = max(err, d)
+            print(f"[a] attend_pair compact (K10) int8 {mode}, {name} q, "
+                  f"B={nb} T={Tn} {case:5s} 7 phases: max |kernel - plain| "
+                  f"{err:.3e} (float units; " + (
+                      "atol 1e-4" if dt == torch.float32 else
+                      f"atol {BF16_TOL:g}, rtol {BF16_TOL:g}") + ")",
+                  flush=True)
+            worst = max(worst, err)
+        del cache
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -857,13 +930,14 @@ def phase_b(cfg, params_np):
     frames = fast_inputs(cfg, B, nf, 6, "cuda", torch.bfloat16)
     idx = torch.arange(B, device="cuda")
     act = lambda f: (idx + f) % 7 != 0
+    launches = {}
     for config in STEP_CONFIGS:
         zero_counts()
         pk = run_steps(p, cfg, B, frames, torch.bfloat16, "cuda", config,
                        active=act)[:, 0]
         torch.cuda.synchronize()
         want = {k: v * nf for k, v in per_step(config).items()}
-        got = counts()
+        got = launches[config] = counts()
         check(got == want, f"{config}: launches {got}, expected {want}")
         pp = run_steps(p, cfg, B, frames, torch.bfloat16, "cuda", config,
                        plain=True, active=act)[:, 0]
@@ -881,7 +955,7 @@ def phase_b(cfg, params_np):
               f"{got} = {per_step(config)} per step", flush=True)
         del pk, pp
         torch.cuda.empty_cache()
-    return p, frames
+    return p, frames, launches
 
 
 def slice4_steps(p, cfg, nb, frames, dtype, device, path, plain=False,
@@ -1045,11 +1119,12 @@ def phase_d(cfg, p_bf16, frames, gpu):
     bodies, compact = {}, {}
 
     def time_body(name, call, plain, lib, staged, es, row_scales, unit,
-                  into=bodies):
+                  into=bodies, kernel=None):
         """ms/launch (rotating over the 7 phases), plain ms, library ms
         into `into[name]`; `call(ph)` / `plain(ph)` run phase ph, `lib()`
         the yardstick and returns its output in float units, checked
-        against the kernel."""
+        against the kernel.  With `kernel` (its CUDA name) also the
+        kernel's own device time, without the wrapper's host time."""
         ph = iter(range(10 ** 9))
         ms = cuda_ms(lambda: call(next(ph) % P), reps=70, warm=7)
         plain_ms = cuda_ms(lambda: plain(1), reps=7, warm=2)
@@ -1058,13 +1133,21 @@ def phase_d(cfg, p_bf16, frames, gpu):
         d_lib = (lib().float() - call(1).float() * unit).abs().max().item()
         into[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms)
+        alone = ""
+        if kernel is not None:
+            dev = kernel_device_ms(lambda: call(next(ph) % P), kernel, 70)
+            into[name]["device_ms"] = dev
+            alone = (f"; the kernel alone {dev:.4f} ms = "
+                     f"{100 * bound_ms / dev:.1f}% of bound, "
+                     f"{nbytes / dev / 1e6:.1f} GB/s")
         print(f"[d] attend_pair {name}, B={B} T={T}"
               f"{f' S={S}' if staged else ''}: {ms:.4f} ms/launch, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB at "
-              f"3.35 TB/s) = {100 * bound_ms / ms:.1f}% of bound; plain "
+              f"3.35 TB/s) = {100 * bound_ms / ms:.1f}% of bound, achieved "
+              f"{nbytes / ms / 1e6:.1f} GB/s; plain "
               f"{plain_ms:.4f} ms; scaled_dot_product_attention yardstick "
-              f"{library_ms:.4f} ms (max |sdpa - kernel| {d_lib:.3e}) | "
-              f"{gpu}", flush=True)
+              f"{library_ms:.4f} ms (max |sdpa - kernel| {d_lib:.3e})"
+              f"{alone} | {gpu}", flush=True)
 
     # K1 / K2: the bf16 cache
     cache, q2, kc2, vc2, age, sage, stage = attend_inputs(
@@ -1085,7 +1168,7 @@ def phase_d(cfg, p_bf16, frames, gpu):
         impl="compact")
     lib = sdpa_fn(cache[:, 1], None, q2, kc2, vc2, age, sage)
     time_body("K10 bf16 ring", run, lambda ph: run(ph, attend_pair_plain),
-              lib, False, 2, False, 1.0, compact)
+              lib, False, 2, False, 1.0, compact, "attend_compact_kernel")
     del cache, stage, lib
     torch.cuda.empty_cache()
 
@@ -1137,7 +1220,7 @@ def phase_d(cfg, p_bf16, frames, gpu):
             lib, unit = sdpa_fn(plane_g, None, q2, kc2, vc2, age,
                                 sage), CODE_SCALE
         time_body(name, run, lambda ph, run=run: run(ph, attend_pair_plain),
-                  lib, False, 1, rows, unit, compact)
+                  lib, False, 1, rows, unit, compact, "attend_q8_kernel")
         del lib
     del cache, stage, plane_g, stage_g, plane_r, stage_r
     torch.cuda.empty_cache()
@@ -1177,6 +1260,7 @@ def phase_d(cfg, p_bf16, frames, gpu):
     for config in STEP_CONFIGS:
         init_kw, step_kw = config_kw(config)
         st = inc.init_fast_state(cfg, B, bf, device="cuda", **init_kw)
+        zero_counts()
         for f in range(steps + 4):
             if f == 4:
                 torch.cuda.synchronize()
@@ -1185,6 +1269,7 @@ def phase_d(cfg, p_bf16, frames, gpu):
                                   cfg, **step_kw)
         torch.cuda.synchronize()
         step_ms = (time.time() - t0) * 1e3 / steps
+        got = counts()
         streams = B * (1e3 / cfg.frame_hz) / step_ms
         if config == "fused":
             fused.update(fused_step_ms=step_ms, fused_step_streams=streams)
@@ -1192,7 +1277,9 @@ def phase_d(cfg, p_bf16, frames, gpu):
               f"kernels: {step_ms:.3f} ms/step (host clock, {steps} steps"
               f"{' incl. 3 merges' if init_kw['staged'] else ''}) -> "
               f"{streams:.0f} realtime streams per card at {cfg.frame_hz} "
-              f"Hz | {gpu}", flush=True)
+              f"Hz; attend launches a step: K1-K4 "
+              f"{got['attend'] / (steps + 4):g}, K10 "
+              f"{got['compact'] / (steps + 4):g} | {gpu}", flush=True)
         del st
         torch.cuda.empty_cache()
     print(f"[d] conv_stack_fused (K7) {fused['ms']:.4f} ms/call against the "
@@ -2078,6 +2165,8 @@ def main() -> int:
     err_norm = phase_a_norm()
     err_fused = phase_a_fused()
     err_compact = phase_a_compact()
+    err_q8 = max(phase_a_compact_q8(), err_compact["int8 row"],
+                 err_compact["int8 global"])
     err_lstm = phase_a_lstm()
     err_single = phase_a_single()
     err_tail = phase_a_tail()
@@ -2085,7 +2174,7 @@ def main() -> int:
     err_read = phase_a_read()
     cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
     params_np = synthetic_params(cfg.frame_hz)
-    p_bf16, frames = phase_b(cfg, params_np)
+    p_bf16, frames, run_steps_b = phase_b(cfg, params_np)
     p4, frames4 = phase_b_slice4(cfg, params_np)
     phase_b_hybrid(cfg, params_np)
     bodies, norm, compact, fused, lstm = phase_d(cfg, p_bf16, frames, gpu)
@@ -2119,8 +2208,17 @@ def main() -> int:
         dict(name="attend_compact", route="cuda",
              source=src + "attend_pair.cu",
              replaces="vap_realtime_tpu/ops/pallas/attend.py:282",
-             launches=run_fused["compact"], max_abs_err=err_compact,
-             **compact["K10 bf16 ring"], bodies=compact),
+             launches=run_fused["compact"], max_abs_err=err_compact["bf16"],
+             **compact["K10 bf16 ring"],
+             bodies={"K10 bf16 ring": compact["K10 bf16 ring"]}),
+        # K10 on an int8 cache (its own CUDA kernel): launched by the
+        # compact_q8g step in (b), 7 a step; none on the server runs
+        dict(name="attend_compact_q8", route="cuda",
+             source=src + "attend_pair.cu",
+             replaces="vap_realtime_tpu/ops/pallas/attend.py:296",
+             launches=run_steps_b["compact_q8g"]["compact"],
+             max_abs_err=err_q8, **compact["K10 int8 global ring"],
+             bodies={k: v for k, v in compact.items() if "int8" in k}),
         dict(name="conv_stack_fused", route="cuda",
              source=src + "conv_stack_fused.cu",
              replaces="vap_realtime_tpu/ops/pallas/encoder.py:291",

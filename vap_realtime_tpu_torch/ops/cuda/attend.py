@@ -10,9 +10,11 @@ the output by the caller); and the per-row-scale bodies `_kernel_pair_q`
 / `_kernel_pair_stq` (K4, `quant="row"`).  With `impl="compact"` it
 replaces the compact bodies `_kernel_pair_c` / `_kernel_pair_cq` (K10,
 `attend_impl="pallas3"`, the port's `"kernel3"`): a max-shifted softmax
-over the ring rows only.  The kernels are in
-`vap_realtime_tpu_torch/csrc/attend_pair.cu`, hand-written for Hopper;
-see its header for the design.
+over the ring rows only; on an int8 cache it launches a body built for
+Hopper (persistent blocks, one bulk copy of each stream's phase plane
+into shared memory, compact per-head scores, one exp per row and head).
+The kernels are in `vap_realtime_tpu_torch/csrc/attend_pair.cu`,
+hand-written for Hopper; see its header for the design.
 
 Bound on the H100: memory.  At B=4096, T=50, S=8 one launch reads the
 phase plane and the stage slice: bf16 ~0.49 GB (~0.145 ms at 3.35 TB/s),
@@ -265,7 +267,11 @@ _INT8 = 2  # cache / stage element code of an int8 cache
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signature."""
-    lib = load("attend_pair")
+    return bind(load("attend_pair"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a build of attend_pair.cu."""
     fn = lib.attend_pair_launch
     fn.restype = ctypes.c_int
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -377,6 +383,13 @@ def attend_pair(cache: Tensor, q2: Tensor, k_cur2: Tensor, v_cur2: Tensor,
     ptr = lambda t: None if t is None else t.data_ptr()
     q2 = _prescale(q2, impl)
     if impl == "compact":
+        if int8:  # the bulk-copy body
+            _check(H & (H - 1) == 0, f"the int8 compact body needs a "
+                                     f"power-of-2 head count, got {H}")
+            _check(all(t.data_ptr() % 16 == 0 for t in
+                       (cache, q2, k_cur2, v_cur2)),
+                   "the int8 compact body needs cache, q, k_cur and v_cur "
+                   "16-byte aligned")
         with torch.cuda.device(cache.device):
             rc = _lib().attend_compact_launch(
                 _DTYPES[dtype], _INT8 if int8 else _DTYPES[dtype],
