@@ -133,6 +133,26 @@ Phases (any failed check raises, so the script exits non-zero):
          VapEngine(path="fast_hybrid") take a few process_batch calls on the
          card, and run_offline(path="full" and "hybrid") on synthetic audio
          equals the CPU.
+  (f)    The serving surfaces (model vap, 20 Hz, 2.5 s context, synthetic
+         weights, float32 unless stated; the launch counters zeroed just
+         before each run and read just after, 7 K2 launches a frame):
+         the synthetic weights saved as the reference's .pt checkpoints
+         load bit-equal to convert_state_dict, and VapEngine(vap_model=,
+         cpc_model=) on the card equals the CPU over 12 frames (atol
+         1e-4); the two-port VapServer over loopback (one producer of
+         float64 hops, one consumer), kv against VapEngine on the CPU
+         over the same zero-padded frames (atol 1e-4) and fast bf16
+         against its plain-attend twin on the card (2e-2);
+         BatchedVapServer (capacity 64, kv) with 8 lockstep connections
+         of 1 s each against a CPU StreamArena stepped on the same chunks
+         (atol 1e-4), and a capacity-4 arena that rejects a fifth
+         connection; api.Vap on two Wav sources, card vs CPU over 10
+         results (atol 1e-4), its worker joined; static_step card vs CPU
+         over 10 carried frames (atol 1e-4), and its torch.export on the
+         card, saved and loaded, against the eager step (atol 1e-5).  The
+         ms per frame of the server engine, the batched tick,
+         Vap.process_vap, the static step and the exported step print
+         beside the card's name and power limit.
 
 The last lines: the card's name and power limit, one JSON line listing
 each kernel, and {"ok": true, "device": {...}}.
@@ -2144,6 +2164,422 @@ def phase_e_hybrid(cfg, params_np) -> None:
           f"max |d| {d:.3e} (atol 1e-4)", flush=True)
 
 
+# --- slice 9: the serving surfaces ------------------------------------------
+
+F_FRAMES = 20                      # frames (1 s of audio) a served stream
+
+
+def two_port_serve(engine, audio, n_frames):
+    """VapServer on free ports around `engine`: one consumer, one producer
+    streaming float64 hops of (2, N) `audio` paced as the CPU serving
+    tests pace them (2 ms a hop), until `n_frames` results arrived.
+    Returns (results, server)."""
+    from vap_realtime_tpu_torch.io import wire
+    from vap_realtime_tpu_torch.runtime.server import VapServer
+
+    srv = VapServer(engine, port_in=0, port_out=0)
+    srv.start_background()
+    results = []
+
+    def consume():
+        with socket.create_connection(("127.0.0.1", srv.port_out),
+                                      timeout=30) as c:
+            while len(results) < n_frames:
+                results.append(wire.deserialize_result(
+                    wire.read_framed(c), "vap"))
+
+    consumer = threading.Thread(target=consume)
+    try:
+        consumer.start()
+        deadline = time.time() + 10
+        while not srv.clients and time.time() < deadline:
+            time.sleep(0.01)
+        with socket.create_connection(("127.0.0.1", srv.port_in),
+                                      timeout=10) as p:
+            for h in range(n_frames * engine.cfg.frame_shift // 160):
+                p.sendall(wire.conv_2floatarray_2_bytearray(
+                    audio[0, h * 160:(h + 1) * 160],
+                    audio[1, h * 160:(h + 1) * 160]))
+                time.sleep(0.002)
+            consumer.join(timeout=60)
+    finally:
+        srv.stop()
+    check(not consumer.is_alive() and len(results) == n_frames
+          and srv.tick_stats["n"] == n_frames,
+          f"VapServer: {len(results)} results of {n_frames}, "
+          f"{srv.tick_stats['n']} frames stepped")
+    return results, srv
+
+
+def overlapped_frames(audio, cfg, n):
+    """The frames the servers and Vap cut on the overlapped-frame paths:
+    320 zero samples, then frame_samples windows every frame_shift."""
+    padded = np.concatenate([np.zeros((2, 320)), audio], axis=1)
+    return [padded[:, f * cfg.frame_shift:f * cfg.frame_shift
+                   + cfg.frame_samples].astype(np.float32)
+            for f in range(n)]
+
+
+def _max_diff(results, want, keys=("p_now", "p_future", "vad")) -> float:
+    return max(np.abs(np.asarray(r[k], np.float64)
+                      - np.asarray(w[k], np.float64)).max()
+               for r, w in zip(results, want) for k in keys)
+
+
+def launches_per_frame(got: dict, n: int, what: str) -> int:
+    """Checks that a run's launches are 7 K2 (attend) launches a frame
+    and nothing else; returns the K2 launches."""
+    want = {k: v * n for k, v in per_step("kv").items()}
+    check(got == want, f"{what}: launches {got} over {n} frames, expected "
+                       f"{want}")
+    return got["attend"]
+
+
+def phase_f_checkpoints(cfg, params_np, tmp) -> int:
+    """The reference's .pt checkpoints: load_torch_checkpoint against
+    convert_state_dict (bit-equal leaves), and VapEngine(vap_model=,
+    cpc_model=) on the card against the same engine on the CPU (12
+    frames, atol 1e-4).  Returns the K2 launches of the card's run."""
+    import os
+
+    from vap_realtime_tpu_torch.runtime.engine import VapEngine
+    from vap_realtime_tpu_torch.weights.convert import (
+        _flatten, convert_state_dict, load_torch_checkpoint,
+    )
+    from vap_realtime_tpu_torch.weights.synthetic import (
+        synthetic_audio, synthetic_cpc_weights, synthetic_vap_state_dict,
+    )
+
+    vap, cpc = os.path.join(tmp, "vap.pt"), os.path.join(tmp, "cpc.pt")
+    sd, cw = synthetic_vap_state_dict(cfg.frame_hz), synthetic_cpc_weights()
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, vap)
+    torch.save({"weights": {k: torch.from_numpy(v) for k, v in cw.items()}},
+               cpc)
+    got = _flatten(load_torch_checkpoint(vap, cpc))
+    want = _flatten(convert_state_dict(sd, cw))
+    check(got.keys() == want.keys() and all(
+        np.array_equal(got[k], want[k]) for k in got),
+        "load_torch_checkpoint differs from convert_state_dict")
+    eng = {dev: VapEngine(cfg, vap_model=vap, cpc_model=cpc, device=dev)
+           for dev in ("cuda", "cpu")}
+    for e in eng.values():
+        e.warmup()
+    frames = overlapped_frames(synthetic_audio(16000, seed=41), cfg, 12)
+    outs = {}
+    for dev, e in eng.items():
+        zero_counts()
+        outs[dev] = [e.process(f[0], f[1]) for f in frames]
+        if dev == "cuda":
+            k2 = launches_per_frame(counts(), len(frames),
+                                    "VapEngine(vap_model=, cpc_model=)")
+    d = _max_diff(outs["cuda"], outs["cpu"])
+    check(d <= 1e-4, f"VapEngine from .pt card vs CPU: max |d| {d:.3e}")
+    print(f"[f] .pt checkpoints: {len(got)} leaves bit-equal to "
+          f"convert_state_dict; VapEngine(vap_model=, cpc_model=, kv) "
+          f"{len(frames)} frames, float32 card vs CPU: max |d| {d:.3e} "
+          f"(atol 1e-4), launches {k2} K2", flush=True)
+    return k2
+
+
+def engine_alone_ms(engine, chunks) -> float:
+    """Mean ms of engine.process over `chunks` ((2, n) each) run back to
+    back in this thread, without a server around it."""
+    t0 = time.perf_counter()
+    for c in chunks:
+        engine.process(c[0], c[1])
+    return (time.perf_counter() - t0) / len(chunks) * 1e3
+
+
+def phase_f_server(cfg, params_np, gpu) -> int:
+    """VapServer over loopback, twice: kv float32 against VapEngine on
+    the CPU over the same zero-padded frames (atol 1e-4); fast bf16
+    against its plain-attend twin on the card (BF16_TOL).  7 K2 launches
+    a frame in each.  Beside each run's engine ms per frame in the
+    server, the same engine's on the same frames alone.  Returns the K2
+    launches."""
+    from vap_realtime_tpu_torch.runtime.engine import VapEngine
+    from vap_realtime_tpu_torch.weights.synthetic import synthetic_audio
+
+    audio = synthetic_audio(16000 * 2, seed=42).astype(np.float64)
+    shift = cfg.frame_shift
+    fresh = [audio[:, f * shift:(f + 1) * shift] for f in range(F_FRAMES)]
+    k2 = 0
+    # kv, float32: the card's server against the CPU engine
+    eng = VapEngine(cfg, params=params_np, device="cuda")
+    eng.warmup()
+    zero_counts()
+    res, srv = two_port_serve(eng, audio, F_FRAMES)
+    k2 += launches_per_frame(counts(), F_FRAMES, "VapServer kv")
+    ms_kv = srv.tick_stats["seconds"] / srv.tick_stats["n"] * 1e3
+    frames = overlapped_frames(audio, cfg, F_FRAMES)
+    alone_kv = engine_alone_ms(eng, frames)
+    ref = VapEngine(cfg, params=params_np, device="cpu")
+    want = [ref.process(f[0], f[1]) for f in frames]
+    d_kv = _max_diff(res, want)
+    check(d_kv <= 1e-4, f"VapServer kv card vs CPU: max |d| {d_kv:.3e}")
+    echo = max(np.abs(np.asarray(r["x1"])
+                      - audio[0, f * shift:(f + 1) * shift]).max()
+               for f, r in enumerate(res))
+    check(echo == 0, f"VapServer kv audio echo off by {echo}")
+    # fast, bf16: kernels against the plain attend, both on the card
+    eng = VapEngine(cfg, params=params_np, path="fast", dtype=torch.bfloat16,
+                    device="cuda")
+    eng.warmup()
+    zero_counts()
+    res, srv = two_port_serve(eng, audio, F_FRAMES)
+    k2 += launches_per_frame(counts(), F_FRAMES, "VapServer fast bf16")
+    ms_fast = srv.tick_stats["seconds"] / srv.tick_stats["n"] * 1e3
+    alone_fast = engine_alone_ms(eng, fresh)
+    twin = VapEngine(cfg, params=params_np, path="fast",
+                     dtype=torch.bfloat16, attend_impl="plain",
+                     device="cuda")
+    want = [twin.process(f[0], f[1]) for f in fresh]
+    d_fast = _max_diff(res, want)
+    check(d_fast <= BF16_TOL, f"VapServer fast bf16 kernels vs plain: max "
+                              f"|d| {d_fast:.3e}")
+    print(f"[f] VapServer (two ports, 1 producer, 1 consumer), {F_FRAMES} "
+          f"frames each: kv float32 card vs CPU engine max |d| "
+          f"{d_kv:.3e} (atol 1e-4); fast bf16 kernels vs plain attend "
+          f"max |d| {d_fast:.3e} (atol {BF16_TOL}); 7 K2 launches a frame",
+          flush=True)
+    print(f"[f] VapServer engine ms per frame: kv float32 {ms_kv:.3f} "
+          f"(the engine alone on the same frames {alone_kv:.3f}), fast bf16 "
+          f"{ms_fast:.3f} (alone {alone_fast:.3f}) | {gpu}", flush=True)
+    return k2
+
+
+def lockstep_client(port, audio, n_results, out):
+    """One stream of BatchedVapServer: a frame's 5 hops, then its result,
+    `n_results` times."""
+    from vap_realtime_tpu_torch.io import wire
+
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+        s.settimeout(30)
+        hop = 0
+        while len(out) < n_results:
+            s.sendall(wire.conv_2floatarray_2_bytearray(
+                audio[0, hop * 160:(hop + 1) * 160],
+                audio[1, hop * 160:(hop + 1) * 160]))
+            hop += 1
+            if hop % 5 == 0:
+                out.append(wire.deserialize_result(wire.read_framed(s),
+                                                   "vap"))
+
+
+def phase_f_batched(cfg, params_np, gpu) -> int:
+    """BatchedVapServer, capacity 64, kv, float32: 8 lockstep connections
+    of 1 s of audio, each held against a CPU StreamArena stepped on the
+    same chunks (atol 1e-4), 7 K2 launches a tick; and a capacity-4
+    arena that rejects a fifth connection.  Returns the K2 launches."""
+    from vap_realtime_tpu_torch.runtime.arena import StreamArena
+    from vap_realtime_tpu_torch.runtime.server_batched import (
+        BatchedVapServer,
+    )
+    from vap_realtime_tpu_torch.weights.synthetic import synthetic_audio
+
+    n_conn = 8
+    arena = StreamArena(cfg, params_np, capacity=SERVER_CAPACITY,
+                        device="cuda")
+    arena.warmup()
+    srv = BatchedVapServer(arena, port=0)
+    srv.start_background()
+    audios = [synthetic_audio(16000, seed=50 + i).astype(np.float64)
+              for i in range(n_conn)]
+    results = [[] for _ in range(n_conn)]
+    clients = [threading.Thread(target=lockstep_client,
+                                args=(srv.bound_port, audios[i], F_FRAMES,
+                                      results[i]))
+               for i in range(n_conn)]
+    zero_counts()
+    try:
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=60)
+    finally:
+        srv.stop()
+    got = counts()
+    check(not any(c.is_alive() for c in clients)
+          and all(len(r) == F_FRAMES for r in results),
+          f"BatchedVapServer results {[len(r) for r in results]}")
+    ticks = srv.tick_stats["n"]
+    k2 = launches_per_frame(got, ticks, "BatchedVapServer kv")
+    ms = srv.tick_stats["seconds"] / ticks * 1e3
+    ref = StreamArena(cfg, params_np, capacity=n_conn, device="cpu")
+    slots = [ref.add_stream() for _ in range(n_conn)]
+    frames = [overlapped_frames(a, cfg, F_FRAMES) for a in audios]
+    d = 0.0
+    for f in range(F_FRAMES):
+        want = ref.step({s: frames[i][f] for i, s in enumerate(slots)})
+        d = max(d, _max_diff([results[i][f] for i in range(n_conn)],
+                             [want[s] for s in slots]))
+    check(d <= 1e-4, f"BatchedVapServer card vs CPU arena: max |d| {d:.3e}")
+    # a full arena closes the next connection at once
+    small = StreamArena(cfg, params_np, capacity=4, device="cuda")
+    srv = BatchedVapServer(small, port=0)
+    srv.start_background()
+    socks = []
+    try:
+        for _ in range(4):
+            socks.append(socket.create_connection(
+                ("127.0.0.1", srv.bound_port), timeout=10))
+        deadline = time.time() + 10
+        while small.n_active < 4 and time.time() < deadline:
+            time.sleep(0.01)
+        full = small.n_active == 4
+        with socket.create_connection(("127.0.0.1", srv.bound_port),
+                                      timeout=10) as extra:
+            extra.settimeout(10)
+            rejected = extra.recv(1) == b""
+    finally:
+        for s in socks:
+            s.close()
+        srv.stop()
+    check(full and rejected, "a fifth connection to a full capacity-4 "
+                             "BatchedVapServer was not rejected")
+    print(f"[f] BatchedVapServer, capacity {SERVER_CAPACITY}, kv float32, "
+          f"{n_conn} connections x {F_FRAMES} frames in lockstep: {ticks} "
+          f"ticks, card vs CPU StreamArena max |d| {d:.3e} (atol 1e-4), "
+          f"launches {got} = 7 K2 a tick; a fifth connection to a "
+          f"capacity-4 arena rejected", flush=True)
+    print(f"[f] BatchedVapServer ms per tick (arena.step, {n_conn} streams "
+          f"of capacity {SERVER_CAPACITY}): {ms:.3f} | {gpu}", flush=True)
+    return k2
+
+
+def phase_f_vap(cfg, params_np, tmp, gpu) -> int:
+    """api.Vap with two Wav(realtime=False) sources: 10 results on the
+    card against Vap(device="cpu") (atol 1e-4); 7 K2 launches a frame.
+    Returns the K2 launches."""
+    import os
+
+    from vap_realtime_tpu_torch.api import Vap
+    from vap_realtime_tpu_torch.io.audio import write_wav
+    from vap_realtime_tpu_torch.io.sources import Wav
+    from vap_realtime_tpu_torch.weights.synthetic import synthetic_audio
+
+    audio = synthetic_audio(16000 * 3, seed=43)
+    wavs = [os.path.join(tmp, f"{c}.wav") for c in "lr"]
+    for w, a in zip(wavs, audio):
+        write_wav(w, a)
+    runs, k2 = {}, 0
+    for dev in ("cuda", "cpu"):
+        vap = Vap(mode="vap", frame_rate=cfg.frame_hz,
+                  context_len_sec=cfg.context_len_sec,
+                  mic1=Wav(wavs[0], realtime=False),
+                  mic2=Wav(wavs[1], realtime=False), params=params_np,
+                  device=dev)
+        zero_counts()
+        vap.start_process()          # warms the engine up: one step
+        try:
+            runs[dev] = [vap.get_result(timeout=60) for _ in range(10)]
+        finally:
+            worker = vap._thread
+            vap.stop_process()
+        check(vap._thread is None and not worker.is_alive(),
+              "Vap.stop_process left its worker running")
+        if dev == "cuda":
+            n = 10 + vap.result_dict_queue.qsize()
+            k2 = launches_per_frame(counts(), n + 1, "Vap (with warmup)")
+            f = overlapped_frames(audio, cfg, 1)[0]
+            for _ in range(3):
+                vap.process_vap(f[0], f[1])
+            t0 = time.perf_counter()
+            for _ in range(20):
+                vap.process_vap(f[0], f[1])
+            ms = (time.perf_counter() - t0) / 20 * 1e3
+    d = _max_diff(runs["cuda"], runs["cpu"])
+    check(d <= 1e-4, f"Vap card vs CPU: max |d| {d:.3e}")
+    print(f"[f] Vap (kv, float32, two Wav sources): 10 results, card vs "
+          f"CPU max |d| {d:.3e} (atol 1e-4), {k2} K2 launches "
+          f"({k2 // 7} frames incl. warmup); worker joined", flush=True)
+    print(f"[f] Vap.process_vap ms per frame: {ms:.3f} | {gpu}", flush=True)
+    return k2
+
+
+def phase_f_static(cfg, params_np, tmp, gpu) -> None:
+    """static_step on the card against the CPU over 10 carried frames
+    (atol 1e-4), then torch.export on the card, saved and loaded: equal
+    to the eager step at 1e-5."""
+    import os
+
+    from vap_realtime_tpu_torch.runtime.static import (
+        make_static_fn, static_step,
+    )
+    from vap_realtime_tpu_torch.tools.export_static import (
+        export_artifact, time_calls,
+    )
+    from vap_realtime_tpu_torch.weights.convert import params_to_torch
+
+    ctx = 99
+    rs = np.random.RandomState(44)
+    xs = (0.1 * rs.randn(10, 2, 1, cfg.frame_samples)).astype(np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = params_to_torch(params_np, dev)
+        _, ex = make_static_fn(cfg, ctx, device=dev)
+        ctx1, ctx2, h, c = ex[2:]
+        outs[dev] = []
+        for x in xs:
+            o = static_step(p, torch.from_numpy(x[0]).to(dev),
+                            torch.from_numpy(x[1]).to(dev), ctx1, ctx2, h, c,
+                            cfg)
+            ctx1 = torch.cat([ctx1, o[4][None]], 1)[:, 1:]
+            ctx2 = torch.cat([ctx2, o[5][None]], 1)[:, 1:]
+            h, c = o[6], o[7]
+            outs[dev].append([t.cpu() for t in o])
+    d = max((a - b).abs().max().item()
+            for fa, fb in zip(outs["cuda"], outs["cpu"])
+            for a, b in zip(fa, fb))
+    check(d <= 1e-4, f"static_step card vs CPU: max |d| {d:.3e}")
+    fn, ex = make_static_fn(cfg, ctx, device="cuda")
+    args = (torch.from_numpy(xs[0, 0]).cuda(), torch.from_numpy(xs[0, 1])
+            .cuda(), 0.5 * torch.randn_like(ex[2]),
+            0.5 * torch.randn_like(ex[3])) + ex[4:]
+    t0 = time.perf_counter()
+    ep, p, _ = export_artifact(params_np, cfg, ctx, device="cuda")
+    path = os.path.join(tmp, "static.pt2")
+    torch.export.save(ep, path)
+    reloaded = torch.export.load(path).module()
+    t_export = time.perf_counter() - t0
+    with torch.no_grad():
+        want, got = fn(p, *args), reloaded(p, *args)
+    d_exp = max((a - b).abs().max().item() for a, b in zip(got, want))
+    check(d_exp <= 1e-5, f"exported static step vs eager: max |d| "
+                         f"{d_exp:.3e}")
+    ms_eager = time_calls(fn, (p,) + args, 20)
+    ms_exp = time_calls(reloaded, (p,) + args, 20)
+    print(f"[f] static_step (context {ctx}), float32, 10 carried frames "
+          f"card vs CPU max |d| {d:.3e} (atol 1e-4); torch.export on the "
+          f"card, saved ({os.path.getsize(path)} bytes) and loaded in "
+          f"{t_export:.1f} s: vs eager max |d| {d_exp:.3e} (atol 1e-5)",
+          flush=True)
+    print(f"[f] static step ms per frame: eager {ms_eager:.3f}, exported "
+          f"{ms_exp:.3f} | {gpu}", flush=True)
+
+
+def phase_f(cfg, params_np, gpu) -> int:
+    """The serving surfaces (float32 unless stated): .pt checkpoints,
+    VapServer, BatchedVapServer, Vap, the static step and its export.
+    Returns the K2 launches of its runs."""
+    import os
+    import tempfile
+
+    t0 = time.time()
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        k2 = phase_f_checkpoints(cfg, params_np, tmp)
+        k2 += phase_f_server(cfg, params_np, gpu)
+        k2 += phase_f_batched(cfg, params_np, gpu)
+        k2 += phase_f_vap(cfg, params_np, tmp, gpu)
+        phase_f_static(cfg, params_np, tmp, gpu)
+    print(f"[f] the serving surfaces: {k2} K2 launches over the counted "
+          f"runs, {time.time() - t0:.1f} s", flush=True)
+    return k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2191,6 +2627,7 @@ def main() -> int:
     phase_e(cfg, params_np)
     phase_e_slice4(cfg, params_np)
     phase_e_hybrid(cfg, params_np)
+    k2_surfaces = phase_f(cfg, params_np, gpu)
 
     print(gpu, flush=True)
     src = "vap_realtime_tpu_torch/csrc/"
@@ -2198,7 +2635,7 @@ def main() -> int:
         dict(name="attend_pair", route="cuda", source=src + "attend_pair.cu",
              replaces="vap_realtime_tpu/ops/pallas/attend.py:454",
              launches=run_bf16["attend"] + run_q8g["attend"]
-             + run_kv["attend"] + run_hybrid["attend"],
+             + run_kv["attend"] + run_hybrid["attend"] + k2_surfaces,
              max_abs_err=max(err_main, err_int8),
              **bodies["K2 bf16 staged"], bodies=bodies),
         dict(name="channel_norm_relu", route="cuda",

@@ -32,7 +32,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_every_port_module_is_scanned():
     """The scan reaches each kernel wrapper and runtime module, those of
     the fused encoder, LSTM scan, engine, conv tail, full-recompute path,
-    offline runner, WAV IO, the lab kernels and the lab tools included."""
+    offline runner, WAV IO, the lab kernels and the lab tools included,
+    and the serving surfaces: the library API, the audio sources, the
+    two-port and batched servers, the static step and its export tool."""
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     pkg = "vap_realtime_tpu_torch/"
     for mod in ("ops/cuda/attend.py", "ops/cuda/channorm.py",
@@ -44,7 +46,10 @@ def test_every_port_module_is_scanned():
                 "runtime/arena.py", "runtime/engine.py",
                 "runtime/server_native.py", "profile_step.py",
                 "ops/cuda/attend_lab.py", "ops/cuda/lab.py",
-                "tools/attend_lab.py", "tools/component_bench.py"):
+                "tools/attend_lab.py", "tools/component_bench.py",
+                "api.py", "io/sources.py", "runtime/cli.py",
+                "runtime/server.py", "runtime/server_batched.py",
+                "runtime/static.py", "tools/export_static.py"):
         assert pkg + mod in rel, mod
 
 

@@ -53,13 +53,21 @@ def alibi_slopes(n_heads: int) -> List[float]:
             + alibi_slopes(2 * closest)[0::2][: n_heads - closest])
 
 
-@functools.lru_cache(maxsize=None)
 def alibi_bias(T: int, num_heads: int, context_limit: int = -1,
                dtype=torch.float32, device=None) -> Tensor:
     """(H, T, T) additive attention bias: j*m_h on/below the diagonal,
     -inf above (and outside the context_limit band when enabled).  Built
     once per shape, dtype and device (its slopes are a host-to-device
-    copy, which would stall a step that rebuilt it); read-only."""
+    copy, which would stall a step that rebuilt it); read-only.  While a
+    graph is traced (`torch.export`) it is built anew and not cached, so
+    the cache never holds a traced stand-in for a tensor."""
+    if torch.compiler.is_compiling():
+        return _alibi_bias(T, num_heads, context_limit, dtype, device)
+    return _alibi_bias_cached(T, num_heads, context_limit, dtype, device)
+
+
+def _alibi_bias(T: int, num_heads: int, context_limit: int, dtype,
+                device) -> Tensor:
     m = torch.tensor(alibi_slopes(num_heads), dtype=dtype, device=device)
     j = torch.arange(T, dtype=dtype, device=device)
     bias = (m[:, None, None] * j[None, None, :]).expand(num_heads, T, T)
@@ -68,6 +76,9 @@ def alibi_bias(T: int, num_heads: int, context_limit: int = -1,
     if context_limit > 0:
         causal = causal & (i[None, :] > i[:, None] - context_limit)
     return bias.masked_fill(~causal[None], float("-inf"))
+
+
+_alibi_bias_cached = functools.lru_cache(maxsize=None)(_alibi_bias)
 
 
 def _heads(x: Tensor, H: int) -> Tensor:

@@ -24,6 +24,7 @@ on the card.  The outputs agree at 1e-4 either way.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, List, Optional
 
@@ -49,6 +50,16 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to "
                            "run on the CPU")
     return dev
+
+
+def on_device(device: torch.device):
+    """A context that makes `device` the calling thread's current CUDA
+    device (the kernels launch on the current device, and a thread other
+    than the one that built the state starts on device 0); a no-op
+    context on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def check_path(path: str) -> None:
@@ -239,15 +250,16 @@ class StreamArena:
 
     def _run(self, frames: np.ndarray, act: np.ndarray, merge: str = "auto",
              resync_mode: str = "auto"):
-        x = self._upload(frames).to(self.dtype)
-        if frames.dtype == np.int16:
-            x = x * (1.0 / 32768.0)          # exact power-of-two scale
-        self.state, out = path_step(
-            self.path, self.params, self.state, x, self.cfg,
-            self._upload(act), slots=self.slots,
-            attend_impl=self.attend_impl, conv_impl=self.conv_impl,
-            conv_chunks=self.conv_chunks, merge=merge,
-            resync_every=self.resync_every, resync_mode=resync_mode)
+        with on_device(self.device):
+            x = self._upload(frames).to(self.dtype)
+            if frames.dtype == np.int16:
+                x = x * (1.0 / 32768.0)          # exact power-of-two scale
+            self.state, out = path_step(
+                self.path, self.params, self.state, x, self.cfg,
+                self._upload(act), slots=self.slots,
+                attend_impl=self.attend_impl, conv_impl=self.conv_impl,
+                conv_chunks=self.conv_chunks, merge=merge,
+                resync_every=self.resync_every, resync_mode=resync_mode)
         return out
 
     def warmup(self) -> None:

@@ -15,7 +15,10 @@ Port of `vap_realtime_tpu/runtime/engine.py`, all five paths:
 The fresh-sample paths take frame_shift samples, the others whole
 overlapped frames (frame_samples).  The engine runs on the card unless
 the caller passes `device="cpu"`; without CUDA it raises instead of
-falling back.
+falling back.  Any thread may step it (the servers and `api.Vap` do so
+from their own threads): each call makes the engine's device current.
+Weights come as a params pytree, a pytree .npz or the reference's .pt
+checkpoints (`vap_model` + `cpc_model`).
 
 Differences of form from the JAX engine: the default attend is "kernel"
 (the hand-written attend; the JAX engine defaults to "einsum" and its
@@ -33,13 +36,29 @@ import torch
 
 from vap_realtime_tpu_torch.config import FRAME_CONTEXT_PADDING, VapConfig
 from vap_realtime_tpu_torch.runtime.arena import (
-    FRESH_PATHS, check_path, init_path_state, path_step, resolve_device,
+    FRESH_PATHS, check_path, init_path_state, on_device, path_step,
+    resolve_device,
 )
 from vap_realtime_tpu_torch.weights.convert import (
-    load_pytree_npz, params_to_torch,
+    load_pytree_npz, load_torch_checkpoint, params_to_torch,
 )
 
 Params = Dict[str, Any]
+
+
+def load_params(cfg: VapConfig, checkpoint_npz: Optional[str] = None,
+                vap_model: Optional[str] = None,
+                cpc_model: Optional[str] = None) -> Params:
+    """The params pytree (numpy leaves) from a pytree .npz, or else from
+    the reference's .pt checkpoints with cfg's layer counts; raises when
+    neither is given."""
+    if checkpoint_npz:
+        return load_pytree_npz(checkpoint_npz)
+    if vap_model and cpc_model:
+        return load_torch_checkpoint(vap_model, cpc_model,
+                                     cfg.channel_layers, cfg.cross_layers)
+    raise ValueError("provide params or checkpoint_npz, or vap_model + "
+                     "cpc_model")
 
 
 class VapEngine:
@@ -47,6 +66,8 @@ class VapEngine:
 
     def __init__(self, cfg: Optional[VapConfig] = None,
                  params: Optional[Params] = None,
+                 vap_model: Optional[str] = None,
+                 cpc_model: Optional[str] = None,
                  checkpoint_npz: Optional[str] = None,
                  path: str = "kv", batch: int = 1,
                  dtype=torch.float32, resync_every: Optional[int] = None,
@@ -54,9 +75,10 @@ class VapEngine:
                  slots: Optional[str] = None, conv_impl: str = "conv",
                  conv_chunks: int = 1, device="cuda"):
         """params: the params pytree with numpy (or array-like) leaves,
-        or checkpoint_npz: a pytree .npz (weights/convert.py); cast to
-        `dtype` on `device`.  path: "kv", "full", "hybrid", "fast" or
-        "fast_hybrid".  slots (default "staged"), attend_impl,
+        or checkpoint_npz: a pytree .npz, or vap_model + cpc_model: the
+        reference's .pt checkpoints (weights/convert.py), in that order
+        of precedence; cast to `dtype` on `device`.  path: "kv", "full",
+        "hybrid", "fast" or "fast_hybrid".  slots (default "staged"), attend_impl,
         quant_cache (all but full), conv_impl and conv_chunks (the
         fresh-sample paths), resync_every (the hybrid paths; default
         cfg.context_frames): see incremental.kv_step, fast_step,
@@ -76,9 +98,8 @@ class VapEngine:
         self.slots = "staged" if slots is None else slots
         self.device = resolve_device(device)
         if params is None:
-            if not checkpoint_npz:
-                raise ValueError("provide params or checkpoint_npz")
-            params = load_pytree_npz(checkpoint_npz)
+            params = load_params(self.cfg, checkpoint_npz, vap_model,
+                                 cpc_model)
         self.params = params_to_torch(params, self.device, dtype)
         self.state = self._init_state()
 
@@ -124,11 +145,12 @@ class VapEngine:
         """Build the kernels and warm the libraries ahead of the first
         real frame, on a throw-away state (the kv and fast steps update
         their state in place)."""
-        z = torch.zeros((self.batch, 2, self.chunk_samples), dtype=self.dtype,
-                        device=self.device)
-        _, out = self._step(self._init_state(), z)
-        for v in out.values():
-            v.cpu()
+        with on_device(self.device):
+            z = torch.zeros((self.batch, 2, self.chunk_samples),
+                            dtype=self.dtype, device=self.device)
+            _, out = self._step(self._init_state(), z)
+            for v in out.values():
+                v.cpu()
 
     def process_batch(self, chunk: np.ndarray) -> Dict[str, np.ndarray]:
         """chunk: (B, 2, chunk_samples) -> dict of (B, ...) numpy results
@@ -139,9 +161,10 @@ class VapEngine:
                 f"expected chunk shape {(self.batch, 2, self.chunk_samples)}"
                 f" (batch, channels, samples), got {chunk.shape}")
         t0 = time.time()
-        x = torch.from_numpy(chunk).to(self.device).to(self.dtype)
-        self.state, out = self._step(self.state, x)
-        out = {k: v.float().cpu().numpy() for k, v in out.items()}
+        with on_device(self.device):
+            x = torch.from_numpy(chunk).to(self.device).to(self.dtype)
+            self.state, out = self._step(self.state, x)
+            out = {k: v.float().cpu().numpy() for k, v in out.items()}
         self.result = out
         self.result_last_time = time.time()
         self._telemetry(time.time() - t0)

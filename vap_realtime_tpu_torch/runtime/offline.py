@@ -14,6 +14,8 @@ Run:
         --input_wav_left a.wav --input_wav_right b.wav \\
         --checkpoint_npz weights.npz --vap_process_rate 20 \\
         --context_len_sec 2.5 --filename_output out.csv
+(`--vap_model vap.pt --cpc_model cpc.pt` loads the reference's .pt
+checkpoints instead; `--synthetic_weights` seeded test weights.)
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from vap_realtime_tpu_torch.config import VapConfig
 from vap_realtime_tpu_torch.io.audio import read_wav
-from vap_realtime_tpu_torch.runtime import streaming
+from vap_realtime_tpu_torch.runtime import cli, streaming
 from vap_realtime_tpu_torch.runtime.arena import (
     FRESH_PATHS, check_path, init_path_state, path_step, resolve_device,
 )
@@ -83,10 +85,7 @@ def write_csv(path: str, outs: Dict[str, np.ndarray]) -> None:
 
 def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--checkpoint_npz", type=str, default=None,
-                    help="params pytree .npz (weights/convert.py)")
-    ap.add_argument("--synthetic_weights", action="store_true",
-                    help="deterministic test weights (no checkpoint needed)")
+    cli.add_weight_args(ap)
     ap.add_argument("--filename_output", type=str,
                     default="output_offline.txt")
     ap.add_argument("--input_wav_left", type=str, required=True)
@@ -113,17 +112,11 @@ def main(argv: Optional[list] = None) -> None:
                          "compact-softmax body")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if not (args.checkpoint_npz or args.synthetic_weights):
-        ap.error("give --checkpoint_npz or --synthetic_weights")
+    cli.check_weight_args(ap, args)
 
     cfg = VapConfig(frame_hz=args.vap_process_rate,
                     context_len_sec=args.context_len_sec)
-    if args.synthetic_weights:
-        from vap_realtime_tpu_torch.weights.synthetic import synthetic_params
-        params = synthetic_params(cfg.frame_hz)
-    else:
-        from vap_realtime_tpu_torch.weights.convert import load_pytree_npz
-        params = load_pytree_npz(args.checkpoint_npz)
+    params = cli.load_weights(args, cfg)
 
     left, sr_l = read_wav(args.input_wav_left)
     right, sr_r = read_wav(args.input_wav_right)

@@ -11,6 +11,8 @@ Run (on the card):
     python -m vap_realtime_tpu_torch.runtime.server_native \
         --synthetic_weights --capacity 4096 --bf16 --wire_int16 \
         [--engine_path kv|fast|full|hybrid|fast_hybrid] [--quant_cache global]
+(or --vap_model vap.pt --cpc_model cpc.pt, the reference's checkpoints,
+or --checkpoint_npz w.npz, in place of --synthetic_weights).
 """
 
 from __future__ import annotations
@@ -24,9 +26,8 @@ import torch
 
 from vap_realtime_tpu_torch.config import FRAME_CONTEXT_PADDING, VapConfig
 from vap_realtime_tpu_torch.io.native_ingest import NativeIngest
-from vap_realtime_tpu_torch.runtime.arena import (
-    FRESH_PATHS, PATHS, StreamArena,
-)
+from vap_realtime_tpu_torch.runtime import cli
+from vap_realtime_tpu_torch.runtime.arena import FRESH_PATHS, StreamArena
 from vap_realtime_tpu_torch.runtime.server import RESULT_KEYS
 
 
@@ -143,47 +144,20 @@ class NativeVapServer:
 
 def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--checkpoint_npz", default=None)
-    ap.add_argument("--synthetic_weights", action="store_true")
+    cli.add_weight_args(ap)
     ap.add_argument("--port", type=int, default=50011)
     ap.add_argument("--capacity", type=int, default=1024)
     ap.add_argument("--vap_process_rate", type=int, default=20)
     ap.add_argument("--context_len_sec", type=float, default=2.5)
     ap.add_argument("--mode", choices=["vap", "bc", "nod"], default="vap")
-    ap.add_argument("--engine_path", choices=list(PATHS), default="kv",
-                    help="'kv' = chunked encoder + KV step; 'full' = "
-                         "parity-exact full recompute (both take frames "
-                         "with the 320-sample overlap); 'fast' = streaming "
-                         "conv + KV step (fresh samples); 'hybrid' / "
-                         "'fast_hybrid' = kv / fast with a full-trunk "
-                         "resync every context_frames ticks")
-    ap.add_argument("--slots", choices=["stream", "global", "staged"],
-                    default="staged",
-                    help="KV write-slot policy: 'staged' (default) = exact "
-                         "per-stream isolation with a merge every 8 ticks; "
-                         "'stream' = per-frame row write (same contract); "
-                         "'global' = one slot for streams that tick together")
+    cli.add_step_args(ap)
     ap.add_argument("--conv_chunks", type=int, default=1,
                     help="run the encoder over k sequential sub-batches "
                          "(smaller transient memory; identical numerics)")
-    ap.add_argument("--attend_impl",
-                    choices=["kernel", "kernel3", "grouped", "einsum"],
-                    default="kernel",
-                    help="'kernel' = the hand-written CUDA attend kernel; "
-                         "'kernel3' = its compact-softmax body (needs "
-                         "--slots stream or global); 'grouped' / 'einsum' "
-                         "= plain PyTorch attention")
-    ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
-                    choices=["row", "global"],
-                    help="int8 KV cache: bare flag or 'row' = per-row "
-                         "scales; 'global' = per-stream frozen scales")
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--wire_int16", action="store_true",
                     help="accept int16 hop packets (4x lower bandwidth)")
     args = ap.parse_args(argv)
-    if not (args.checkpoint_npz or args.synthetic_weights):
-        ap.error("give --checkpoint_npz or --synthetic_weights")
+    cli.check_weight_args(ap, args)
     return args
 
 
@@ -191,15 +165,8 @@ def main(argv: Optional[list] = None):
     args = parse_args(argv)
     cfg = VapConfig(frame_hz=args.vap_process_rate,
                     context_len_sec=args.context_len_sec, mode=args.mode)
-    if args.synthetic_weights:
-        from vap_realtime_tpu_torch.weights.synthetic import synthetic_params
-        params = synthetic_params(cfg.frame_hz, mode=args.mode)
-    else:
-        from vap_realtime_tpu_torch.weights.convert import load_pytree_npz
-        params = load_pytree_npz(args.checkpoint_npz)
-
-    arena = StreamArena(cfg, params, capacity=args.capacity,
-                        path=args.engine_path,
+    arena = StreamArena(cfg, cli.load_weights(args, cfg),
+                        capacity=args.capacity, path=args.engine_path,
                         dtype=torch.bfloat16 if args.bf16 else torch.float32,
                         slots=args.slots, attend_impl=args.attend_impl,
                         quant_cache=args.quant_cache,

@@ -13,9 +13,10 @@ Replicates the reference's loading contract (SURVEY.md §5-Checkpoint):
 - Both realtime channel encoders share the single `encoder.*` namespace;
   our pytree stores one copy used by both channels.
 
-`convert_state_dict` works on {name: np.ndarray}; `params_to_torch`
-turns the resulting numpy pytree into the port's nested dict of tensors.
-The port's own copy of `vap_realtime_tpu/weights/convert.py` (numpy only).
+`convert_state_dict` works on {name: np.ndarray}; `load_torch_checkpoint`
+reads the reference's .pt files into it; `params_to_torch` turns the
+resulting numpy pytree into the port's nested dict of tensors.  The
+port's own copy of `vap_realtime_tpu/weights/convert.py`.
 """
 
 from __future__ import annotations
@@ -121,6 +122,24 @@ def convert_state_dict(vap_sd: Mapping[str, np.ndarray],
             params[lid_key] = {"w": _t(vap_sd[f"{lid_key}.weight"]),
                                "b": _t(vap_sd[f"{lid_key}.bias"])}
     return params
+
+
+def load_torch_checkpoint(vap_path: str, cpc_path: str,
+                          channel_layers: int = 1,
+                          cross_layers: int = 3) -> Params:
+    """Load the reference's published .pt checkpoints (the VAP state_dict
+    and the CPC checkpoint, whose arrays sit under "weights") on the CPU
+    and convert them: the same numpy pytree as `convert_state_dict`."""
+    vap_sd = torch.load(vap_path, map_location="cpu", weights_only=True)
+    cpc = torch.load(cpc_path, map_location="cpu", weights_only=True)
+    cpc_w = cpc["weights"] if "weights" in cpc else cpc
+
+    def to_np(d):
+        return {k: v.detach().numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in d.items()}
+
+    return convert_state_dict(to_np(vap_sd), to_np(cpc_w), channel_layers,
+                              cross_layers)
 
 
 # ----------------------------------------------------------------------------
