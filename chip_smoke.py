@@ -44,7 +44,10 @@ Phases (any failed check raises, so the script exits non-zero):
            T = 500) at atol 1e-4 in float units;
          - lstm_scan (K5) at (8192, 5, 256) and (100, 5, 256) (a partial
            block): float32 at atol 1e-5, bf16 outputs within one bf16
-           step (rtol 2^-7, atol 1e-5);
+           step (rtol 2^-7, atol 1e-5); and at the training encoder's
+           shape, (16, 1998, 256) float32 (the gates of 8 stereo 20 s
+           clips' conv features, zero state): atol 1e-4 over all ~2,000
+           steps, the max |d| printed;
          - fused_attend (K8, one k/v slot pair) at B=4096 and 64, T=50,
            all 14 slot pairs, float32 (atol 1e-4) and bf16 (atol/rtol
            2e-2), mixed live/DEAD and all-DEAD (output == v_cur), against
@@ -153,6 +156,22 @@ Phases (any failed check raises, so the script exits non-zero):
          ms per frame of the server engine, the batched tick,
          Vap.process_vap, the static step and the exported step print
          beside the card's name and power limit.
+  (g)    The training path at VapConfig() (dim 256, 1 channel + 3 stereo
+         layers, 4 heads, 20 Hz; synthetic weights; float32, TF32 off;
+         cuDNN deterministic for the resume check): encode_sequence on a
+         (16, 320000) waveform card vs CPU (atol 1e-4); one train_step at
+         batch 2 x 20 s card vs CPU (the loss at 1e-5 relative, the
+         trainable leaves at 1e-6 where the CPU's gradient is at least
+         1e-6 and everywhere when the card's AdamW takes the CPU's
+         gradients, the frozen encoder leaves bit-equal); fit on a
+         16-row x 20 s synthetic manifest, batch 8, 2 epochs with
+         validation, events and checkpoints, a resume from last.npz after
+         1 epoch against the uninterrupted run (atol 1e-5), the best
+         checkpoint through run_evaluation (score.csv); the ms per train
+         step and eval forward at batch 8 x 20 s, seconds of stereo audio
+         trained per second, peak memory; K5 launched once per forward
+         (counted from 0 over the phase), then timed at (16, 1998, 256)
+         beside its bound, its plain version and torch.nn.LSTM (cuDNN).
 
 The last lines: the card's name and power limit, one JSON line listing
 each kernel, and {"ok": true, "device": {...}}.
@@ -2580,6 +2599,340 @@ def phase_f(cfg, params_np, gpu) -> int:
     return k2
 
 
+# --- slice 10: the training path --------------------------------------------
+
+TRAIN_ROWS, TRAIN_SEC = 16, 20.0   # (g): 8 stereo clips of 20 s, as rows
+
+
+def train_waveforms(rows: int = TRAIN_ROWS,
+                    seconds: float = TRAIN_SEC) -> np.ndarray:
+    """(rows, seconds * 16 kHz) float32: the synthetic audio's two
+    channels for seeds 0 .. rows / 2 - 1, in stereo order (row 2s is
+    clip s's channel 0)."""
+    from vap_realtime_tpu_torch.weights.synthetic import synthetic_audio
+
+    n = int(seconds * 16000)
+    return np.concatenate([synthetic_audio(n, seed=s)
+                           for s in range(rows // 2)])
+
+
+def lstm_train_inputs(params_np):
+    """K5's inputs on the training path, on the card: the frozen
+    encoder's LSTM gates over the conv features of train_waveforms()
+    (16, 1998, 1024) float32, zero state, W_hh^T, b_hh; and (z, the
+    LSTM's params) for the yardstick."""
+    from vap_realtime_tpu_torch.models.encoder import cpc_conv_stack
+    from vap_realtime_tpu_torch.weights.convert import params_to_torch
+
+    enc = params_to_torch(params_np["encoder"], "cuda")
+    g = enc["lstm"]
+    with torch.no_grad():
+        z = cpc_conv_stack(enc, torch.from_numpy(train_waveforms()).cuda())
+        z = z[:, 1:-1].contiguous()
+        gi = torch.matmul(z, g["w_ih"].T) + g["b_ih"]
+    h0 = torch.zeros(z.shape[0], C, device="cuda")
+    return (gi, h0, h0.clone(), g["w_hh"].T, g["b_hh"]), z, g
+
+
+def phase_a_lstm_train(params_np) -> float:
+    """lstm_scan (K5) against its plain version at the training encoder's
+    shape, (16, 1998, 256) float32 (the gates of 20 s clips' conv
+    features), atol 1e-4 over all ~2,000 steps; returns the max |d|."""
+    from vap_realtime_tpu_torch.ops.cuda.lstm import (
+        lstm_scan, lstm_scan_plain,
+    )
+
+    args, _, _ = lstm_train_inputs(params_np)
+    with torch.no_grad():
+        got, want = lstm_scan(*args), lstm_scan_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("ys", "h_T", "c_T"), got, want):
+        check(a.shape == b.shape and torch.isfinite(a).all().item(),
+              f"lstm_scan (training shape) {name}")
+        err = max(err, (a - b).abs().max().item())
+    check(err <= 1e-4, f"lstm_scan vs plain at {tuple(args[0].shape)}: "
+          f"max |d| {err:.3e}")
+    print(f"[a] lstm_scan float32 ({args[0].shape[0]}, {args[0].shape[1]}, "
+          f"{C}) (the training encoder's LSTM over {TRAIN_SEC:.0f} s): max "
+          f"|kernel - "
+          f"plain| {err:.3e} (atol 1e-4)", flush=True)
+    return err
+
+
+def time_lstm_train(params_np, gpu) -> dict:
+    """K5 at the training shape (16, 1998, 256) float32: ms per launch,
+    the bound (3xTF32 at 495 TFLOP/s, or the bytes), the plain version,
+    and lstm_fused (projection + scan) against torch.nn.LSTM on cuDNN in
+    float32 (TF32 off) over the same problem, in turns; the port never
+    calls nn.LSTM."""
+    from vap_realtime_tpu_torch.ops.cuda.lstm import (
+        lstm_fused, lstm_scan, lstm_scan_plain,
+    )
+    from vap_realtime_tpu_torch.profile_step import cuda_ms
+
+    args, z, g = lstm_train_inputs(params_np)
+    N, Tn, Hh = z.shape
+    with torch.no_grad():
+        ms = cuda_ms(lambda: lstm_scan(*args), reps=10, warm=2)
+        plain_ms = cuda_ms(lambda: lstm_scan_plain(*args), reps=2, warm=1)
+        h0 = args[1]
+        net = torch.nn.LSTM(Hh, Hh, batch_first=True).cuda()
+        for name, attr in (("w_ih", "weight_ih_l0"), ("w_hh", "weight_hh_l0"),
+                           ("b_ih", "bias_ih_l0"), ("b_hh", "bias_hh_l0")):
+            getattr(net, attr).copy_(g[name])
+        net.flatten_parameters()
+        fused = lambda: lstm_fused(z, h0, h0, g["w_ih"], g["w_hh"],
+                                   g["b_ih"], g["b_hh"])
+        lib = lambda: net(z, (h0[None], h0[None]))
+        f1, l1, l2, f2 = (cuda_ms(f, reps=5, warm=1)
+                          for f in (fused, lib, lib, fused))
+        fused_ms, library_ms = (f1 + f2) / 2, (l1 + l2) / 2
+        d = (lib()[0] - fused()[0]).abs().max().item()
+    flops = 2 * N * Tn * Hh * 4 * Hh
+    nbytes = (args[0].numel() + N * Tn * Hh + 4 * N * Hh + Hh * 4 * Hh
+              + 4 * Hh) * 4
+    bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    f32_ms = bound(nbytes, flops)[0]
+    print(f"[g] lstm_scan float32 ({N}, {Tn}, {Hh}): {ms:.4f} ms/launch "
+          f"({ms / Tn * 1e3:.2f} us a step), bound {bound_ms:.4f} ms "
+          f"({bound_by}: 3xTF32 {3 * flops / 1e9:.2f} GFLOP of TF32 at 495 "
+          f"TFLOP/s; {nbytes / 1e9:.3f} GB) = {100 * bound_ms / ms:.2f}% of "
+          f"bound; float32 bound {f32_ms:.4f} ms; plain {plain_ms:.4f} ms; "
+          f"lstm_fused (projection + scan) {fused_ms:.4f} ms vs "
+          f"torch.nn.LSTM (cuDNN, float32, TF32 off) {library_ms:.4f} ms "
+          f"(max |nn.LSTM - lstm_fused| {d:.3e}) | {gpu}", flush=True)
+    del net
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                bound_f32_ms=f32_ms, lstm_fused_ms=fused_ms)
+
+
+def phase_g_step(cfg, params_np, wav) -> int:
+    """One train_step at batch 2 x 20 s, card against CPU (float32, TF32
+    off): the loss at 1e-5 relative; the trainable leaves at 1e-6 where
+    the CPU gradient is at least 100x Adam's eps (below that, Adam's
+    first update amplifies the gradients' rounding; see
+    tests/test_torch_train.py), and on EVERY element when the card's
+    AdamW takes the CPU's gradients; the frozen leaves bit-equal to
+    before.  Returns the card forwards made (1)."""
+    from vap_realtime_tpu_torch.train.step import (
+        compute_loss, freeze_encoder_mask, make_optimizer,
+    )
+    from vap_realtime_tpu_torch.weights.convert import (
+        params_to_numpy, params_to_torch, tree_items,
+    )
+
+    rs = np.random.RandomState(46)
+    batch = {"waveform": wav[:4].reshape(2, 2, -1),
+             "vad": (rs.rand(2, int((TRAIN_SEC + 2) * cfg.frame_hz), 2)
+                     > 0.5).astype(np.float32)}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = params_to_torch(params_np, dev)
+        opt = make_optimizer(p)
+        loss, _ = compute_loss(p, {k: torch.from_numpy(v).to(dev)
+                                   for k, v in batch.items()}, cfg)
+        loss.backward()
+        grads = {k: t.grad.cpu() for k, t in tree_items(p)
+                 if t.grad is not None}
+        opt.step()
+        res[dev] = (loss.item(), grads, dict(tree_items(params_to_numpy(p))))
+    fed = params_to_torch(params_np, "cuda")
+    opt = make_optimizer(fed)
+    for k, t in tree_items(fed):
+        if t.requires_grad:
+            t.grad = res["cpu"][1][k].cuda()
+    opt.step()
+    fed = dict(tree_items(params_to_numpy(fed)))
+    start = dict(tree_items(params_np))
+    mask = dict(tree_items(freeze_encoder_mask(params_np)))
+    d_loss = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    check(np.isfinite(res["cuda"][0]) and d_loss <= 1e-5,
+          f"train_step loss card {res['cuda'][0]} vs CPU {res['cpu'][0]}")
+    d_cond = d_all = d_fed = d_grad = 0.0
+    n_cond = n_all = 0
+    for k, m in mask.items():
+        got, want = res["cuda"][2][k], res["cpu"][2][k]
+        if not m:
+            check(np.array_equal(got, start[k]), f"frozen leaf {k} moved")
+            continue
+        g = res["cpu"][1][k].numpy()
+        cond = np.abs(g) >= 1e-6
+        n_cond, n_all = n_cond + int(cond.sum()), n_all + cond.size
+        if cond.any():
+            d_cond = max(d_cond, float(np.abs(got - want)[cond].max()))
+        d_all = max(d_all, float(np.abs(got - want).max()))
+        d_fed = max(d_fed, float(np.abs(fed[k] - want).max()))
+        d_grad = max(d_grad, float(np.abs(res["cuda"][1][k].numpy() - g)
+                                   .max() / max(np.abs(g).max(), 1e-30)))
+    check(d_cond <= 1e-6 and d_fed <= 1e-6,
+          f"train_step trainable leaves card vs CPU: {d_cond:.3e} on "
+          f"{n_cond} of {n_all} elements, {d_fed:.3e} with the CPU's "
+          f"gradients (atol 1e-6)")
+    print(f"[g] train_step batch 2 x {TRAIN_SEC:.0f} s card vs CPU: loss "
+          f"{res['cuda'][0]:.6f} (rel {d_loss:.2e}); gradients max |d| / "
+          f"leaf max {d_grad:.2e}; trainable leaves max |d| {d_cond:.3e} "
+          f"on the {n_cond} of {n_all} elements with |g| >= 1e-6 (atol "
+          f"1e-6; {d_all:.3e} over all), {d_fed:.3e} when the card's AdamW "
+          f"takes the CPU's gradients; frozen leaves bit-equal", flush=True)
+    return 1
+
+
+def phase_g_fit(cfg, tmp) -> int:
+    """fit on a 16-row x 20 s synthetic manifest, batch 8 (2 steps an
+    epoch), 2 epochs with validation, events and checkpoints; resumed
+    from last.npz after 1 epoch against the uninterrupted run (1e-5);
+    the best checkpoint through run_evaluation.  Returns the card
+    forwards made."""
+    import csv
+    import os
+
+    from vap_realtime_tpu_torch.train.data import (
+        DataConfig, synthetic_manifest,
+    )
+    from vap_realtime_tpu_torch.train.evaluation import run_evaluation
+    from vap_realtime_tpu_torch.train.events import EventConfig
+    from vap_realtime_tpu_torch.train.trainer import (
+        OptConfig, find_best_checkpoint, fit,
+    )
+    from vap_realtime_tpu_torch.weights.convert import _flatten
+
+    path = synthetic_manifest(tmp, n_rows=16, duration=TRAIN_SEC)
+    dc = DataConfig(train_path=path, val_path=path, batch_size=8,
+                    audio_duration=TRAIN_SEC, frame_hz=cfg.frame_hz)
+    ec = EventConfig(frame_hz=cfg.frame_hz, max_time=TRAIN_SEC)
+    logs = []
+    run = lambda epochs, d, resume=None: fit(
+        cfg, dc, OptConfig(max_epochs=epochs), ec,
+        ckpt_dir=os.path.join(tmp, d), resume_from=resume, device="cuda",
+        log_fn=logs.append)
+    t0 = time.time()
+    h2 = run(2, "full")
+    t_fit = time.time() - t0
+    run(1, "a")
+    hr = run(2, "b", os.path.join(tmp, "a", "last.npz"))
+    for m in logs:
+        print(f"[g] fit: {m}", flush=True)
+    check(np.isfinite(h2["train_loss"]) and np.isfinite(h2["val_loss"]),
+          f"fit losses {h2['train_loss']} {h2['val_loss']}")
+    a, b = _flatten(h2["params"]), _flatten(hr["params"])
+    d = max(float(np.abs(a[k] - b[k]).max()) for k in a)
+    check(d <= 1e-5 and hr["epoch"] == 1,
+          f"resumed fit vs uninterrupted: max |d| {d:.3e}")
+    ckpt = find_best_checkpoint(os.path.join(tmp, "full"))
+    check(ckpt is not None, "fit saved no best checkpoint")
+    out = run_evaluation(ckpt, cfg, DataConfig(
+        test_path=path, batch_size=8, audio_duration=TRAIN_SEC,
+        frame_hz=cfg.frame_hz), ec, out_root=os.path.join(tmp, "eval"),
+        device="cuda")
+    with open(out) as f:
+        rows = {r["metric"]: float(r["value"]) for r in csv.DictReader(f)}
+    check(np.isfinite(rows.get("test_loss", float("nan"))),
+          f"score.csv has no finite test_loss: {rows}")
+    print(f"[g] fit 2 epochs x 2 steps (batch 8 x {TRAIN_SEC:.0f} s, "
+          f"validation with events) in {t_fit:.1f} s: train_loss "
+          f"{h2['train_loss']:.4f}, "
+          f"val_loss {h2['val_loss']:.4f}; resumed from last.npz after 1 "
+          f"epoch vs uninterrupted: max |d| {d:.3e} (atol 1e-5); "
+          f"run_evaluation on {os.path.basename(ckpt)}: {len(rows)} "
+          f"metrics, test_loss {rows['test_loss']:.4f}", flush=True)
+    # 4 forwards an epoch (2 train, 2 validation); 2 for the evaluation
+    return 4 * (2 + 1 + 1) + 2
+
+
+def phase_g_timing(cfg, params_np, wav, gpu) -> int:
+    """ms per train step (batch 8 x 20 s, dropout on; the median after
+    the first), ms per eval forward, seconds of stereo audio trained per
+    second, peak memory.  Returns the card forwards made."""
+    import statistics
+
+    from vap_realtime_tpu_torch.models.vap import VapModel
+    from vap_realtime_tpu_torch.train.trainer import (
+        OptConfig, make_eval_step, make_train_step, make_tx,
+    )
+
+    rs = np.random.RandomState(47)
+    B = TRAIN_ROWS // 2
+    batch = {"waveform": torch.from_numpy(wav.reshape(B, 2, -1)).cuda(),
+             "vad": torch.from_numpy((rs.rand(
+                 B, int((TRAIN_SEC + 2) * cfg.frame_hz), 2) > 0.5).astype(
+                     np.float32)).cuda()}
+    model = VapModel(cfg, params_np, device="cuda")
+    step = make_train_step(make_tx(model, OptConfig()), cfg)
+    eval_step = make_eval_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, ev = [], []
+    for i in range(6):
+        t = time.perf_counter()
+        step(model, batch, torch.Generator(device="cuda").manual_seed(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for _ in range(4):
+        t = time.perf_counter()
+        eval_step(model, batch)["loss"].item()
+        ev.append((time.perf_counter() - t) * 1e3)
+    ms_step, ms_eval = statistics.median(times[1:]), statistics.median(ev[1:])
+    print(f"[g] training, VapConfig() ({cfg.channel_layers} + "
+          f"{cfg.cross_layers} layers, dim {cfg.dim}, {cfg.frame_hz} Hz), "
+          f"batch {B} x {TRAIN_SEC:.0f} s float32: {ms_step:.3f} ms per "
+          f"train step (median of 5 after the first, {times[0]:.1f} ms), "
+          f"{ms_eval:.3f} ms per eval forward, "
+          f"{B * TRAIN_SEC / (ms_step / 1e3):.1f} s of stereo audio trained "
+          f"per second, peak memory {peak:.2f} GiB | {gpu}", flush=True)
+    return 6 + 4
+
+
+def phase_g(cfg, params_np, gpu) -> dict:
+    """The training path on the card at VapConfig() (full width,
+    synthetic weights): encode_sequence card vs CPU, one train_step card
+    vs CPU, fit / resume / run_evaluation, the step's times; K5 launches
+    once per forward over the phase.  Returns {"launches": K5 launches,
+    "k5": K5's times at the training shape}."""
+    import os
+    import tempfile
+
+    from vap_realtime_tpu_torch.models.encoder import encode_sequence
+    from vap_realtime_tpu_torch.weights.convert import params_to_torch
+
+    t0 = time.time()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # for the resume check
+    wav = train_waveforms()
+    zero_counts()
+    e = {}
+    for dev in ("cuda", "cpu"):
+        enc = params_to_torch(params_np["encoder"], dev)
+        e[dev] = encode_sequence(enc, torch.from_numpy(wav).to(dev),
+                                 cfg.downsample_kernel).detach().cpu()
+    d = (e["cuda"] - e["cpu"]).abs().max().item()
+    n_frames = (wav.shape[1] // 160 - 2) // cfg.downsample_kernel
+    check(tuple(e["cuda"].shape) == (TRAIN_ROWS, n_frames, cfg.dim)
+          and torch.isfinite(e["cuda"]).all().item() and d <= 1e-4,
+          f"encode_sequence card vs CPU: max |d| {d:.3e}")
+    print(f"[g] encode_sequence {tuple(wav.shape)} -> "
+          f"{tuple(e['cuda'].shape)} card vs CPU: max |d| {d:.3e} (atol "
+          f"1e-4)", flush=True)
+    forwards = 1 + phase_g_step(cfg, params_np, wav)
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        forwards += phase_g_fit(cfg, tmp)
+    forwards += phase_g_timing(cfg, params_np, wav, gpu)
+    launches = counts()["lstm"]
+    check(launches == forwards, f"K5 launched {launches} times over "
+          f"{forwards} forwards on the card")
+    torch.backends.cudnn.deterministic = deterministic
+    k5 = time_lstm_train(params_np, gpu)
+    print(f"[g] the training path: {launches} K5 launches over {forwards} "
+          f"forwards, {time.time() - t0:.1f} s", flush=True)
+    return {"launches": launches, "k5": k5}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2604,12 +2957,13 @@ def main() -> int:
     err_q8 = max(phase_a_compact_q8(), err_compact["int8 row"],
                  err_compact["int8 global"])
     err_lstm = phase_a_lstm()
+    cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
+    params_np = synthetic_params(cfg.frame_hz)
+    err_lstm_train = phase_a_lstm_train(params_np)
     err_single = phase_a_single()
     err_tail = phase_a_tail()
     err_lab = phase_a_lab()
     err_read = phase_a_read()
-    cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
-    params_np = synthetic_params(cfg.frame_hz)
     p_bf16, frames, run_steps_b = phase_b(cfg, params_np)
     p4, frames4 = phase_b_slice4(cfg, params_np)
     phase_b_hybrid(cfg, params_np)
@@ -2628,6 +2982,7 @@ def main() -> int:
     phase_e_slice4(cfg, params_np)
     phase_e_hybrid(cfg, params_np)
     k2_surfaces = phase_f(cfg, params_np, gpu)
+    train = phase_g(VapConfig(), params_np, gpu)
 
     print(gpu, flush=True)
     src = "vap_realtime_tpu_torch/csrc/"
@@ -2660,10 +3015,19 @@ def main() -> int:
              source=src + "conv_stack_fused.cu",
              replaces="vap_realtime_tpu/ops/pallas/encoder.py:291",
              launches=run_fused["fused"], max_abs_err=err_fused, **fused),
-        # off the serving path, as in the JAX package: 0 launches there
+        # off the serving paths, as in the JAX package; its main path is
+        # the training encoder's LSTM, (16, 1998, 256) float32, one launch
+        # a forward over (g); the serving shapes under "bodies"
         dict(name="lstm_scan", route="cuda", source=src + "lstm_scan.cu",
              replaces="vap_realtime_tpu/ops/pallas/lstm.py:48",
-             launches=run_fused["lstm"], max_abs_err=err_lstm, **lstm),
+             launches=run_fused["lstm"] + train["launches"],
+             max_abs_err=err_lstm_train, **train["k5"],
+             bodies={"training float32 (16, 1998, 256)": dict(
+                         train["k5"], max_abs_err=err_lstm_train),
+                     "serving bf16 (8192, 5, 256)": dict(
+                         lstm["bodies"]["bfloat16"], max_abs_err=err_lstm),
+                     "serving float32 (8192, 5, 256)":
+                         lstm["bodies"]["float32"]}),
         # K8 and K9: off the serving paths, as in the JAX package; their
         # launches are read over the kv server run (the slice's path): 0
         dict(name="fused_attend", route="cuda", source=src + "attend_pair.cu",

@@ -23,6 +23,14 @@ ReLU between the convs through the one-pass kernel
 `conv_impl="fused"` runs the whole stack in one kernel
 (ops/cuda/encoder.py), and `"blocked"` is the channels-last stride-block
 matmul form in plain PyTorch; all four share one state layout.
+
+`encode_sequence` is the whole-waveform form of training and offline
+batches (reference train/encoder.py, train/model.py): one conv stack over
+the whole clip, the 1:-1 trim, the LSTM from zero state through the
+`lstm_scan` kernel (K5, ops/cuda/lstm.py; about 2,000 steps for 20 s),
+then the downsample.  The encoder is frozen in training, so the conv
+stack and the LSTM run without autograd; only the downsample is
+trainable.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from vap_realtime_tpu_torch.config import CPC_DOWNSAMPLE
 from vap_realtime_tpu_torch.ops.basic import (
     channel_norm, conv1d, gelu, layer_norm, lstm,
 )
@@ -38,6 +47,7 @@ from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
 from vap_realtime_tpu_torch.ops.cuda.encoder import (
     cpc_conv_stack_streaming_fused,
 )
+from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_fused
 
 # (kernel, stride, padding) for the 5 CPC convs
 # (reference: encoder_components.py:83-92).
@@ -58,6 +68,41 @@ def check_conv_impl(conv_impl: str) -> None:
     another implementation."""
     if conv_impl not in CONV_IMPLS:
         raise ValueError(f"conv_impl {conv_impl!r} not in {CONV_IMPLS}")
+
+
+def init_cpc_encoder_params(generator: torch.Generator, dim: int = 256,
+                            downsample_kernel: int = 5,
+                            dtype=torch.float32, device=None) -> Params:
+    """Random init with torch-default distributions, U(+-1/sqrt(fan_in)),
+    in the JAX package's tree and shapes (ChannelNorm and LayerNorm
+    affines at 1 and 0), drawn from `generator`."""
+
+    def unif(shape, fan_in):
+        bound = 1.0 / fan_in ** 0.5
+        u = torch.rand(shape, generator=generator, device=device)
+        return ((2 * u - 1) * bound).to(dtype)
+
+    p: Params = {}
+    in_ch = 1
+    for i, (k, _s, _p) in enumerate(CPC_CONV_SPECS):
+        fan = in_ch * k
+        p[f"conv{i}"] = {"w": unif((dim, in_ch, k), fan),
+                         "b": unif((dim,), fan)}
+        p[f"norm{i}"] = {"w": torch.ones((dim, 1), dtype=dtype,
+                                         device=device),
+                         "b": torch.zeros((dim, 1), dtype=dtype,
+                                          device=device)}
+        in_ch = dim
+    p["lstm"] = {"w_ih": unif((4 * dim, dim), dim),
+                 "w_hh": unif((4 * dim, dim), dim),
+                 "b_ih": unif((4 * dim,), dim),
+                 "b_hh": unif((4 * dim,), dim)}
+    kd = downsample_kernel
+    p["down_conv"] = {"w": unif((dim, dim, kd), dim * kd),
+                      "b": unif((dim,), dim * kd)}
+    p["down_ln"] = {"w": torch.ones(dim, dtype=dtype, device=device),
+                    "b": torch.zeros(dim, dtype=dtype, device=device)}
+    return p
 
 
 def init_conv_stream_state(batch: int, dim: int = 256,
@@ -242,3 +287,54 @@ def encode_sequence_streaming_oracle(params: Params, wav: torch.Tensor,
     zeros = z.new_zeros((wav.shape[0], z.shape[-1]))
     y, _, _ = cpc_context(params, z, zeros, zeros)
     return downsample(params, y, downsample_kernel)
+
+
+def encode_sequence(params: Params, wav: torch.Tensor,
+                    downsample_kernel: int) -> torch.Tensor:
+    """Whole-waveform encoding (training and offline batches): one conv
+    stack over the whole clip, the 1:-1 trim, the LSTM from zero state
+    through `lstm_fused` (the K5 kernel on CUDA tensors, its plain scan
+    on CPU ones), then the downsample.  The frozen conv stack and LSTM
+    run without autograd; the downsample keeps its graph.
+
+    wav: (B, L) -> (B, (L // 160 - 2) // downsample_kernel, C).
+    """
+    with torch.no_grad():
+        z = cpc_conv_stack(params, wav)[:, 1:-1]
+        zeros = z.new_zeros((wav.shape[0], z.shape[-1]))
+        g = params["lstm"]
+        y, _, _ = lstm_fused(z, zeros, zeros, g["w_ih"], g["w_hh"],
+                             g["b_ih"], g["b_hh"])
+    return downsample(params, y, downsample_kernel)
+
+
+def encode_sequence_limited(params: Params, wav: torch.Tensor,
+                            downsample_kernel: int, limit_sec: float,
+                            sample_rate: int = 16000,
+                            max_rows: int = 256) -> torch.Tensor:
+    """Truncated-context encoding (reference train/encoder.py:119-247,
+    `lim_context_sec`): each frame's embedding is recomputed from only
+    the trailing `limit_sec` of audio (frame-aligned, at least two
+    frames), zero-padded on the left at the clip's start.  The JAX
+    package scans over the frames; here the frames' windows go through
+    `encode_sequence` in batches of at most `max_rows` windows, with the
+    same result.
+
+    wav: (B, L) -> (B, T_frames, C), T_frames as `encode_sequence`'s.
+    """
+    hop = CPC_DOWNSAMPLE * downsample_kernel          # samples per frame
+    B, L = wav.shape
+    n_frames = (L // CPC_DOWNSAMPLE - 2) // downsample_kernel
+    win = int(limit_sec * sample_rate)
+    win = max((win // hop) * hop, hop * 2)
+    span = win + 2 * CPC_DOWNSAMPLE
+    # frame t's window: padded samples [(t + 1) hop, (t + 1) hop + span)
+    windows = torch.nn.functional.pad(wav, (win, 0)).unfold(1, span, hop)
+    windows = windows[:, 1:n_frames + 1]              # (B, n_frames, span)
+    step = max(1, max_rows // B)
+    outs = []
+    for t0 in range(0, n_frames, step):
+        w = windows[:, t0:t0 + step]
+        e = encode_sequence(params, w.reshape(-1, span), downsample_kernel)
+        outs.append(e[:, -1].reshape(B, w.shape[1], -1))
+    return torch.cat(outs, dim=1)

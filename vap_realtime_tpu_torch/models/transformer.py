@@ -1,7 +1,6 @@
 """Stereo VAP transformer — AliBi attention, channel GPT, cross-channel GPT.
 
-Port of `vap_realtime_tpu/models/transformer.py`, inference form (no
-dropout; the dropout arguments belong to training).  Contract from the
+Port of `vap_realtime_tpu/models/transformer.py`.  Contract from the
 reference (rvap/vap_main/modules.py):
 
 - MHA with separate bias-free Q/K/V/out projections; scores are scaled by
@@ -23,6 +22,15 @@ reference (rvap/vap_main/modules.py):
 
 The attention is an einsum + softmax with an additive bias, as in the
 JAX package, so the -inf band and the 1/sqrt(D) scale round as there.
+
+Dropout (training) sits where the JAX package puts it: on the attention
+weights and the projected output inside `mha`, on the hidden layer
+inside `ffn`, and on each residual branch of `transformer_layer`.  Its
+masks come from an explicit `torch.Generator`: `gpt_forward` gives each
+layer its own stream, `fold_in(generator, i)` (the role of
+`jax.random.fold_in`), and a layer draws its masks from that stream in
+call order.  The masks never equal JAX's.  With no generator every
+function is the inference function.
 """
 
 from __future__ import annotations
@@ -31,12 +39,14 @@ import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from vap_realtime_tpu_torch.ops.basic import gelu, layer_norm, linear
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
+Gen = Optional[torch.Generator]
 
 
 def alibi_slopes(n_heads: int) -> List[float]:
@@ -81,6 +91,29 @@ def _alibi_bias(T: int, num_heads: int, context_limit: int, dtype,
 _alibi_bias_cached = functools.lru_cache(maxsize=None)(_alibi_bias)
 
 
+def fold_in(generator: Gen, i: int) -> Gen:
+    """A new generator on `generator`'s device, seeded from its seed and
+    `i` (the role of `jax.random.fold_in`): it neither reads nor
+    advances `generator`'s state.  None stays None."""
+    if generator is None:
+        return None
+    state = np.random.SeedSequence([generator.initial_seed(), i])
+    seed = int(state.generate_state(1, np.uint64)[0]) >> 1
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
+def _dropout(x: Tensor, rate: float, generator: Gen) -> Tensor:
+    """Inverted dropout, the JAX form ``where(mask, x / keep, 0)`` with a
+    Bernoulli(keep) mask drawn from `generator`; x itself when there is
+    no generator or the rate is 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 def _heads(x: Tensor, H: int) -> Tensor:
     """(B, T, D) -> (B, H, T, D/H)."""
     B, T, D = x.shape
@@ -88,25 +121,27 @@ def _heads(x: Tensor, H: int) -> Tensor:
 
 
 def attend_full(q: Tensor, k: Tensor, v: Tensor, bias: Tensor,
-                allowed=None) -> Tensor:
+                allowed=None, dropout: float = 0.0,
+                generator: Gen = None) -> Tensor:
     """Softmax attention of (B, H, Tq, Dh) queries over (B, H, Tk, Dh)
     keys/values with an additive bias broadcast to (B, H, Tq, Tk); scores
     scaled by 1/sqrt(D) of the FULL width D = H * Dh.  allowed: an
     optional boolean mask of the same broadcast shape; masked scores are
-    -inf.  Returns (B, Tq, D)."""
+    -inf.  dropout / generator: dropout on the attention weights.
+    Returns (B, Tq, D)."""
     B, H, Tq, Dh = q.shape
     s = torch.einsum("bhid,bhjd->bhij", q, k) * (1.0 / math.sqrt(H * Dh))
     s = s + bias
     if allowed is not None:
         s = s.masked_fill(~allowed, float("-inf"))
-    a = torch.softmax(s, dim=-1)
+    a = _dropout(torch.softmax(s, dim=-1), dropout, generator)
     y = torch.einsum("bhij,bhjd->bhid", a, v)
     return y.transpose(1, 2).reshape(B, Tq, H * Dh)
 
 
 def mha(params: Params, q_in: Tensor, kv_in: Tensor, bias: Tensor,
-        num_heads: int, allowed=None, kv_out: Optional[list] = None
-        ) -> Tensor:
+        num_heads: int, allowed=None, kv_out: Optional[list] = None,
+        dropout: float = 0.0, generator: Gen = None) -> Tensor:
     """Multi-head attention over full sequences.
 
     q_in: (B, Tq, D); kv_in: (B, Tk, D); bias: (H, Tq, Tk) additive;
@@ -114,43 +149,61 @@ def mha(params: Params, q_in: Tensor, kv_in: Tensor, bias: Tensor,
     Scale is 1/sqrt(D) with the FULL dim (reference modules.py:52).
     kv_out: a list that receives this call's (k, v), each (B, Tk, D), as
     the KV cache stores them (the hybrid resync rebuilds the cache so).
+    dropout / generator: dropout on the attention weights, then on the
+    projected output.
     """
     k_lin, v_lin = linear(kv_in, params["k"]), linear(kv_in, params["v"])
     if kv_out is not None:
         kv_out.append((k_lin, v_lin))
     q = _heads(linear(q_in, params["q"]), num_heads)
     k, v = _heads(k_lin, num_heads), _heads(v_lin, num_heads)
-    return linear(attend_full(q, k, v, bias[None], allowed), params["proj"])
+    y = linear(attend_full(q, k, v, bias[None], allowed, dropout, generator),
+               params["proj"])
+    return _dropout(y, dropout, generator)
 
 
-def ffn(params: Params, x: Tensor) -> Tensor:
-    """Bias-free FFN: Linear -> GELU -> Linear (modules.py:9-21)."""
-    return linear(gelu(linear(x, params["w1"])), params["w2"])
+def ffn(params: Params, x: Tensor, dropout: float = 0.0,
+        generator: Gen = None) -> Tensor:
+    """Bias-free FFN: Linear -> GELU -> Dropout -> Linear
+    (modules.py:9-21)."""
+    h = _dropout(gelu(linear(x, params["w1"])), dropout, generator)
+    return linear(h, params["w2"])
 
 
 def transformer_layer(params: Params, x: Tensor, bias: Tensor,
                       num_heads: int, src=None, allowed=None,
-                      kv_out: Optional[list] = None) -> Tensor:
+                      kv_out: Optional[list] = None, dropout: float = 0.0,
+                      generator: Gen = None) -> Tensor:
     """Pre-LN layer with optional cross-attention (modules.py:257-286);
-    allowed, kv_out: see `mha` (self-attention's (k, v) first)."""
+    allowed, kv_out: see `mha` (self-attention's (k, v) first).
+    dropout / generator: dropout inside both attentions and the FFN and
+    on each residual branch, the masks drawn from `generator` in call
+    order."""
     z = layer_norm(x, params["ln_self"]["w"], params["ln_self"]["b"])
-    x = x + mha(params["attn"], z, z, bias, num_heads, allowed, kv_out)
+    a = mha(params["attn"], z, z, bias, num_heads, allowed, kv_out,
+            dropout, generator)
+    x = x + _dropout(a, dropout, generator)
     if src is not None:
         z = layer_norm(x, params["ln_src"]["w"], params["ln_src"]["b"])
         # K/V come from the RAW src (the reference does not normalise it)
-        x = x + mha(params["attn_cross"], z, src, bias, num_heads, allowed,
-                    kv_out)
+        c = mha(params["attn_cross"], z, src, bias, num_heads, allowed,
+                kv_out, dropout, generator)
+        x = x + _dropout(c, dropout, generator)
     h = layer_norm(x, params["ln_ffn"]["w"], params["ln_ffn"]["b"])
-    return x + ffn(params["ffn"], h)
+    f = ffn(params["ffn"], h, dropout, generator)
+    return x + _dropout(f, dropout, generator)
 
 
 def gpt_forward(params: Params, x: Tensor, num_heads: int,
-                context_limit: int = -1) -> Tensor:
-    """Channel-wise GPT: N self-attention layers (modules.py:303-372)."""
+                context_limit: int = -1, dropout: float = 0.0,
+                generator: Gen = None) -> Tensor:
+    """Channel-wise GPT: N self-attention layers (modules.py:303-372);
+    layer i draws its dropout masks from `fold_in(generator, i)`."""
     bias = alibi_bias(x.shape[1], num_heads, context_limit, x.dtype,
                       x.device)
-    for layer in params["layers"]:
-        x = transformer_layer(layer, x, bias, num_heads)
+    for i, layer in enumerate(params["layers"]):
+        x = transformer_layer(layer, x, bias, num_heads, dropout=dropout,
+                              generator=fold_in(generator, i))
     return x
 
 
@@ -163,14 +216,69 @@ def combinator(params: Params, x1: Tensor, x2: Tensor) -> Tensor:
 
 
 def gpt_stereo_forward(params: Params, x1: Tensor, x2: Tensor,
-                       num_heads: int, context_limit: int = -1
+                       num_heads: int, context_limit: int = -1,
+                       dropout: float = 0.0, generator: Gen = None
                        ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Cross-channel GPT (modules.py:375-423).  Returns (combined, x1,
-    x2)."""
+    """Cross-channel GPT (modules.py:375-423); layer i's towers draw
+    their dropout masks from `fold_in(generator, 2i)` and `(2i + 1)`.
+    Returns (combined, x1, x2)."""
     bias = alibi_bias(x1.shape[1], num_heads, context_limit, x1.dtype,
                       x1.device)
-    for layer in params["layers"]:
+    for i, layer in enumerate(params["layers"]):
         # both towers consume the PRE-update opposite stream
-        x1, x2 = (transformer_layer(layer, x1, bias, num_heads, src=x2),
-                  transformer_layer(layer, x2, bias, num_heads, src=x1))
+        x1, x2 = (transformer_layer(layer, x1, bias, num_heads, src=x2,
+                                    dropout=dropout,
+                                    generator=fold_in(generator, 2 * i)),
+                  transformer_layer(layer, x2, bias, num_heads, src=x1,
+                                    dropout=dropout,
+                                    generator=fold_in(generator, 2 * i + 1)))
     return combinator(params["combinator"], x1, x2), x1, x2
+
+
+# ----------------------------------------------------------------------------
+# init (the JAX package's tree, shapes and distributions)
+# ----------------------------------------------------------------------------
+
+def init_linear(generator: torch.Generator, out_dim: int, in_dim: int,
+                std: float = 0.02, dtype=torch.float32,
+                device=None) -> Tensor:
+    """GPT init: normal(0, std) (modules.py:347-354)."""
+    return torch.randn(out_dim, in_dim, generator=generator,
+                       device=device).to(dtype) * std
+
+
+def init_transformer_layer_params(generator: torch.Generator, dim: int,
+                                  ffn_dim: int, cross: bool,
+                                  dtype=torch.float32, device=None
+                                  ) -> Params:
+    lin = lambda o, i: init_linear(generator, o, i, dtype=dtype,
+                                   device=device)
+    ln = lambda: {"w": torch.ones(dim, dtype=dtype, device=device),
+                  "b": torch.zeros(dim, dtype=dtype, device=device)}
+    attn = lambda: {k: lin(dim, dim) for k in ("q", "k", "v", "proj")}
+    p: Params = {"ln_self": ln(), "attn": attn(), "ln_ffn": ln(),
+                 "ffn": {"w1": lin(ffn_dim, dim), "w2": lin(dim, ffn_dim)}}
+    if cross:
+        p["ln_src"] = ln()
+        p["attn_cross"] = attn()
+    return p
+
+
+def init_gpt_params(generator: torch.Generator, dim: int, ffn_dim: int,
+                    num_layers: int, cross: bool = False,
+                    with_combinator: bool = False, dtype=torch.float32,
+                    device=None) -> Params:
+    p: Params = {"layers": [
+        init_transformer_layer_params(generator, dim, ffn_dim, cross,
+                                      dtype, device)
+        for _ in range(num_layers)]}
+    if with_combinator:
+        p["combinator"] = {
+            "h0_a": init_linear(generator, dim, dim, dtype=dtype,
+                                device=device),
+            "h0_b": init_linear(generator, dim, dim, dtype=dtype,
+                                device=device),
+            "ln": {"w": torch.ones(dim, dtype=dtype, device=device),
+                   "b": torch.zeros(dim, dtype=dtype, device=device)},
+        }
+    return p

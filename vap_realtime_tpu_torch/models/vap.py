@@ -8,44 +8,170 @@
   streams o1/o2 (vap_main.py:292-293), training the stereo towers x1/x2.
 - `trunk_forward` / `forward_context`: the whole-sequence trunk (both
   channels folded into one (2B, T, D) batch through the shared channel
-  GPT), inference form.
+  GPT); with a generator, the training form: dropout at `cfg.dropout`,
+  each channel through the channel GPT on its own stream.
+- `forward_waveform`: the training / offline-batch forward over whole
+  stereo waveforms, both channels through the one shared encoder as a
+  (2B, L) batch (train/model.py:192-206).
+- `init_vap_params`: the JAX package's tree, shapes and distributions,
+  drawn from a `torch.Generator`; `VapModel` holds a params tree as the
+  parameters of one module (what the trainer optimises and
+  `DistributedDataParallel` wraps).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from vap_realtime_tpu_torch.config import VapConfig
 from vap_realtime_tpu_torch.models import objective as obj
+from vap_realtime_tpu_torch.models.encoder import (
+    encode_sequence, encode_sequence_limited, init_cpc_encoder_params,
+)
 from vap_realtime_tpu_torch.models.transformer import (
-    gpt_forward, gpt_stereo_forward,
+    fold_in, gpt_forward, gpt_stereo_forward, init_gpt_params, init_linear,
 )
 from vap_realtime_tpu_torch.ops.basic import linear
+from vap_realtime_tpu_torch.weights.convert import _unflatten, tree_items
 
 Tensors = Dict[str, torch.Tensor]
+Params = Dict[str, Any]
+Gen = Optional[torch.Generator]
+
+
+def init_vap_params(generator: torch.Generator, cfg: VapConfig,
+                    dtype=torch.float32, device=None) -> Params:
+    """Random parameters in the JAX package's tree (`init_vap_params`):
+    the encoder (torch-default uniform), both GPTs and the heads
+    (normal(0, 0.02), zero biases) for the configured mode and lid head,
+    drawn from `generator` in that order."""
+    p: Params = {
+        "encoder": init_cpc_encoder_params(
+            generator, cfg.encoder_dim, cfg.downsample_kernel, dtype,
+            device),
+        "ar_channel": init_gpt_params(
+            generator, cfg.dim, cfg.ffn_dim, cfg.channel_layers,
+            cross=False, dtype=dtype, device=device),
+        "ar": init_gpt_params(
+            generator, cfg.dim, cfg.ffn_dim, cfg.cross_layers, cross=True,
+            with_combinator=True, dtype=dtype, device=device),
+    }
+
+    def head(n_out, n_in=cfg.dim):
+        return {"w": init_linear(generator, n_out, n_in, dtype=dtype,
+                                 device=device),
+                "b": torch.zeros(n_out, dtype=dtype, device=device)}
+
+    p["vap_head"] = head(cfg.n_classes)
+    p["va_classifier"] = head(1)
+    if cfg.mode == "bc":
+        p["bc_head"] = head(3)
+    elif cfg.mode == "nod":
+        p["nod_head"] = head(4)
+        p["bc_head"] = head(1)
+    if cfg.lid_classify == 1:
+        p["lid_classifier"] = head(cfg.lid_classify_num_class)
+    elif cfg.lid_classify == 2:
+        p["lid_classifier_middle"] = head(cfg.lid_classify_num_class,
+                                          2 * cfg.dim)
+    return p
 
 
 def trunk_forward(params, e1: torch.Tensor, e2: torch.Tensor,
-                  cfg: VapConfig) -> Tensors:
+                  cfg: VapConfig, generator: Gen = None) -> Tensors:
     """Transformer trunk over per-channel embeddings e1, e2 (B, T, D) ->
     {"x", "x1", "x2", "o1", "o2"} (B, T, D), the reference hot loop
-    (vap_main.py:285-287).  The channels share `ar_channel`, so they run
-    as one (2B, T, D) batch."""
-    B = e1.shape[0]
-    o = gpt_forward(params["ar_channel"], torch.cat([e1, e2]),
-                    cfg.num_heads, cfg.context_limit)
-    o1, o2 = o[:B], o[B:]
+    (vap_main.py:285-287).  The channels share `ar_channel`, so without a
+    generator they run as one (2B, T, D) batch; with one, dropout at
+    `cfg.dropout`, and each channel takes its own masks (streams
+    `fold_in(generator, 0)` and `1`; the stereo GPT `2`)."""
+    if generator is None:
+        B = e1.shape[0]
+        o = gpt_forward(params["ar_channel"], torch.cat([e1, e2]),
+                        cfg.num_heads, cfg.context_limit)
+        o1, o2 = o[:B], o[B:]
+    else:
+        o1, o2 = (gpt_forward(params["ar_channel"], e, cfg.num_heads,
+                              cfg.context_limit, cfg.dropout,
+                              fold_in(generator, i))
+                  for i, e in enumerate((e1, e2)))
+    drop = cfg.dropout if generator is not None else 0.0
     x, x1, x2 = gpt_stereo_forward(params["ar"], o1, o2, cfg.num_heads,
-                                   cfg.context_limit)
+                                   cfg.context_limit, drop,
+                                   fold_in(generator, 2))
     return {"x": x, "x1": x1, "x2": x2, "o1": o1, "o2": o2}
 
 
 def forward_context(params, e1: torch.Tensor, e2: torch.Tensor,
-                    cfg: VapConfig) -> Tensors:
-    """Embeddings (B, T, D) x2 -> all head outputs (full recompute)."""
-    return heads_forward(params, trunk_forward(params, e1, e2, cfg), cfg)
+                    cfg: VapConfig, generator: Gen = None) -> Tensors:
+    """Embeddings (B, T, D) x2 -> all head outputs (full recompute);
+    generator: the training form's dropout (see `trunk_forward`)."""
+    return heads_forward(params, trunk_forward(params, e1, e2, cfg,
+                                               generator), cfg)
+
+
+def forward_waveform(params, waveform: torch.Tensor, cfg: VapConfig,
+                     generator: Gen = None) -> Tensors:
+    """Training / offline-batch forward over whole stereo waveforms.
+
+    waveform: (B, 2, L) at 16 kHz.  Both channels run through the single
+    shared encoder as one (2B, L) batch (`encode_sequence`, or
+    `encode_sequence_limited` when `cfg.context_limit_cpc_sec` > 0).
+    Returns the head outputs over (B, (L // 160 - 2) // k) frames.
+    """
+    B = waveform.shape[0]
+    wav = torch.cat([waveform[:, 0], waveform[:, 1]])
+    if cfg.context_limit_cpc_sec > 0:
+        e = encode_sequence_limited(params["encoder"], wav,
+                                    cfg.downsample_kernel,
+                                    cfg.context_limit_cpc_sec,
+                                    cfg.sample_rate)
+    else:
+        e = encode_sequence(params["encoder"], wav, cfg.downsample_kernel)
+    return forward_context(params, e[:B], e[B:], cfg, generator)
+
+
+class VapModel(torch.nn.Module):
+    """A params tree as the parameters of one module.
+
+    Every leaf is a `torch.nn.Parameter` named by its checkpoint path
+    ("ar/layers/0#/attn/q"), created without grad; the optimiser
+    (`train.step.make_optimizer`) switches grad on for the trainable
+    leaves.  `params` gives the tree back with these very tensors as
+    leaves, so the functional API and the module share storage.
+    params: a tree of numpy arrays or tensors (copied to `device` /
+    `dtype`), or None for `init_vap_params(generator)`.
+    """
+
+    def __init__(self, cfg: Optional[VapConfig] = None, params=None,
+                 generator: Gen = None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg or VapConfig()
+        if params is None:
+            params = init_vap_params(
+                generator or torch.Generator().manual_seed(0), self.cfg,
+                dtype)
+        leaves = {}
+        for name, leaf in tree_items(params):
+            t = (leaf.detach().clone() if isinstance(leaf, torch.Tensor)
+                 else torch.from_numpy(np.array(leaf)))
+            if t.is_floating_point():
+                t = t.to(dtype)
+            leaves[name] = torch.nn.Parameter(t.to(device),
+                                              requires_grad=False)
+        self.leaves = torch.nn.ParameterDict(leaves)
+
+    @property
+    def params(self) -> Params:
+        return _unflatten(dict(self.leaves.items()))
+
+    def forward(self, waveform: torch.Tensor,
+                generator: Gen = None) -> Tensors:
+        return forward_waveform(self.params, waveform, self.cfg, generator)
 
 
 def heads_forward(params, trunk: Tensors, cfg: VapConfig) -> Tensors:

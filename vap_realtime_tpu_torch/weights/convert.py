@@ -146,17 +146,22 @@ def load_torch_checkpoint(vap_path: str, cpc_path: str,
 # npz (de)serialization of pytrees — framework-native checkpoint format
 # ----------------------------------------------------------------------------
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
-    flat: Dict[str, np.ndarray] = {}
+def tree_items(tree: Any, prefix: str = ""):
+    """(name, leaf) for every leaf of a params tree, in order, named as in
+    the npz checkpoints: dict keys joined by "/", list index i as "i#"
+    ("ar/layers/0#/attn/q")."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            flat.update(_flatten(v, f"{prefix}{k}/"))
+            yield from tree_items(v, f"{prefix}{k}/")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            flat.update(_flatten(v, f"{prefix}{i}#/"))
+            yield from tree_items(v, f"{prefix}{i}#/")
     else:
-        flat[prefix[:-1]] = np.asarray(tree)
-    return flat
+        yield prefix[:-1], tree
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    return {k: np.asarray(v) for k, v in tree_items(tree, prefix)}
 
 
 def _unflatten(flat: Mapping[str, np.ndarray]) -> Any:
@@ -185,6 +190,19 @@ def save_pytree_npz(path: str, tree: Any) -> None:
 def load_pytree_npz(path: str) -> Any:
     with np.load(path) as data:
         return _unflatten({k: data[k] for k in data.files})
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Params pytree of tensors (on any device, with or without grad) ->
+    the same nesting with numpy copies on the host (never views of the
+    tensors, which an optimiser goes on updating in place)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return np.array(tree.detach().cpu())
+    return np.array(tree)
 
 
 def params_to_torch(tree: Any, device=None, dtype=None) -> Any:
