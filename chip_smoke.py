@@ -173,6 +173,28 @@ Phases (any failed check raises, so the script exits non-zero):
          (counted from 0 over the phase), then timed at (16, 1998, 256)
          beside its bound, its plain version and torch.nn.LSTM (cuDNN).
 
+  (h)    Run first after the build, while this process holds little of
+         the card. The serving tools under load and a client (model vap,
+         20 Hz, 2.5 s context, synthetic weights; the host's nproc printed):
+         (i) tools/hbm_budget against the card's total memory; (ii)
+         tools/serving_bench: the native server (fast path, staged slots,
+         the attend kernel, bf16, int16 wire) under the native load
+         generator at 1024 and 4096 streams for 10 s each, with the bf16
+         cache (K2), the int8 cache with frozen scales (K3) and the host
+         stub (no card, no launch): results/s, CPU seconds,
+         p50/p90/p99 frame latency, the server's dispatch / fetch / send ms
+         per tick, sustained_streams; every connection accepted, results
+         on every run, 7 attend launches a tick (counters zeroed just
+         before and read just after each bench); (iii)
+         tools/capacity_probe, each in its own process, for the fast bf16
+         and q8g caches at 0.25x, 0.5x and 0.9x of the staged capacity (i)
+         predicts (whole 4096-stream encoder sub-batches), 5 ticks: fit,
+         ms per step, peak memory (a 0.25x probe must fit; a larger one
+         that does not is a finding); (iv) the wav client into a VapServer
+         on a CUDA VapEngine(path="kv") with the console client reading
+         the framed results in its own process: every frame's result,
+         finite, 7 K2 launches a frame.  Each sub-phase's seconds print.
+
 The last lines: the card's name and power limit, one JSON line listing
 each kernel, and {"ok": true, "device": {...}}.
 """
@@ -183,6 +205,7 @@ import concurrent.futures
 import contextlib
 import itertools
 import json
+import re
 import socket
 import sys
 import threading
@@ -2933,6 +2956,249 @@ def phase_g(cfg, params_np, gpu) -> dict:
     return {"launches": launches, "k5": k5}
 
 
+# --- slice 11: the serving tools under load ---------------------------------
+
+H_STREAMS = (1024, 4096)           # (ii): the serving bench's stream counts
+H_SECONDS = 10                     # (ii): seconds a load-generator run
+H_FRACTIONS = (0.25, 0.5, 0.9)     # (iii): of the capacity (i) predicts
+H_CHUNK = 4096                     # (iii): streams an encoder sub-batch
+# (iii): fast-path caches probed: (hbm_budget label, capacity_probe flags)
+H_CACHES = {"bf16": ("bf16", []),
+            "q8g": ("int8 frozen scales (q8g)", ["--q8g"])}
+
+
+def phase_h_budget() -> dict:
+    """(i) hbm_budget against the card's total memory: the table, and
+    the fast path's rows of the bf16 and q8g caches."""
+    from vap_realtime_tpu_torch.tools import hbm_budget
+
+    rows = hbm_budget.main([])
+    gib = torch.cuda.get_device_properties(0).total_memory / 1024**3
+    fast = {r["label"]: r for r in rows if r["path"] == "fast"}
+    pred = {name: fast[label] for name, (label, _) in H_CACHES.items()}
+    for name, r in pred.items():
+        check(r["staged_cap"] > 4 * H_CHUNK, f"hbm_budget: {name} holds "
+              f"{r['staged_cap']} staged streams")
+        print(f"[h] (i) hbm_budget fast {name}: {r['bytes']:,} B/stream "
+              f"({r['staged_bytes']:,} staged) -> {r['cap']:,} streams "
+              f"({r['staged_cap']:,} staged) in {gib:.2f} GiB", flush=True)
+    return pred
+
+
+def phase_h_serving(gpu) -> dict:
+    """(ii) the serving bench: the native server on the card (fast path,
+    the attend kernel, staged slots, bf16, int16 wire) under the native
+    load generator at H_STREAMS streams for H_SECONDS s each, with the
+    bf16 cache (K2), the int8 cache with frozen scales (K3) and the host
+    stub (the host leg alone: no launch).  Every connection accepted,
+    results on each run, and 7 attend launches per tick (the served ticks
+    and the arena's two warm-up ticks a run), the counters zeroed just
+    before and read just after each bench.  Returns {cache: (report,
+    launches)}."""
+    from vap_realtime_tpu_torch.tools import serving_bench
+
+    out = {}
+    for name, extra, kernel in (("bf16", [], "K2"),
+                                ("q8g", ["--quant_cache", "global"], "K3"),
+                                ("stub", ["--stub_device"], None)):
+        zero_counts()
+        rep = serving_bench.main(
+            ["--streams", ",".join(map(str, H_STREAMS)),
+             "--seconds", str(H_SECONDS), "--engine_path", "fast",
+             "--attend_impl", "kernel", "--slots", "staged"] + extra)
+        got = counts()
+        runs = rep["runs"]
+        ticks = sum(r["ticks"] for r in runs)
+        want = {k: v * (ticks + 2 * len(runs)) * bool(kernel)
+                for k, v in per_step("bf16").items()}
+        check(got == want and (got["attend"] > 0 or not kernel),
+              f"serving bench {name}: launches {got}, expected {want} "
+              f"over {ticks} ticks + 2 warm-up ticks a run")
+        for r in runs:
+            check(r["connected"] == r["streams"] and r["send_errs"] == 0,
+                  f"serving bench {name} at {r['streams']} streams: "
+                  f"{r['connected']} connected, {r['send_errs']} send "
+                  f"errors")
+            check(r["results"] > 0 and r["latency_ms"]["n"] > 0,
+                  f"serving bench {name} at {r['streams']} streams: "
+                  f"{r['results']} results")
+            print(f"[h] (ii) serving bench fast {name} "
+                  f"({kernel or 'host leg alone'}), {r['streams']} streams x "
+                  f"{H_SECONDS} s: {r['results_per_sec']} results/s of "
+                  f"{r['expected_per_sec']} (realtime {r['realtime']}), "
+                  f"latency p50 {r['latency_ms']['p50']} / p90 "
+                  f"{r['latency_ms']['p90']} / p99 {r['latency_ms']['p99']} "
+                  f"/ max {r['latency_ms']['max']} ms, server ms per tick "
+                  f"{r['server_ms_per_tick']} over {r['ticks']} ticks, "
+                  f"{r['late_drops']} late drops, "
+                  f"{r['result_ticks_dropped']} result ticks dropped, "
+                  f"backlog {r['backlog_frames']}, {r['sent_hops']} hops "
+                  f"sent of {r['streams'] * 100 * H_SECONDS}, CPU s "
+                  f"{r['cpu_s']} | {gpu}", flush=True)
+        print(f"[h] (ii) serving bench fast {name}: sustained_streams "
+              f"{rep['sustained_streams']}, launches {got} | "
+              f"{json.dumps(rep['config'])}", flush=True)
+        out[name] = (rep, got["attend"])
+    return out
+
+
+def phase_h_capacity(pred: dict, gpu) -> dict:
+    """(iii) the capacity probe of the fast path (staged slots, the attend
+    kernel, bf16 state) with the bf16 cache and with --q8g, at
+    H_FRACTIONS of the staged capacity (i) predicts, rounded down to
+    whole H_CHUNK-stream encoder sub-batches (--conv_chunks B / H_CHUNK:
+    the encoder's transient memory stays that of 4096 streams), each in
+    its own process, --ticks 5.  A 0.25x probe must fit; a larger one
+    that does not is printed as a finding.  Returns {(cache, fraction):
+    the probe's result}."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    print(f"[h] (iii) this process holds "
+          f"{torch.cuda.memory_reserved() / 1024**3:.2f} GiB of the card "
+          f"({torch.cuda.memory_allocated() / 1024**3:.2f} GiB allocated) "
+          f"while the probes run", flush=True)
+    out = {}
+    for name, (label, flags) in H_CACHES.items():
+        cap = pred[name]["staged_cap"]
+        for frac in H_FRACTIONS:
+            batch = int(cap * frac) // H_CHUNK * H_CHUNK
+            cmd = [sys.executable, "-m",
+                   "vap_realtime_tpu_torch.tools.capacity_probe",
+                   "--batch", str(batch), "--ticks", "5",
+                   "--conv_chunks", str(batch // H_CHUNK)] + flags
+            t = time.time()
+            r = subprocess.run(cmd, cwd=root, capture_output=True,
+                               text=True, timeout=600)
+            check(r.returncode == 0, f"capacity_probe {name} B={batch} exit "
+                                     f"{r.returncode}: {r.stderr[-3000:]}")
+            res = json.loads(r.stdout.strip().splitlines()[-1])
+            check(res["ok"] or frac > 0.25,
+                  f"capacity_probe {name} at 0.25x ({batch} streams) does "
+                  f"not fit: {res.get('error')}")
+            if res["ok"]:
+                peak = res.get("max_memory_allocated_gib")
+                what = (f"fits: {res['ms_per_step']} ms per step, "
+                        f"{res['streams_if_realtime']:,} streams if "
+                        f"realtime, peak {peak} GiB allocated")
+            else:
+                what = f"FINDING: does not fit ({res['error'][:200]})"
+            print(f"[h] (iii) capacity_probe fast {name} at {frac}x of "
+                  f"{cap:,} = {batch:,} streams (conv_chunks "
+                  f"{batch // H_CHUNK}): {what}; {time.time() - t:.1f} s | "
+                  f"{gpu}", flush=True)
+            out[(name, frac)] = res
+    return out
+
+
+def phase_h_client(cfg, params_np) -> int:
+    """(iv) the port's wav client into a VapServer on a CUDA
+    VapEngine(path="kv") (float32), the console client reading the framed
+    results in its own process: every frame's result printed, finite; 7
+    K2 launches a frame (counters zeroed just before the wav client
+    runs).  Returns the K2 launches."""
+    import os
+    import subprocess
+    import tempfile
+
+    from vap_realtime_tpu_torch.clients.input_wav import main as wav_main
+    from vap_realtime_tpu_torch.io.audio import write_wav
+    from vap_realtime_tpu_torch.runtime.engine import VapEngine
+    from vap_realtime_tpu_torch.runtime.server import VapServer
+    from vap_realtime_tpu_torch.weights.synthetic import synthetic_audio
+
+    engine = VapEngine(cfg, params=params_np, path="kv", device="cuda")
+    engine.warmup()
+    audio = synthetic_audio(16000 * 2, seed=11)
+    hops = len(range(0, audio.shape[1] - 160, 160))
+    frames = (320 + hops * 160 - cfg.frame_samples) // cfg.frame_shift + 1
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port_cmd = s.getsockname()[1]
+    srv = VapServer(engine, port_in=0, port_out=0)
+    srv.start_background()
+    console = subprocess.Popen(
+        [sys.executable, "-m", "vap_realtime_tpu_torch.clients.output_console",
+         "--port_num", str(srv.port_out), "--print_every", "1"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 60
+        while not srv.clients and time.time() < deadline:
+            time.sleep(0.05)
+        check(len(srv.clients) == 1, "the console client did not connect")
+        with tempfile.TemporaryDirectory() as tmp:
+            left = os.path.join(tmp, "l.wav")
+            right = os.path.join(tmp, "r.wav")
+            write_wav(left, audio[0], 16000)
+            write_wav(right, audio[1], 16000)
+            zero_counts()
+            wav_main(["--port_num", str(srv.port_in),
+                      "--command_port_num", str(port_cmd),
+                      "--input_wav_left", left, "--input_wav_right", right])
+        deadline = time.time() + 30
+        while srv.tick_stats["n"] < frames and time.time() < deadline:
+            time.sleep(0.05)
+        time.sleep(0.5)              # the last results reach the console
+    finally:
+        srv.stop()
+        try:
+            out, err = console.communicate(timeout=30)
+        finally:
+            console.kill()
+    got = counts()
+    check(srv.tick_stats["n"] == frames,
+          f"VapServer stepped {srv.tick_stats['n']} of {frames} frames")
+    k2 = launches_per_frame(got, frames, "input_wav -> VapServer kv")
+    lines = [ln for ln in out.splitlines() if ln.startswith("t=")]
+    # "t=... p_now=[a, b] p_future=[a, b] vad=[a, b]": six values a line
+    vals = [float(v) for ln in lines
+            for v in re.findall(r"[-\w.]+(?=[,\]])", ln)]
+    check(console.returncode == 0 and len(lines) == frames
+          and len(vals) == 6 * frames and np.isfinite(vals).all(),
+          f"output_console: exit {console.returncode}, {len(lines)} "
+          f"results of {frames}, {len(vals)} values: {err[-2000:]}")
+    print(f"[h] (iv) input_wav (2 s, {hops} hops) -> VapServer on "
+          f"VapEngine(path='kv', cuda, float32) -> output_console: "
+          f"{len(lines)} results of {frames} frames, all finite; {k2} K2 "
+          f"launches (7 a frame); engine "
+          f"{srv.tick_stats['seconds'] / frames * 1e3:.3f} ms a frame",
+          flush=True)
+    return k2
+
+
+def phase_h(cfg, params_np, gpu) -> dict:
+    """The serving tools under load and a client on the card: (i)
+    hbm_budget, (ii) serving_bench, (iii) capacity_probe, (iv) input_wav
+    -> VapServer -> output_console.  Returns {"k2": K2 launches, "k3":
+    K3 launches} of the counted runs."""
+    import os
+    import subprocess
+
+    t0 = time.time()
+    nproc = subprocess.run(["nproc"], capture_output=True, text=True,
+                           check=True).stdout.strip()
+    print(f"[h] host: nproc {nproc}, os.cpu_count() {os.cpu_count()} (the "
+          f"server and the load generator share them)", flush=True)
+    t = time.time()
+    pred = phase_h_budget()
+    print(f"[h] (i) {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    serving = phase_h_serving(gpu)
+    print(f"[h] (ii) {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    phase_h_capacity(pred, gpu)
+    print(f"[h] (iii) {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    k2_client = phase_h_client(cfg, params_np)
+    print(f"[h] (iv) {time.time() - t:.1f} s", flush=True)
+    print(f"[h] the serving tools under load: {time.time() - t0:.1f} s",
+          flush=True)
+    return {"k2": serving["bf16"][1] + k2_client, "k3": serving["q8g"][1]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2949,6 +3215,11 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     build()
+    cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
+    params_np = synthetic_params(cfg.frame_hz)
+    # first, while this process holds almost nothing of the card: (h)'s
+    # capacity probes share the card with it
+    serving = phase_h(cfg, params_np, gpu)
     err_main = phase_a()
     err_int8 = phase_a_int8()
     err_norm = phase_a_norm()
@@ -2957,8 +3228,6 @@ def main() -> int:
     err_q8 = max(phase_a_compact_q8(), err_compact["int8 row"],
                  err_compact["int8 global"])
     err_lstm = phase_a_lstm()
-    cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
-    params_np = synthetic_params(cfg.frame_hz)
     err_lstm_train = phase_a_lstm_train(params_np)
     err_single = phase_a_single()
     err_tail = phase_a_tail()
@@ -2990,7 +3259,8 @@ def main() -> int:
         dict(name="attend_pair", route="cuda", source=src + "attend_pair.cu",
              replaces="vap_realtime_tpu/ops/pallas/attend.py:454",
              launches=run_bf16["attend"] + run_q8g["attend"]
-             + run_kv["attend"] + run_hybrid["attend"] + k2_surfaces,
+             + run_kv["attend"] + run_hybrid["attend"] + k2_surfaces
+             + serving["k2"] + serving["k3"],
              max_abs_err=max(err_main, err_int8),
              **bodies["K2 bf16 staged"], bodies=bodies),
         dict(name="channel_norm_relu", route="cuda",

@@ -33,8 +33,9 @@ def test_every_port_module_is_scanned():
     """The scan reaches each kernel wrapper and runtime module, those of
     the fused encoder, LSTM scan, engine, conv tail, full-recompute path,
     offline runner, WAV IO, the lab kernels and the lab tools included,
-    and the serving surfaces: the library API, the audio sources, the
-    two-port and batched servers, the static step and its export tool."""
+    the serving surfaces: the library API, the audio sources, the
+    two-port and batched servers, the static step and its export tool,
+    and the serving tools, the clients, the demo and the examples."""
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     pkg = "vap_realtime_tpu_torch/"
     for mod in ("ops/cuda/attend.py", "ops/cuda/channorm.py",
@@ -49,7 +50,15 @@ def test_every_port_module_is_scanned():
                 "tools/attend_lab.py", "tools/component_bench.py",
                 "api.py", "io/sources.py", "runtime/cli.py",
                 "runtime/server.py", "runtime/server_batched.py",
-                "runtime/static.py", "tools/export_static.py"):
+                "runtime/static.py", "tools/export_static.py",
+                "tools/hbm_budget.py", "tools/capacity_probe.py",
+                "tools/serving_bench.py", "tools/demo_e2e.py",
+                "clients/input_wav.py", "clients/input_mic.py",
+                "clients/output_bar.py", "clients/output_console.py",
+                "clients/output_gui.py", "clients/visualizer/server.py",
+                "examples/example_vap_2wav.py",
+                "examples/example_vap_2tcp.py",
+                "examples/example_bc_nod.py"):
         assert pkg + mod in rel, mod
 
 

@@ -26,19 +26,26 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def build_lib() -> str:
-    """Build the engine if the library is missing or older than its
-    source; returns the library's path."""
-    src = os.path.join(REPO, "native", "ingest.cpp")
-    out = os.path.join(REPO, "build", "libvapingest.so")
+def build_native(source: str, output: str, flags: List[str]) -> str:
+    """g++ native/<source> into build/<output> if that is missing or
+    older than its source, written under a temporary name and renamed;
+    returns the output's path."""
+    src = os.path.join(REPO, "native", source)
+    out = os.path.join(REPO, "build", output)
     if os.path.exists(out) and os.path.getmtime(out) > os.path.getmtime(src):
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-                    "-pthread", src, "-o", tmp], check=True)
+    subprocess.run(["g++", "-O2", "-std=c++17", *flags, "-pthread", src,
+                    "-o", tmp], check=True)
     os.replace(tmp, out)
     return out
+
+
+def build_lib() -> str:
+    """Build the engine if the library is missing or older than its
+    source; returns the library's path."""
+    return build_native("ingest.cpp", "libvapingest.so", ["-shared", "-fPIC"])
 
 
 @functools.lru_cache(maxsize=None)

@@ -9,7 +9,9 @@ The numerical contracts of `vap_realtime_tpu/ops/basic.py`, on tensors:
 - `gelu`: exact erf formulation (torch ``nn.GELU`` default).
 - `linear`: torch layout ``y = x @ W.T + b`` with W of shape (out, in).
 - `conv1d`: NCW / OIW layout.
+- `gru_cell` / `gru`: gate order r, z, n (torch ``nn.GRU``).
 - `lstm_cell` / `lstm`: gate order i, f, g, o (torch ``nn.LSTM``).
+- `softmax`: over one axis.
 """
 
 from __future__ import annotations
@@ -61,6 +63,37 @@ def conv1d(x: Tensor, w: Tensor, b: Optional[Tensor], stride: int,
     return F.conv1d(x, w, b, stride=stride, padding=padding)
 
 
+def _gru_gates(gi: Tensor, gh: Tensor, h: Tensor) -> Tensor:
+    """The GRU update from the input and hidden projections, both
+    (..., 3H) ordered [r; z; n]."""
+    H = h.shape[-1]
+    r = torch.sigmoid(gi[..., :H] + gh[..., :H])
+    z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])
+    n = torch.tanh(gi[..., 2 * H:] + r * gh[..., 2 * H:])
+    return (1.0 - z) * n + z * h
+
+
+def gru_cell(x: Tensor, h: Tensor, w_ih: Tensor, w_hh: Tensor,
+             b_ih: Tensor, b_hh: Tensor) -> Tensor:
+    """One GRU step.  x: (..., in), h: (..., H); w_ih: (3H, in), w_hh:
+    (3H, H), biases (3H,), rows ordered [r; z; n]."""
+    return _gru_gates(linear(x, w_ih, b_ih), linear(h, w_hh, b_hh), h)
+
+
+def gru(x: Tensor, h0: Tensor, w_ih: Tensor, w_hh: Tensor, b_ih: Tensor,
+        b_hh: Tensor) -> Tuple[Tensor, Tensor]:
+    """Single-layer batch-first GRU.  x: (B, T, in), h0: (B, H).  Returns
+    (ys (B, T, H), h_T).  The input projection runs once over all T
+    steps; the recurrence is a Python loop."""
+    gi = linear(x, w_ih, b_ih)                           # (B, T, 3H)
+    h = h0
+    ys = []
+    for t in range(x.shape[1]):
+        h = _gru_gates(gi[:, t], linear(h, w_hh, b_hh), h)
+        ys.append(h)
+    return torch.stack(ys, dim=1), h
+
+
 def lstm_cell(gi: Tensor, h: Tensor, c: Tensor, w_hh: Tensor,
               b_hh: Tensor) -> Tuple[Tensor, Tensor]:
     """One LSTM step given the precomputed input gates gi = x @ W_ih.T +
@@ -90,3 +123,7 @@ def lstm(x: Tensor, h0: Tensor, c0: Tensor, w_ih: Tensor, w_hh: Tensor,
         h, c = lstm_cell(gi[:, t], h, c, w_hh, b_hh)
         ys.append(h)
     return torch.stack(ys, dim=1), h, c
+
+
+def softmax(x: Tensor, axis: int = -1) -> Tensor:
+    return torch.softmax(x, dim=axis)

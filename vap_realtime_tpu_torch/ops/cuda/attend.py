@@ -46,8 +46,6 @@ from typing import Optional
 
 import torch
 
-from vap_realtime_tpu_torch.ops.cuda.build import load
-
 DEAD = 1e9  # age marker of an invalid cache row: its weight is exactly 0
 LOG2E = 1.4426950408889634  # scores are kept in log2 units (exp2)
 
@@ -267,6 +265,8 @@ _INT8 = 2  # cache / stage element code of an int8 cache
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signature."""
+    from vap_realtime_tpu_torch.ops.cuda.build import load
+
     return bind(load("attend_pair"))
 
 

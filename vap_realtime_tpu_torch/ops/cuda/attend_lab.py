@@ -40,8 +40,6 @@ import math
 
 import torch
 
-from vap_realtime_tpu_torch.ops.cuda.build import load
-
 Tensor = torch.Tensor
 
 # in the order of the kernel's `Mode`
@@ -163,6 +161,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    from vap_realtime_tpu_torch.ops.cuda.build import load
+
     lib = load("attend_lab")
     fn = lib.attend_lab_launch
     fn.restype = ctypes.c_int

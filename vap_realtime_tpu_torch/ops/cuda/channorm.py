@@ -24,7 +24,6 @@ import functools
 import torch
 
 from vap_realtime_tpu_torch.ops.basic import channel_norm
-from vap_realtime_tpu_torch.ops.cuda.build import load
 
 Tensor = torch.Tensor
 
@@ -43,6 +42,8 @@ def channel_norm_relu_plain(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signature."""
+    from vap_realtime_tpu_torch.ops.cuda.build import load
+
     lib = load("channel_norm_relu")
     fn = lib.channel_norm_relu_launch
     fn.restype = ctypes.c_int

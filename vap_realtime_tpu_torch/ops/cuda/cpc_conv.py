@@ -34,8 +34,6 @@ from typing import Any, Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
-from vap_realtime_tpu_torch.ops.cuda.build import load
-
 Tensor = torch.Tensor
 
 # (kernel, stride, padding) of conv1..conv4 (encoder_components.py:85-92)
@@ -110,6 +108,8 @@ def cpc_conv_tail_plain(x0: Tensor, tail_params: Tuple[Tensor, ...],
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signature."""
+    from vap_realtime_tpu_torch.ops.cuda.build import load
+
     lib = load("cpc_conv_tail")
     fn = lib.cpc_conv_tail_launch
     fn.restype = ctypes.c_int

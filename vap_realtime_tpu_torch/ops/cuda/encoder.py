@@ -48,8 +48,6 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from vap_realtime_tpu_torch.ops.cuda.build import load
-
 # (kernel, stride) of conv0 and of conv1..conv4 (encoder_components.py:83-92)
 CONV0_K, CONV0_S = 10, 5
 TAIL_KS = ((8, 4), (4, 2), (4, 2), (4, 2))
@@ -228,6 +226,8 @@ SMEM_LIMIT = 232448
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures."""
+    from vap_realtime_tpu_torch.ops.cuda.build import load
+
     return bind(load("conv_stack_fused"))
 
 

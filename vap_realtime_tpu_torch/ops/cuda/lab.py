@@ -28,8 +28,6 @@ import functools
 
 import torch
 
-from vap_realtime_tpu_torch.ops.cuda.build import load
-
 Tensor = torch.Tensor
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -45,6 +43,8 @@ def cache_read_all_plain(cache: Tensor) -> Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    from vap_realtime_tpu_torch.ops.cuda.build import load
+
     lib = load("cache_read")
     fn = lib.cache_read_launch
     fn.restype = ctypes.c_int

@@ -31,8 +31,6 @@ import functools
 
 import torch
 
-from vap_realtime_tpu_torch.ops.cuda.build import load
-
 Tensor = torch.Tensor
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,6 +66,8 @@ def lstm_scan_plain(gi_seq: Tensor, h0: Tensor, c0: Tensor, w_hh_t: Tensor,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signature."""
+    from vap_realtime_tpu_torch.ops.cuda.build import load
+
     lib = load("lstm_scan")
     fn = lib.lstm_scan_launch
     fn.restype = ctypes.c_int

@@ -250,16 +250,26 @@ class StreamArena:
 
     def _run(self, frames: np.ndarray, act: np.ndarray, merge: str = "auto",
              resync_mode: str = "auto"):
+        return self.step_tensors(self._upload(frames), self._upload(act),
+                                 merge, resync_mode)
+
+    def step_tensors(self, x: torch.Tensor, act: torch.Tensor,
+                     merge: str = "auto", resync_mode: str = "auto"):
+        """One tick on a (capacity, 2, chunk_samples) chunk batch and a
+        (capacity,) active mask already on the arena's device (int16
+        chunks are normalised here); returns the device output dict
+        unread."""
         with on_device(self.device):
-            x = self._upload(frames).to(self.dtype)
-            if frames.dtype == np.int16:
+            wire_i16 = x.dtype == torch.int16
+            x = x.to(self.dtype)
+            if wire_i16:
                 x = x * (1.0 / 32768.0)          # exact power-of-two scale
             self.state, out = path_step(
-                self.path, self.params, self.state, x, self.cfg,
-                self._upload(act), slots=self.slots,
-                attend_impl=self.attend_impl, conv_impl=self.conv_impl,
-                conv_chunks=self.conv_chunks, merge=merge,
-                resync_every=self.resync_every, resync_mode=resync_mode)
+                self.path, self.params, self.state, x, self.cfg, act,
+                slots=self.slots, attend_impl=self.attend_impl,
+                conv_impl=self.conv_impl, conv_chunks=self.conv_chunks,
+                merge=merge, resync_every=self.resync_every,
+                resync_mode=resync_mode)
         return out
 
     def warmup(self) -> None:
