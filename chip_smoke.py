@@ -165,9 +165,11 @@ Phases (any failed check raises, so the script exits non-zero):
          1e-6 and everywhere when the card's AdamW takes the CPU's
          gradients, the frozen encoder leaves bit-equal); fit on a
          16-row x 20 s synthetic manifest, batch 8, 2 epochs with
-         validation, events and checkpoints, a resume from last.npz after
-         1 epoch against the uninterrupted run (atol 1e-5), the best
-         checkpoint through run_evaluation (score.csv); the ms per train
+         validation, events and checkpoints (a VAD that gives shift, hold
+         and backchannel events), a resume from last.npz after 1 epoch
+         against the uninterrupted run (atol 1e-5), the best checkpoint
+         through run_evaluation on the card and on the CPU (the 19
+         metrics of score.csv within 1e-5 relative); the ms per train
          step and eval forward at batch 8 x 20 s, seconds of stereo audio
          trained per second, peak memory; K5 launched once per forward
          (counted from 0 over the phase), then timed at (16, 1998, 256)
@@ -194,6 +196,24 @@ Phases (any failed check raises, so the script exits non-zero):
          on a CUDA VapEngine(path="kv") with the console client reading
          the framed results in its own process: every frame's result,
          finite, 7 K2 launches a frame.  Each sub-phase's seconds print.
+  (i)    After (g), the labs and the export and checkpoint tools (each
+         time beside the card's name and power limit; each sub-phase's
+         seconds print): (1) tools/encoder_lab at 8192 channel-streams x
+         800 samples (20 Hz), bf16, all four impls (conv, normk, blocked,
+         fused): ms per step, finite; K6 launched 5 times a step under
+         normk and K7 once a step under fused (counters zeroed just
+         before and read just after); (2) tools/roofline at B=4096, bf16:
+         the measured 4096^3 matmul peak, and the conv encoder's, the
+         LSTM's and the kv step's ms, TFLOP/s, % of peak (over 105%
+         raises) and GB/s; (3) tools/scatter_lab at 4096 / 50 / 8: the
+         five write forms' ms per frame; (4) float32, TF32 off: the static
+         (99 frames) and --dynamic (T = 8 and 24 from one program)
+         exports, saved and loaded, against the eager step on the card
+         (1e-5) and on the CPU (1e-4); tools/vap_offline_exported over a
+         3 s synthetic wav against runtime/offline.py on the card (the
+         time column equal, the last frames at 2e-5); tools/export_web
+         on the card against the CPU (weights.bin byte-equal, the fixture
+         at 1e-5); tools/convert_checkpoint on synthetic .pt files.
 
 The last lines: the card's name and power limit, one JSON line listing
 each kernel, and {"ok": true, "device": {...}}.
@@ -2803,18 +2823,49 @@ def phase_g_step(cfg, params_np, wav) -> int:
     return 1
 
 
+def turn_taking_vad(duration: float, offset: float):
+    """A 7.8 s cycle, started `offset` s before 0: A speaks, pauses 0.4 s
+    and goes on (a hold), B takes the turn (a shift), A backchannels 0.3 s
+    into B's turn, and B hands the turn back (a shift)."""
+    segs, c = [[], []], -offset
+    while c < duration + 2.0:
+        for ch, a, b in ((0, 0.0, 1.5), (0, 1.9, 3.4), (1, 3.8, 7.4),
+                         (0, 5.0, 5.3)):
+            if c + b > 0:
+                segs[ch].append([round(max(c + a, 0.0), 2), round(c + b, 2)])
+        c += 7.8
+    return segs
+
+
+def turn_taking_manifest(tmp: str, n_rows: int, duration: float) -> str:
+    """The synthetic manifest with each row's VAD from turn_taking_vad
+    (row i offset by 0.5 i s): shift, hold and backchannel events."""
+    import csv
+
+    from vap_realtime_tpu_torch.train.data import synthetic_manifest
+
+    path = synthetic_manifest(tmp, n_rows=n_rows, duration=duration)
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    for i, row in enumerate(rows[1:]):
+        row[3] = json.dumps(turn_taking_vad(duration, 0.5 * i))
+    with open(path, "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    return path
+
+
 def phase_g_fit(cfg, tmp) -> int:
-    """fit on a 16-row x 20 s synthetic manifest, batch 8 (2 steps an
-    epoch), 2 epochs with validation, events and checkpoints; resumed
-    from last.npz after 1 epoch against the uninterrupted run (1e-5);
-    the best checkpoint through run_evaluation.  Returns the card
-    forwards made."""
+    """fit on a 16-row x 20 s synthetic manifest whose VAD gives shift,
+    hold and backchannel events, batch 8 (2 steps an epoch), 2 epochs
+    with validation, events and checkpoints; resumed from last.npz after
+    1 epoch against the uninterrupted run (1e-5); the best checkpoint
+    through run_evaluation on the card and on the CPU: the same 19
+    metrics, the loss and the turn-taking metrics within 1e-5 relative.
+    Returns the card forwards made."""
     import csv
     import os
 
-    from vap_realtime_tpu_torch.train.data import (
-        DataConfig, synthetic_manifest,
-    )
+    from vap_realtime_tpu_torch.train.data import DataConfig
     from vap_realtime_tpu_torch.train.evaluation import run_evaluation
     from vap_realtime_tpu_torch.train.events import EventConfig
     from vap_realtime_tpu_torch.train.trainer import (
@@ -2822,7 +2873,7 @@ def phase_g_fit(cfg, tmp) -> int:
     )
     from vap_realtime_tpu_torch.weights.convert import _flatten
 
-    path = synthetic_manifest(tmp, n_rows=16, duration=TRAIN_SEC)
+    path = turn_taking_manifest(tmp, 16, TRAIN_SEC)
     dc = DataConfig(train_path=path, val_path=path, batch_size=8,
                     audio_duration=TRAIN_SEC, frame_hz=cfg.frame_hz)
     ec = EventConfig(frame_hz=cfg.frame_hz, max_time=TRAIN_SEC)
@@ -2846,21 +2897,33 @@ def phase_g_fit(cfg, tmp) -> int:
           f"resumed fit vs uninterrupted: max |d| {d:.3e}")
     ckpt = find_best_checkpoint(os.path.join(tmp, "full"))
     check(ckpt is not None, "fit saved no best checkpoint")
-    out = run_evaluation(ckpt, cfg, DataConfig(
-        test_path=path, batch_size=8, audio_duration=TRAIN_SEC,
-        frame_hz=cfg.frame_hz), ec, out_root=os.path.join(tmp, "eval"),
-        device="cuda")
-    with open(out) as f:
-        rows = {r["metric"]: float(r["value"]) for r in csv.DictReader(f)}
-    check(np.isfinite(rows.get("test_loss", float("nan"))),
-          f"score.csv has no finite test_loss: {rows}")
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        out = run_evaluation(ckpt, cfg, DataConfig(
+            test_path=path, batch_size=8, audio_duration=TRAIN_SEC,
+            frame_hz=cfg.frame_hz), ec, out_root=os.path.join(tmp, dev),
+            device=dev)
+        with open(out) as f:
+            rows[dev] = {r["metric"]: float(r["value"])
+                         for r in csv.DictReader(f)}
+    rows, cpu = rows["cuda"], rows["cpu"]
+    check(len(rows) == 19 and rows.keys() == cpu.keys()
+          and np.isfinite(rows.get("test_loss", float("nan"))),
+          f"score.csv card {rows} CPU {cpu}")
+    d_metric = max(abs(rows[k] - cpu[k]) / max(abs(cpu[k]), 1e-12)
+                   if rows[k] != cpu[k] else 0.0 for k in rows)
+    check(d_metric <= 1e-5, f"run_evaluation card vs CPU: max relative "
+                            f"|d| {d_metric:.3e}")
+    print("[g] run_evaluation metrics on the card: " + ", ".join(
+        f"{k[5:]} {v:.4f}" for k, v in sorted(rows.items())), flush=True)
     print(f"[g] fit 2 epochs x 2 steps (batch 8 x {TRAIN_SEC:.0f} s, "
           f"validation with events) in {t_fit:.1f} s: train_loss "
           f"{h2['train_loss']:.4f}, "
           f"val_loss {h2['val_loss']:.4f}; resumed from last.npz after 1 "
           f"epoch vs uninterrupted: max |d| {d:.3e} (atol 1e-5); "
           f"run_evaluation on {os.path.basename(ckpt)}: {len(rows)} "
-          f"metrics, test_loss {rows['test_loss']:.4f}", flush=True)
+          f"metrics, test_loss {rows['test_loss']:.4f}, card vs CPU max "
+          f"relative |d| {d_metric:.3e} (1e-5)", flush=True)
     # 4 forwards an epoch (2 train, 2 validation); 2 for the evaluation
     return 4 * (2 + 1 + 1) + 2
 
@@ -3199,6 +3262,261 @@ def phase_h(cfg, params_np, gpu) -> dict:
     return {"k2": serving["bf16"][1] + k2_client, "k3": serving["q8g"][1]}
 
 
+# --- slice 12: the export and checkpoint tools and the labs ----------------
+
+I_ITERS = 24                       # the labs' timed iterations
+
+
+def phase_i_encoder(gpu) -> dict:
+    """(1) encoder_lab at 2B channel-streams, 20 Hz, bf16, all four
+    impls: ms per step each, finite; K6 launched 5 a step under normk
+    and K7 one call a step under fused (the lab's 2 warm-up steps and
+    I_ITERS timed ones; the counters zeroed just before and read just
+    after).  Returns {"norm": K6 launches, "fused": K7 calls}."""
+    from vap_realtime_tpu_torch.tools import encoder_lab
+
+    zero_counts()
+    ms = encoder_lab.main(["--impls", "conv,normk,blocked,fused",
+                           "--batch", str(2 * B), "--hz", "20", "--dtype",
+                           "bf16", "--iters", str(I_ITERS)])
+    got = counts()
+    steps = I_ITERS + 2
+    check(all(np.isfinite(v) and v > 0 for v in ms.values()) and len(ms) == 4,
+          f"encoder_lab times {ms}")
+    check(got["norm"] == 5 * steps and got["fused"] == steps,
+          f"encoder_lab: {got['norm']} K6 launches, {got['fused']} K7 calls "
+          f"over {steps} steps of each")
+    print(f"[i] (1) encoder_lab, {2 * B} channel-streams x {L_NEW} samples, "
+          f"bf16, ms/step: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                         ms.items())
+          + f"; K6 {got['norm']} launches (5 a step), K7 {got['fused']} "
+          f"calls (1 a step) over {steps} steps | {gpu}", flush=True)
+    return {"norm": got["norm"], "fused": got["fused"]}
+
+
+def phase_i_roofline(gpu) -> None:
+    """(2) roofline at B = 4096, bf16: the measured matmul peak and each
+    component's ms, TFLOP/s, % of peak (the tool raises above 105%) and
+    GB/s."""
+    from vap_realtime_tpu_torch.tools import roofline
+
+    res = roofline.main(["--batch", str(B), "--dtype", "bf16", "--iters",
+                         str(I_ITERS)])
+    peak = res.pop("peak_tflops")
+    check(np.isfinite(peak) and all(
+        np.isfinite(v) and v > 0 for r in res.values() for v in r.values()),
+        f"roofline {res}")
+    print(f"[i] (2) roofline B={B} bf16: peak {peak:.1f} TFLOP/s "
+          f"(4096^3 matmuls); " + "; ".join(
+              f"{k} {r['ms']:.3f} ms, {r['tflops']:.1f} TFLOP/s, "
+              f"{r['pct_peak']:.1f}% of peak, {r['gbs']:.0f} GB/s"
+              for k, r in res.items()) + f" | {gpu}", flush=True)
+
+
+def phase_i_scatter(gpu) -> None:
+    """(3) scatter_lab at 4096 / 50 / 8: the five write forms' ms per
+    frame."""
+    from vap_realtime_tpu_torch.tools import scatter_lab
+
+    res = scatter_lab.main(["--batch", str(B), "--T", str(T), "--S", str(S)])
+    check(len(res) == 5 and all(np.isfinite(v) and v > 0
+                                for v in res.values()), f"scatter {res}")
+    print(f"[i] (3) scatter_lab B={B} T={T} S={S}, ms per frame: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res.items())
+          + f" | {gpu}", flush=True)
+
+
+def _max_out_diff(a, b) -> float:
+    return max((x.cpu() - y.cpu()).abs().max().item() for x, y in zip(a, b))
+
+
+def phase_i_static(cfg, params_np, tmp, gpu) -> None:
+    """(4a) the export tool on the card, float32, TF32 off: the static
+    (99) and --dynamic programs, saved and loaded, against the eager step
+    on the card (1e-5) and the CPU's (1e-4); the dynamic one at T = 8 and
+    24 from one program."""
+    import os
+
+    from vap_realtime_tpu_torch.runtime.static import make_static_fn
+    from vap_realtime_tpu_torch.tools import export_static
+    from vap_realtime_tpu_torch.weights.convert import params_to_torch
+
+    p = {d: params_to_torch(params_np, d) for d in ("cuda", "cpu")}
+    fn, _ = make_static_fn(cfg, 99, device="cpu")
+    lines = []
+    for flag, lengths in (("", (99,)), ("--dynamic", (8, 24))):
+        out = os.path.join(tmp, "static" + flag.replace("-", "_"))
+        t0 = time.perf_counter()
+        export_static.main(["--synthetic_weights", "--out", out]
+                           + ([flag] if flag else []))
+        prog = torch.export.load(out + ".pt2").module()
+        t_export = time.perf_counter() - t0
+        for Tn in lengths:
+            rs = np.random.RandomState(Tn)
+            x = (0.1 * rs.randn(2, 1, cfg.frame_samples)).astype(np.float32)
+            ctx = (0.5 * rs.randn(2, 1, Tn, cfg.dim)).astype(np.float32)
+            hc = (0.1 * rs.randn(2, 2, cfg.dim)).astype(np.float32)
+            args = [torch.from_numpy(a) for a in (x[0], x[1], ctx[0], ctx[1],
+                                                  hc[0], hc[1])]
+            with torch.no_grad():
+                got = prog(p["cuda"], *[a.cuda() for a in args])
+                eager = fn(p["cuda"], *[a.cuda() for a in args])
+                cpu = fn(p["cpu"], *args)
+            d_eager, d_cpu = _max_out_diff(got, eager), _max_out_diff(got, cpu)
+            check(got[2].shape == (Tn,) and d_eager <= 1e-5 and d_cpu <= 1e-4,
+                  f"exported {flag or 'static'} T={Tn}: vs eager "
+                  f"{d_eager:.3e}, vs CPU {d_cpu:.3e}")
+            lines.append(f"{flag or 'static'} T={Tn}: vs eager {d_eager:.3e},"
+                         f" vs CPU {d_cpu:.3e}")
+        lines[-1] += f" (exported, saved, loaded in {t_export:.1f} s)"
+    print(f"[i] (4a) export_static on the card, float32: " + "; ".join(lines)
+          + f" (atol 1e-5 / 1e-4) | {gpu}", flush=True)
+
+
+def phase_i_offline(params_np, tmp, gpu) -> None:
+    """(4b) vap_offline_exported on the card over a 3 s synthetic stereo
+    wav (a static program of 20 context frames) against
+    runtime/offline.py (full path, 20 context frames) on the card: the
+    same time column, the last frames within 2e-5."""
+    import os
+
+    from vap_realtime_tpu_torch.config import VapConfig
+    from vap_realtime_tpu_torch.io.audio import write_wav
+    from vap_realtime_tpu_torch.runtime.offline import run_offline
+    from vap_realtime_tpu_torch.tools import export_static, vap_offline_exported
+    from vap_realtime_tpu_torch.weights.synthetic import synthetic_audio
+
+    audio = synthetic_audio(3 * 16000)
+    wavs = []
+    for ch in range(2):
+        wavs.append(os.path.join(tmp, f"ch{ch}.wav"))
+        write_wav(wavs[-1], audio[ch], 16000)
+    out = os.path.join(tmp, "ctx20")
+    export_static.main(["--synthetic_weights", "--out", out,
+                        "--context_frames", "20"])
+    t0 = time.perf_counter()
+    n = vap_offline_exported.main(
+        ["--artifact", out + ".pt2", "--params", out + ".npz",
+         "--input_wav_left", wavs[0], "--input_wav_right", wavs[1],
+         "--filename_output", out + ".csv"])
+    t_run = time.perf_counter() - t0
+    got = np.loadtxt(out + ".csv", delimiter=",", skiprows=1)
+    ref = run_offline(params_np, audio, VapConfig(frame_hz=20,
+                                                  context_len_sec=1.0),
+                      path="full", device="cuda")
+    d = max(np.abs(got[-3:, 1:3] - ref["p_now"][-3:]).max(),
+            np.abs(got[-3:, 3:5] - ref["p_future"][-3:]).max())
+    check(n == len(ref["t"]) == got.shape[0]
+          and np.array_equal(got[:, 0], ref["t"]) and d <= 2e-5,
+          f"vap_offline_exported: {n} rows, last frames vs offline {d:.3e}")
+    print(f"[i] (4b) vap_offline_exported on the card: {n} frames in "
+          f"{t_run:.2f} s ({t_run / n * 1e3:.2f} ms a frame), last 3 vs "
+          f"runtime/offline.py max |d| {d:.3e} (atol 2e-5) | {gpu}",
+          flush=True)
+
+
+def phase_i_web(tmp, gpu) -> None:
+    """(4c) export_web with its fixture on the card against the same
+    export on the CPU: weights.bin byte-equal, the manifest equal but for
+    `expected`, which is within 1e-5."""
+    import os
+
+    from vap_realtime_tpu_torch.tools import export_web
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = export_web.main(["--synthetic_weights", "--out",
+                                    os.path.join(tmp, "web_" + dev),
+                                    "--device", dev])
+    blobs, man = {}, {}
+    for dev, d in out.items():
+        with open(os.path.join(d, "weights.bin"), "rb") as f:
+            blobs[dev] = f.read()
+        with open(os.path.join(d, "manifest.json")) as f:
+            man[dev] = json.load(f)
+    exp = {dev: man[dev]["selftest"].pop("expected") for dev in man}
+    d = max(float(np.abs(np.asarray(exp["cuda"][k])
+                         - np.asarray(exp["cpu"][k])).max())
+            for k in exp["cpu"])
+    check(blobs["cuda"] == blobs["cpu"] and man["cuda"] == man["cpu"]
+          and d <= 1e-5, f"export_web card vs CPU: expected max |d| {d:.3e}")
+    print(f"[i] (4c) export_web (context 99): weights.bin "
+          f"{len(blobs['cuda']):,} bytes equal to the CPU export's, the "
+          f"fixture on the card vs the CPU max |d| {d:.3e} (atol 1e-5) | "
+          f"{gpu}", flush=True)
+
+
+def phase_i_convert(tmp) -> None:
+    """(4d) convert_checkpoint on the synthetic .pt files: the npz
+    bit-equal to convert_state_dict on the raw arrays."""
+    import os
+
+    from vap_realtime_tpu_torch.tools import convert_checkpoint
+    from vap_realtime_tpu_torch.weights.convert import (
+        _flatten, convert_state_dict,
+    )
+    from vap_realtime_tpu_torch.weights.synthetic import (
+        synthetic_cpc_weights, synthetic_vap_state_dict,
+    )
+
+    vap, cpc, out = (os.path.join(tmp, f) for f in ("v.pt", "c.pt", "w.npz"))
+    torch.save({k: torch.from_numpy(v)
+                for k, v in synthetic_vap_state_dict(20).items()}, vap)
+    torch.save({"weights": {k: torch.from_numpy(v)
+                            for k, v in synthetic_cpc_weights().items()}},
+               cpc)
+    n = convert_checkpoint.main(["--vap_model", vap, "--cpc_model", cpc,
+                                 "--out", out])
+    want = _flatten(convert_state_dict(synthetic_vap_state_dict(20),
+                                       synthetic_cpc_weights()))
+    with np.load(out) as got:
+        same = sorted(got.files) == sorted(want) and all(
+            np.array_equal(got[k], want[k]) and got[k].dtype == want[k].dtype
+            for k in want)
+    check(same and n == sum(v.size for v in want.values()),
+          "convert_checkpoint npz vs convert_state_dict")
+    print(f"[i] (4d) convert_checkpoint: {len(want)} arrays, {n:,} params, "
+          f"bit-equal to convert_state_dict", flush=True)
+
+
+def phase_i(cfg, params_np, gpu) -> dict:
+    """The labs and the export and checkpoint tools on the card: (1)
+    encoder_lab, (2) roofline, (3) scatter_lab, (4) export_static (static
+    and --dynamic), vap_offline_exported, export_web, convert_checkpoint.
+    Each sub-phase's seconds print.  Returns the encoder lab's K6 / K7
+    launches."""
+    import os
+    import tempfile
+
+    t0 = time.time()
+    t = time.time()
+    lab = phase_i_encoder(gpu)
+    print(f"[i] (1) {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    phase_i_roofline(gpu)
+    print(f"[i] (2) {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    phase_i_scatter(gpu)
+    print(f"[i] (3) {time.time() - t:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        for name, run in (("4a", lambda: phase_i_static(cfg, params_np, tmp,
+                                                        gpu)),
+                          ("4b", lambda: phase_i_offline(params_np, tmp,
+                                                         gpu)),
+                          ("4c", lambda: phase_i_web(tmp, gpu)),
+                          ("4d", lambda: phase_i_convert(tmp))):
+            t = time.time()
+            run()
+            print(f"[i] ({name}) {time.time() - t:.1f} s", flush=True)
+    print(f"[i] the labs and the export tools: {time.time() - t0:.1f} s",
+          flush=True)
+    return lab
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3252,6 +3570,7 @@ def main() -> int:
     phase_e_hybrid(cfg, params_np)
     k2_surfaces = phase_f(cfg, params_np, gpu)
     train = phase_g(VapConfig(), params_np, gpu)
+    lab_i = phase_i(cfg, params_np, gpu)
 
     print(gpu, flush=True)
     src = "vap_realtime_tpu_torch/csrc/"
@@ -3266,7 +3585,8 @@ def main() -> int:
         dict(name="channel_norm_relu", route="cuda",
              source=src + "channel_norm_relu.cu",
              replaces="vap_realtime_tpu/ops/pallas/channorm.py:43",
-             launches=run_q8g["norm"], max_abs_err=err_norm, **norm),
+             launches=run_q8g["norm"] + lab_i["norm"], max_abs_err=err_norm,
+             **norm),
         dict(name="attend_compact", route="cuda",
              source=src + "attend_pair.cu",
              replaces="vap_realtime_tpu/ops/pallas/attend.py:282",
@@ -3284,7 +3604,8 @@ def main() -> int:
         dict(name="conv_stack_fused", route="cuda",
              source=src + "conv_stack_fused.cu",
              replaces="vap_realtime_tpu/ops/pallas/encoder.py:291",
-             launches=run_fused["fused"], max_abs_err=err_fused, **fused),
+             launches=run_fused["fused"] + lab_i["fused"],
+             max_abs_err=err_fused, **fused),
         # off the serving paths, as in the JAX package; its main path is
         # the training encoder's LSTM, (16, 1998, 256) float32, one launch
         # a forward over (g); the serving shapes under "bodies"

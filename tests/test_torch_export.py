@@ -11,7 +11,9 @@ from vap_realtime_tpu.config import VapConfig as JaxConfig
 from vap_realtime_tpu.runtime import static as jax_static
 from vap_realtime_tpu.weights.synthetic import synthetic_params as jax_params
 from vap_realtime_tpu_torch.config import VapConfig
-from vap_realtime_tpu_torch.models.transformer import alibi_bias
+from vap_realtime_tpu_torch.models.transformer import (
+    _alibi_bias_cached, alibi_bias,
+)
 from vap_realtime_tpu_torch.runtime.static import make_static_fn, static_step
 from vap_realtime_tpu_torch.tools import export_static
 from vap_realtime_tpu_torch.weights.convert import (
@@ -123,13 +125,24 @@ def test_export_round_trip_equals_eager(exported, tmp_path):
 def test_export_leaves_the_bias_cache_real(exported):
     """Tracing the step for export builds its AliBi bias anew instead of
     caching the tracer's stand-in: the cached bias of the exported shape
-    is a plain tensor afterwards, and the eager step still runs."""
+    is a plain tensor afterwards, and the eager step still runs.  A
+    dynamic export (a symbolic context length) adds no entry to the
+    cache, and the eager step runs at a new length after it."""
     cfg, _, p, _ = exported
     b = alibi_bias(EXPORT_CTX, cfg.num_heads, cfg.context_limit,
                    torch.float32, torch.device("cpu"))
     assert type(b) is torch.Tensor
     out = static_step(p, *_inputs(cfg, 2), cfg)
     assert type(out[0]) is torch.Tensor and torch.isfinite(out[0]).all()
+    cached = _alibi_bias_cached.cache_info().currsize
+    export_static.export_artifact(synthetic_params(20), cfg, EXPORT_CTX,
+                                  device="cpu", dynamic=True)
+    assert _alibi_bias_cached.cache_info().currsize == cached
+    out = static_step(p, *_inputs(cfg, 3, T=EXPORT_CTX + 4), cfg)
+    assert type(out[2]) is torch.Tensor and out[2].shape == (EXPORT_CTX + 4,)
+    b = alibi_bias(EXPORT_CTX + 4, cfg.num_heads, cfg.context_limit,
+                   torch.float32, torch.device("cpu"))
+    assert type(b) is torch.Tensor and torch.isfinite(out[0]).all()
 
 
 def test_export_tool_writes_and_reloads(tmp_path, capsys):

@@ -35,7 +35,9 @@ def test_every_port_module_is_scanned():
     offline runner, WAV IO, the lab kernels and the lab tools included,
     the serving surfaces: the library API, the audio sources, the
     two-port and batched servers, the static step and its export tool,
-    and the serving tools, the clients, the demo and the examples."""
+    the serving tools, the clients, the demo and the examples, and the
+    export and checkpoint tools, the web runner's server and the encoder,
+    roofline and scatter labs."""
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     pkg = "vap_realtime_tpu_torch/"
     for mod in ("ops/cuda/attend.py", "ops/cuda/channorm.py",
@@ -58,7 +60,11 @@ def test_every_port_module_is_scanned():
                 "clients/output_gui.py", "clients/visualizer/server.py",
                 "examples/example_vap_2wav.py",
                 "examples/example_vap_2tcp.py",
-                "examples/example_bc_nod.py"):
+                "examples/example_bc_nod.py",
+                "tools/convert_checkpoint.py",
+                "tools/vap_offline_exported.py", "tools/export_web.py",
+                "clients/web_runner/serve.py", "tools/encoder_lab.py",
+                "tools/roofline.py", "tools/scatter_lab.py"):
         assert pkg + mod in rel, mod
 
 

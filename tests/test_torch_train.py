@@ -24,6 +24,7 @@
 """
 
 import csv
+import json
 import os
 import re
 
@@ -47,8 +48,10 @@ from vap_realtime_tpu_torch.models import transformer as ttf
 from vap_realtime_tpu_torch.models import vap as tvap
 from vap_realtime_tpu_torch.train import step as tstep
 from vap_realtime_tpu_torch.train import trainer as ttrainer
-from vap_realtime_tpu_torch.train.data import DataConfig, synthetic_manifest
-from vap_realtime_tpu_torch.train.events import EventConfig
+from vap_realtime_tpu_torch.train.data import (
+    DataConfig, load_manifest, synthetic_manifest, vad_list_to_onehot,
+)
+from vap_realtime_tpu_torch.train.events import EventConfig, TurnTakingEvents
 from vap_realtime_tpu_torch.weights.convert import (
     _flatten, params_to_numpy, params_to_torch, tree_items,
 )
@@ -496,11 +499,42 @@ def test_plateau_decay_and_early_stop(data):
                 if f.startswith("vap_epoch")]) == 1
 
 
+def turn_taking_vad(duration: float, offset: float):
+    """A 7.8 s cycle, started `offset` s before 0: A speaks, pauses 0.4 s
+    and goes on (a hold), B takes the turn (a shift), A backchannels 0.3 s
+    into B's turn, and B hands the turn back (a shift)."""
+    segs, c = [[], []], -offset
+    while c < duration + 2.0:
+        for ch, a, b in ((0, 0.0, 1.5), (0, 1.9, 3.4), (1, 3.8, 7.4),
+                         (0, 5.0, 5.3)):
+            if c + b > 0:
+                segs[ch].append([round(max(c + a, 0.0), 2), round(c + b, 2)])
+        c += 7.8
+    return segs
+
+
+def turn_taking_manifest(tmpdir: str, n_rows: int, duration: float) -> str:
+    """`synthetic_manifest` with each row's VAD from `turn_taking_vad`,
+    offset so that in a 3 s clip row 0 holds, rows 1 and 3 shift and row
+    2 backchannels."""
+    path = synthetic_manifest(tmpdir, n_rows=n_rows, duration=duration)
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    for i, row in enumerate(rows[1:]):
+        row[3] = json.dumps(turn_taking_vad(duration,
+                                            (0.0, 2.0, 3.4, 6.0)[i % 4]))
+    with open(path, "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    return path
+
+
 def test_fit_evaluate_and_cross_package_checkpoints(data, p0, tmp_path):
     """The port trains 2 epochs (with events); its best checkpoint goes
-    through the JAX package's `run_evaluation` and the port's (the same
-    loss at 1e-5, the same metric names); a checkpoint the JAX package
-    wrote goes through the port's `run_evaluation` CLI."""
+    through the JAX package's `run_evaluation` and the port's on a
+    manifest whose VAD gives shift, hold and backchannel events: every
+    metric equal at rtol 1e-5 (the loss, and the turn-taking metrics); a
+    checkpoint the JAX package wrote goes through the port's
+    `run_evaluation` CLI."""
     from vap_realtime_tpu.train.data import DataConfig as JaxData
     from vap_realtime_tpu.train.evaluation import (
         run_evaluation as jax_eval,
@@ -521,28 +555,37 @@ def test_fit_evaluate_and_cross_package_checkpoints(data, p0, tmp_path):
     ckpt = ttrainer.find_best_checkpoint(str(d / "run"))
     assert ckpt is not None and "val_" in ckpt
 
-    test_dc = DataConfig(test_path=path, batch_size=2, audio_duration=3.0,
+    tt_path = turn_taking_manifest(str(tmp_path), 4, 3.0)
+    test_dc = DataConfig(test_path=tt_path, batch_size=2, audio_duration=3.0,
                          frame_hz=20)
+    vad = np.stack([vad_list_to_onehot(r["vad_list"], 3.0 + test_dc.horizon,
+                                       20) for r in load_manifest(tt_path)])
+    events = TurnTakingEvents(EventConfig(**ev))(vad)
+    for kind in ("shift", "hold", "pred_backchannel"):
+        assert sum(map(len, events[kind])) > 0, kind
     ours = tev.run_evaluation(ckpt, cfg, test_dc, EventConfig(**ev),
                               out_root=str(tmp_path / "port"), device="cpu")
     theirs = jax_eval(ckpt, JaxConfig(**KW, context_len_sec=2.5),
-                      JaxData(test_path=path, batch_size=2,
+                      JaxData(test_path=tt_path, batch_size=2,
                               audio_duration=3.0, frame_hz=20),
                       JaxEvents(**ev), out_root=str(tmp_path / "jax"))
     read = lambda p: {r["metric"]: float(r["value"])
                       for r in csv.DictReader(open(p))}
     a, b = read(ours), read(theirs)
-    assert a.keys() == b.keys() and "test_loss" in a
-    np.testing.assert_allclose(a["test_loss"], b["test_loss"], rtol=1e-5)
+    assert a.keys() == b.keys() and "test_loss" in a and len(a) == 19
+    for k in a:
+        np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)
 
     jax_ckpt = str(tmp_path / "jax_vap_epoch0-val_1.00000.npz")
     jsave(jax_ckpt, p0)
-    out = tev.main(["--checkpoint", jax_ckpt, "--data_test_path", path,
+    # the CLI keeps the reference's event config (3 s of context before an
+    # event), so 3 s clips give the loss alone
+    out = tev.main(["--checkpoint", jax_ckpt, "--data_test_path", tt_path,
                     "--data_batch_size", "2", "--data_audio_duration", "3",
                     "--vap_frame_hz", "20", "--vap_cross_layers", "1",
                     "--out_root", str(tmp_path / "cli"), "--device", "cpu"])
     c = read(out)
-    assert c.keys() == a.keys() and np.isfinite(c["test_loss"])
+    assert set(c) == {"test_loss"} and np.isfinite(c["test_loss"])
 
 
 def test_trainer_cli_on_the_cpu(data, tmp_path):

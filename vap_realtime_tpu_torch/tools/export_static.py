@@ -9,12 +9,16 @@ export).  Produces:
 - <out>.npz : the params pytree it takes (`weights/convert.py`);
 - with --benchmark: reloads the program and reports ms per call over N
   calls on zero inputs, on the device it was exported for.
-The ONNX, TFLite and web exports of the JAX package's tools are not
-ported.
+With --dynamic the context length is symbolic (`torch.export.Dim("T")`
+on axis 1 of both context inputs): one program answers any T from 2 to
+MAX_T, as the reference's dynamic-axes ONNX export does.  The ONNX and
+TFLite exports of the JAX package's tools are not ported; the web export
+is `tools/export_web.py`.
 
 Run (on the card; `--device cpu` for the CPU):
     python -m vap_realtime_tpu_torch.tools.export_static \\
-        --synthetic_weights --out vap20hz [--context_frames 99] [--benchmark]
+        --synthetic_weights --out vap20hz [--context_frames 99] [--dynamic]
+        [--benchmark]
 (or --vap_model vap.pt --cpc_model cpc.pt, or --checkpoint_npz w.npz).
 """
 
@@ -35,15 +39,35 @@ from vap_realtime_tpu_torch.weights.convert import (
 )
 
 
+# the largest context length a --dynamic program takes
+MAX_T = 512
+
+
+def _none_tree(tree):
+    """`tree`'s nesting with None at every leaf: static shapes."""
+    if isinstance(tree, dict):
+        return {k: _none_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_none_tree(v) for v in tree)
+    return None
+
+
 def export_artifact(params, cfg: VapConfig, context_frames: int = 99,
-                    device="cuda"):
-    """Export the static step at a fixed context length.  params: the
-    params pytree with numpy leaves.  Returns (ExportedProgram, the
-    params as float32 tensors on `device`, the example inputs)."""
+                    device="cuda", dynamic: bool = False):
+    """Export the static step at a fixed context length, or with
+    `dynamic=True` at a symbolic one (2 <= T <= MAX_T; the example
+    inputs keep `context_frames`).  params: the params pytree with numpy
+    leaves.  Returns (ExportedProgram, the params as float32 tensors on
+    `device`, the example inputs)."""
     fn, example = make_static_fn(cfg, context_frames, device)
     p = params_to_torch(params, example[0].device, torch.float32)
+    shapes = None
+    if dynamic:
+        T = torch.export.Dim("T", min=2, max=MAX_T)
+        shapes = (_none_tree(p), None, None, {1: T}, {1: T}, None, None)
     with torch.no_grad():
-        exported = torch.export.export(fn, (p,) + example)
+        exported = torch.export.export(fn, (p,) + example,
+                                       dynamic_shapes=shapes)
     return exported, p, example
 
 
@@ -69,6 +93,8 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--context_len_sec", type=float, default=2.5)
     ap.add_argument("--context_frames", type=int, default=99,
                     help="static context length (reference export: 99)")
+    ap.add_argument("--dynamic", action="store_true",
+                    help="export with a symbolic context length")
     ap.add_argument("--out", default="vap_static")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--benchmark", action="store_true")
@@ -80,7 +106,7 @@ def main(argv: Optional[list] = None):
                     context_len_sec=args.context_len_sec)
     params = cli.load_weights(args, cfg)
     exported, p, example = export_artifact(params, cfg, args.context_frames,
-                                           args.device)
+                                           args.device, args.dynamic)
     torch.export.save(exported, args.out + ".pt2")
     save_pytree_npz(args.out + ".npz", params)
     print(f"wrote {args.out}.pt2 ({os.path.getsize(args.out + '.pt2')} "
