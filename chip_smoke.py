@@ -42,12 +42,19 @@ Phases (any failed check raises, so the script exits non-zero):
            T = 500 (B = 256: chunks of up to 52 rows through the ring;
            mixed and all-DEAD) and with float32 q (B = 4096, 4097;
            T = 500) at atol 1e-4 in float units;
-         - lstm_scan (K5) at (8192, 5, 256) and (100, 5, 256) (a partial
-           block): float32 at atol 1e-5, bf16 outputs within one bf16
-           step (rtol 2^-7, atol 1e-5); and at the training encoder's
-           shape, (16, 1998, 256) float32 (the gates of 8 stereo 20 s
-           clips' conv features, zero state): atol 1e-4 over all ~2,000
-           steps, the max |d| printed;
+         - lstm_scan (K5), both bodies through their launch functions
+           (the serving body: 64 streams a block; the sequence body: 16
+           streams a thread-block cluster, of 8 and of 16 blocks, each
+           held): at (8192, 5, 256) and (100,
+           5, 256) (a partial block, a ragged cluster): float32 at atol
+           1e-5, bf16 outputs within one bf16 step (rtol 2^-7, atol
+           1e-5); lstm_scan keeps the serving body at (8192, 5); and,
+           float32 at atol 1e-4 over all steps, at the training
+           encoder's shape, (16, 1998, 256) (the gates of 8 stereo 20 s
+           clips' conv features, zero state), at a ragged (20, 1998, 256)
+           (12 masked rows), at (16, 5, 256) and at (1024, 200, 256)
+           (random gates; lstm_scan takes clusters of 8 blocks there),
+           where lstm_scan takes the sequence body; the max |d| printed;
          - fused_attend (K8, one k/v slot pair) at B=4096 and 64, T=50,
            all 14 slot pairs, float32 (atol 1e-4) and bf16 (atol/rtol
            2e-2), mixed live/DEAD and all-DEAD (output == v_cur), against
@@ -171,9 +178,15 @@ Phases (any failed check raises, so the script exits non-zero):
          through run_evaluation on the card and on the CPU (the 19
          metrics of score.csv within 1e-5 relative); the ms per train
          step and eval forward at batch 8 x 20 s, seconds of stereo audio
-         trained per second, peak memory; K5 launched once per forward
-         (counted from 0 over the phase), then timed at (16, 1998, 256)
-         beside its bound, its plain version and torch.nn.LSTM (cuDNN).
+         trained per second, peak memory; the train step split (CUDA
+         events: conv stack, gi projection, K5, the rest of the forward,
+         backward, AdamW); K5 launched once per forward, all on the
+         sequence body (counted from 0 over the phase); then both bodies
+         timed at (16, 1998, 256) on the same inputs (the sequence body
+         must be the faster) beside the bound, the plain version and
+         torch.nn.LSTM (cuDNN), in microseconds a step with the cluster
+         size.  (The crossover grid that set lstm_scan's choice of body
+         is tools/lstm_bodies.py's.)
 
   (h)    Run first after the build, while this process holds little of
          the card. The serving tools under load and a client (model vap,
@@ -342,6 +355,8 @@ def _counters():
             "norm": (channel_norm_relu, "launches"),
             "fused": (conv_stack_fused, "launches"),
             "lstm": (lstm_scan, "launches"),
+            "lstm_seq": (lstm_scan, "sequence_launches"),
+            "lstm_srv": (lstm_scan, "serving_launches"),
             "single": (fused_attend, "launches"),
             "tail": (cpc_conv_tail, "launches"),
             "lab": (attend_lab, "launches"),
@@ -368,8 +383,8 @@ def per_step(config: str) -> dict:
     conv = kw.get("conv_impl", "conv")
     return {"attend": 0 if compact else 7, "compact": 7 if compact else 0,
             "norm": 5 if conv == "normk" else 0,
-            "fused": 1 if conv == "fused" else 0, "lstm": 0, "single": 0,
-            "tail": 0, "lab": 0, "read": 0}
+            "fused": 1 if conv == "fused" else 0, "lstm": 0, "lstm_seq": 0,
+            "lstm_srv": 0, "single": 0, "tail": 0, "lab": 0, "read": 0}
 
 
 def build() -> None:
@@ -805,38 +820,53 @@ def lstm_inputs(seed: int, dtype, N: int = 2 * B):
             0.06 * rn(4 * Hh))
 
 
-def phase_a_lstm() -> float:
-    """lstm_scan (K5) vs plain at (8192, 5, 256) and (100, 5, 256) (a
-    partial block of 64 streams); returns the max abs error in bf16 at
-    8192."""
-    from vap_realtime_tpu_torch.ops.cuda.lstm import (
-        lstm_scan, lstm_scan_plain,
-    )
+def lstm_pick(N: int) -> str:
+    """The launcher lstm_scan takes at N streams on this card."""
+    from vap_realtime_tpu_torch.ops.cuda import lstm as k5
 
-    worst = 0.0
+    at_once = k5._at_once(torch.device("cuda", torch.cuda.current_device()))
+    if k5._body(N, at_once) == "serving":
+        return "serving"
+    return f"sequence {k5._cluster(N, at_once)}"
+
+
+def phase_a_lstm() -> dict:
+    """lstm_scan (K5) vs plain at (8192, 5, 256) and (100, 5, 256) (a
+    partial block of 64 streams, a ragged last cluster of 16), both
+    bodies, the sequence body at both cluster sizes (lstm_scan takes the
+    serving body at 8192, the sequence body at 100); returns the serving
+    body's max abs error at 8192, {dtype name: err}."""
+    from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_scan_plain
+    from vap_realtime_tpu_torch.tools.lstm_bodies import launchers
+
+    worst = {}
     for N, dtype in itertools.product((2 * B, 100),
                                       (torch.float32, torch.bfloat16)):
         args = lstm_inputs(11, dtype, N)
-        got = lstm_scan(*args)
         want = lstm_scan_plain(*args)
-        torch.cuda.synchronize()
-        err = 0.0
-        for name, a, b in zip(("ys", "h_T", "c_T"), got, want):
-            check(a.dtype == dtype and a.shape == b.shape
-                  and torch.isfinite(a).all().item(),
-                  f"lstm_scan {name} {dtype}")
-            d = (a.float() - b.float()).abs()
-            tol = (1e-5 if dtype == torch.float32
-                   else 2 ** -7 * b.float().abs() + 1e-5)
-            check(bool((d <= tol).all()), f"lstm_scan vs plain {dtype} "
-                  f"{name}: max |d| {d.max().item():.3e}")
-            err = max(err, d.max().item())
-        print(f"[a] lstm_scan {str(dtype)[6:]} ({N}, 5, {C}): max "
-              f"|kernel - plain| {err:.3e} ("
-              + ("atol 1e-5" if dtype == torch.float32 else
-                 "rtol 2^-7, atol 1e-5") + ")", flush=True)
-        if dtype == torch.bfloat16 and N == 2 * B:
-            worst = err
+        for body, run in launchers().items():
+            got = run(*args)
+            torch.cuda.synchronize()
+            err = 0.0
+            for name, a, b in zip(("ys", "h_T", "c_T"), got, want):
+                check(a.dtype == dtype and a.shape == b.shape
+                      and torch.isfinite(a).all().item(),
+                      f"lstm_scan {body} {name} {dtype}")
+                d = (a.float() - b.float()).abs()
+                tol = (1e-5 if dtype == torch.float32
+                       else 2 ** -7 * b.float().abs() + 1e-5)
+                check(bool((d <= tol).all()), f"lstm_scan {body} vs plain "
+                      f"{dtype} {name}: max |d| {d.max().item():.3e}")
+                err = max(err, d.max().item())
+            print(f"[a] lstm_scan {body} body {str(dtype)[6:]} ({N}, 5, {C})"
+                  f"{' (lstm_scan takes it)' * (lstm_pick(N) == body)}"
+                  f": max |kernel - plain| {err:.3e} ("
+                  + ("atol 1e-5" if dtype == torch.float32 else
+                     "rtol 2^-7, atol 1e-5") + ")", flush=True)
+            if N == 2 * B and body == "serving":
+                worst[str(dtype)[6:]] = err
+    check(lstm_pick(2 * B) == "serving", "lstm_scan left the serving body "
+          f"at the serving shape ({2 * B}, 5)")
     return worst
 
 
@@ -2677,47 +2707,84 @@ def lstm_train_inputs(params_np):
     return (gi, h0, h0.clone(), g["w_hh"].T, g["b_hh"]), z, g
 
 
-def phase_a_lstm_train(params_np) -> float:
-    """lstm_scan (K5) against its plain version at the training encoder's
-    shape, (16, 1998, 256) float32 (the gates of 20 s clips' conv
-    features), atol 1e-4 over all ~2,000 steps; returns the max |d|."""
-    from vap_realtime_tpu_torch.ops.cuda.lstm import (
-        lstm_scan, lstm_scan_plain,
-    )
+def phase_a_lstm_train(params_np) -> dict:
+    """Both K5 bodies, the sequence body at both cluster sizes, against
+    the plain version, float32, atol 1e-4 over all steps: at the training
+    encoder's (16, 1998, 256) (the gates of 20 s clips' conv features,
+    zero state), a ragged (20, 1998, 256) (4 more rows, the first clips'
+    gates time-reversed: 12 masked rows in the second cluster), (16, 5,
+    256) (the first 5 steps) and (1024, 200, 256) (random gates and
+    state, where lstm_scan takes clusters of 8 blocks).  lstm_scan takes
+    the sequence body at all four.  Returns {launcher: max |d|}."""
+    from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_scan_plain
+    from vap_realtime_tpu_torch.tools.lstm_bodies import inputs, launchers
 
-    args, _, _ = lstm_train_inputs(params_np)
-    with torch.no_grad():
-        got, want = lstm_scan(*args), lstm_scan_plain(*args)
-    torch.cuda.synchronize()
-    err = 0.0
-    for name, a, b in zip(("ys", "h_T", "c_T"), got, want):
-        check(a.shape == b.shape and torch.isfinite(a).all().item(),
-              f"lstm_scan (training shape) {name}")
-        err = max(err, (a - b).abs().max().item())
-    check(err <= 1e-4, f"lstm_scan vs plain at {tuple(args[0].shape)}: "
-          f"max |d| {err:.3e}")
-    print(f"[a] lstm_scan float32 ({args[0].shape[0]}, {args[0].shape[1]}, "
-          f"{C}) (the training encoder's LSTM over {TRAIN_SEC:.0f} s): max "
-          f"|kernel - "
-          f"plain| {err:.3e} (atol 1e-4)", flush=True)
-    return err
+    (gi, h0, c0, w, b), _, _ = lstm_train_inputs(params_np)
+    gi20 = torch.cat([gi, gi[:4].flip(1)])
+    z20 = torch.zeros(20, C, device="cuda")
+    cases = {"the training encoder's LSTM": lambda: (gi, h0, c0, w, b),
+             "ragged: 12 masked rows": lambda: (gi20, z20, z20.clone(), w,
+                                                b),
+             "5 steps": lambda: (gi[:, :5].contiguous(), h0, c0, w, b),
+             "random, 200 steps": lambda: inputs(1024, 200, torch.float32,
+                                                 seed=12)}
+    errs = {}
+    for case, make in cases.items():
+        args = make()
+        N, Tn = args[0].shape[:2]
+        pick = lstm_pick(N)
+        check(pick.startswith("sequence"), f"lstm_scan takes the serving "
+              f"body at ({N}, {Tn})")
+        with torch.no_grad():
+            want = lstm_scan_plain(*args)
+            for body, run in launchers().items():
+                got = run(*args)
+                torch.cuda.synchronize()
+                err = 0.0
+                for name, a, bb in zip(("ys", "h_T", "c_T"), got, want):
+                    check(a.shape == bb.shape
+                          and torch.isfinite(a).all().item(),
+                          f"lstm_scan {body} ({N}, {Tn}) {name}")
+                    err = max(err, (a - bb).abs().max().item())
+                check(err <= 1e-4, f"lstm_scan {body} vs plain at ({N}, "
+                      f"{Tn}, {C}): max |d| {err:.3e}")
+                errs[body] = max(errs.get(body, 0.0), err)
+                print(f"[a] lstm_scan {body} body float32 ({N}, {Tn}, {C})"
+                      f"{' (lstm_scan takes it)' * (pick == body)} "
+                      f"({case}): max |kernel - plain| {err:.3e} "
+                      f"(atol 1e-4)", flush=True)
+        del args, want, got
+    torch.cuda.empty_cache()
+    return errs
 
 
 def time_lstm_train(params_np, gpu) -> dict:
-    """K5 at the training shape (16, 1998, 256) float32: ms per launch,
-    the bound (3xTF32 at 495 TFLOP/s, or the bytes), the plain version,
-    and lstm_fused (projection + scan) against torch.nn.LSTM on cuDNN in
-    float32 (TF32 off) over the same problem, in turns; the port never
-    calls nn.LSTM."""
+    """K5 at the training shape (16, 1998, 256) float32, both bodies on
+    the same inputs, in turns: ms per launch and microseconds a step
+    (lstm_scan takes the sequence body: it must be the faster), the
+    bound (3xTF32 at 495 TFLOP/s, or the bytes), the plain version, and
+    lstm_fused (projection + scan) against torch.nn.LSTM on cuDNN in
+    float32 (TF32 off) over the same problem; the port never calls
+    nn.LSTM.  Returns {body: its numbers}."""
     from vap_realtime_tpu_torch.ops.cuda.lstm import (
-        lstm_fused, lstm_scan, lstm_scan_plain,
+        _launch_serving, lstm_fused, lstm_scan, lstm_scan_plain,
+        max_active_clusters,
     )
     from vap_realtime_tpu_torch.profile_step import cuda_ms
 
     args, z, g = lstm_train_inputs(params_np)
     N, Tn, Hh = z.shape
+    pick = lstm_pick(N)
+    check(pick.startswith("sequence"), f"lstm_scan takes the serving body "
+          f"at ({N}, {Tn})")
+    cl = int(pick.split()[1])
+    runs = {"sequence": lambda: lstm_scan(*args),
+            "serving": lambda: _launch_serving(*args)}
     with torch.no_grad():
-        ms = cuda_ms(lambda: lstm_scan(*args), reps=10, warm=2)
+        t = {k: [] for k in runs}
+        for k in ("sequence", "serving", "serving", "sequence"):
+            t[k].append(cuda_ms(runs[k], reps=5, warm=1))
+        ms = {k: sum(v) / len(v) for k, v in t.items()}
         plain_ms = cuda_ms(lambda: lstm_scan_plain(*args), reps=2, warm=1)
         h0 = args[1]
         net = torch.nn.LSTM(Hh, Hh, batch_first=True).cuda()
@@ -2732,24 +2799,37 @@ def time_lstm_train(params_np, gpu) -> dict:
                           for f in (fused, lib, lib, fused))
         fused_ms, library_ms = (f1 + f2) / 2, (l1 + l2) / 2
         d = (lib()[0] - fused()[0]).abs().max().item()
+    check(ms["sequence"] < ms["serving"], f"the sequence body "
+          f"({ms['sequence']:.4f} ms) is not faster than the serving body "
+          f"({ms['serving']:.4f} ms) at ({N}, {Tn})")
     flops = 2 * N * Tn * Hh * 4 * Hh
     nbytes = (args[0].numel() + N * Tn * Hh + 4 * N * Hh + Hh * 4 * Hh
               + 4 * Hh) * 4
     bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
     f32_ms = bound(nbytes, flops)[0]
-    print(f"[g] lstm_scan float32 ({N}, {Tn}, {Hh}): {ms:.4f} ms/launch "
-          f"({ms / Tn * 1e3:.2f} us a step), bound {bound_ms:.4f} ms "
-          f"({bound_by}: 3xTF32 {3 * flops / 1e9:.2f} GFLOP of TF32 at 495 "
-          f"TFLOP/s; {nbytes / 1e9:.3f} GB) = {100 * bound_ms / ms:.2f}% of "
-          f"bound; float32 bound {f32_ms:.4f} ms; plain {plain_ms:.4f} ms; "
-          f"lstm_fused (projection + scan) {fused_ms:.4f} ms vs "
+    res = {}
+    for k in ("sequence", "serving"):
+        what = (f"cluster {cl}, {max_active_clusters(cl)} clusters at once"
+                if k == "sequence" else "64 streams a block")
+        print(f"[g] lstm_scan {k} body float32 ({N}, {Tn}, {Hh}) ({what}): "
+              f"{ms[k]:.4f} ms/launch ({ms[k] / Tn * 1e3:.3f} us a step), "
+              f"bound {bound_ms:.4f} ms ({bound_by}: 3xTF32 "
+              f"{3 * flops / 1e9:.2f} GFLOP of TF32 at 495 TFLOP/s; "
+              f"{nbytes / 1e9:.3f} GB) = {100 * bound_ms / ms[k]:.2f}% of "
+              f"bound; float32 bound {f32_ms:.4f} ms; plain {plain_ms:.4f} "
+              f"ms | {gpu}", flush=True)
+        res[k] = dict(ms=ms[k], plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=library_ms,
+                      bound_f32_ms=f32_ms, us_a_step=ms[k] / Tn * 1e3)
+    res["sequence"].update(cluster=cl, lstm_fused_ms=fused_ms)
+    print(f"[g] lstm_fused (projection + sequence body) {fused_ms:.4f} ms vs "
           f"torch.nn.LSTM (cuDNN, float32, TF32 off) {library_ms:.4f} ms "
-          f"(max |nn.LSTM - lstm_fused| {d:.3e}) | {gpu}", flush=True)
+          f"(max |nn.LSTM - lstm_fused| {d:.3e}); the sequence body "
+          f"{ms['serving'] / ms['sequence']:.1f}x the serving body's speed "
+          f"| {gpu}", flush=True)
     del net
     torch.cuda.empty_cache()
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms,
-                bound_f32_ms=f32_ms, lstm_fused_ms=fused_ms)
+    return res
 
 
 def phase_g_step(cfg, params_np, wav) -> int:
@@ -2972,12 +3052,93 @@ def phase_g_timing(cfg, params_np, wav, gpu) -> int:
     return 6 + 4
 
 
+def phase_g_split(cfg, params_np, wav, gpu) -> int:
+    """The train step at batch 8 x 20 s (dropout on) split on the card's
+    clock: CUDA events recorded between the conv stack, the gi
+    projection, K5, the rest of the forward (downsample, trunk, heads,
+    loss), the backward and AdamW, with the encoder's `cpc_conv_stack`
+    and `lstm_fused` wrapped to record them (the wrapper repeats
+    lstm_fused's two lines); the median of 4 steps after one.  Returns
+    the card forwards made."""
+    import statistics
+
+    from vap_realtime_tpu_torch.models import encoder as enc_mod
+    from vap_realtime_tpu_torch.models.vap import VapModel
+    from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_scan
+    from vap_realtime_tpu_torch.train.trainer import (
+        OptConfig, loss_fn, make_tx,
+    )
+
+    rs = np.random.RandomState(48)
+    nb = TRAIN_ROWS // 2
+    batch = {"waveform": torch.from_numpy(wav.reshape(nb, 2, -1)).cuda(),
+             "vad": torch.from_numpy((rs.rand(
+                 nb, int((TRAIN_SEC + 2) * cfg.frame_hz), 2) > 0.5).astype(
+                     np.float32)).cuda()}
+    model = VapModel(cfg, params_np, device="cuda")
+    tx = make_tx(model, OptConfig())
+    marks = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((name, e))
+
+    conv, fused = enc_mod.cpc_conv_stack, enc_mod.lstm_fused
+
+    def conv_marked(*a, **k):
+        out = conv(*a, **k)
+        mark("conv stack")
+        return out
+
+    def fused_marked(x, h0, c0, w_ih, w_hh, b_ih, b_hh):
+        gi = torch.matmul(x, w_ih.T) + b_ih
+        mark("gi projection")
+        out = lstm_scan(gi, h0, c0, w_hh.T, b_hh)
+        mark("K5")
+        return out
+
+    parts = {}
+    enc_mod.cpc_conv_stack, enc_mod.lstm_fused = conv_marked, fused_marked
+    try:
+        for i in range(5):
+            marks.clear()
+            mark("start")
+            tx.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(model, batch, cfg,
+                              torch.Generator(device="cuda").manual_seed(i))
+            mark("rest of the forward")
+            loss.backward()
+            mark("backward")
+            tx.step()
+            mark("AdamW")
+            torch.cuda.synchronize()
+            if i == 0:
+                continue
+            for (_, a), (name, b) in zip(marks, marks[1:]):
+                parts.setdefault(name, []).append(a.elapsed_time(b))
+            parts.setdefault("step", []).append(
+                marks[0][1].elapsed_time(marks[-1][1]))
+    finally:
+        enc_mod.cpc_conv_stack, enc_mod.lstm_fused = conv, fused
+    med = {k: statistics.median(v) for k, v in parts.items()}
+    check(set(med) == {"conv stack", "gi projection", "K5",
+                       "rest of the forward", "backward", "AdamW", "step"},
+          f"the train step split saw {sorted(med)}")
+    print(f"[g] the train step split, batch {nb} x {TRAIN_SEC:.0f} s "
+          f"float32, ms (median of 4 after 1, CUDA events): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in med.items() if k != "step")
+          + f"; the step {med['step']:.3f} | {gpu}", flush=True)
+    return 5
+
+
 def phase_g(cfg, params_np, gpu) -> dict:
     """The training path on the card at VapConfig() (full width,
     synthetic weights): encode_sequence card vs CPU, one train_step card
     vs CPU, fit / resume / run_evaluation, the step's times; K5 launches
-    once per forward over the phase.  Returns {"launches": K5 launches,
-    "k5": K5's times at the training shape}."""
+    once per forward over the phase, on the sequence body; the train
+    step split.  Returns {"launches": K5 launches, "sequence" / "serving":
+    each body's, "k5": both bodies' times at the training shape}."""
     import os
     import tempfile
 
@@ -3009,14 +3170,21 @@ def phase_g(cfg, params_np, gpu) -> dict:
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         forwards += phase_g_fit(cfg, tmp)
     forwards += phase_g_timing(cfg, params_np, wav, gpu)
-    launches = counts()["lstm"]
-    check(launches == forwards, f"K5 launched {launches} times over "
-          f"{forwards} forwards on the card")
+    forwards += phase_g_split(cfg, params_np, wav, gpu)
+    got = counts()
+    launches = got["lstm"]
+    check(launches == forwards and got["lstm_seq"] == forwards
+          and got["lstm_srv"] == 0,
+          f"K5 launched {launches} times ({got['lstm_seq']} sequence body, "
+          f"{got['lstm_srv']} serving body) over {forwards} forwards on the "
+          f"card")
     torch.backends.cudnn.deterministic = deterministic
     k5 = time_lstm_train(params_np, gpu)
-    print(f"[g] the training path: {launches} K5 launches over {forwards} "
-          f"forwards, {time.time() - t0:.1f} s", flush=True)
-    return {"launches": launches, "k5": k5}
+    print(f"[g] the training path: {launches} K5 launches, all on the "
+          f"sequence body, over {forwards} forwards, "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return {"launches": launches, "sequence": got["lstm_seq"],
+            "serving": got["lstm_srv"], "k5": k5}
 
 
 # --- slice 11: the serving tools under load ---------------------------------
@@ -3574,6 +3742,9 @@ def main() -> int:
 
     print(gpu, flush=True)
     src = "vap_realtime_tpu_torch/csrc/"
+    # K5's serving body over the main path's runs, each counted from 0
+    srv_launches = run_fused["lstm_srv"] + train["serving"]
+    err_seq = max(v for k, v in err_lstm_train.items() if k != "serving")
     print(json.dumps({"kernels": [
         dict(name="attend_pair", route="cuda", source=src + "attend_pair.cu",
              replaces="vap_realtime_tpu/ops/pallas/attend.py:454",
@@ -3608,17 +3779,27 @@ def main() -> int:
              max_abs_err=err_fused, **fused),
         # off the serving paths, as in the JAX package; its main path is
         # the training encoder's LSTM, (16, 1998, 256) float32, one launch
-        # a forward over (g); the serving shapes under "bodies"
+        # a forward over (g), on the sequence body; both bodies at that
+        # shape, and the serving body at the serving shape, under "bodies"
         dict(name="lstm_scan", route="cuda", source=src + "lstm_scan.cu",
              replaces="vap_realtime_tpu/ops/pallas/lstm.py:48",
              launches=run_fused["lstm"] + train["launches"],
-             max_abs_err=err_lstm_train, **train["k5"],
-             bodies={"training float32 (16, 1998, 256)": dict(
-                         train["k5"], max_abs_err=err_lstm_train),
-                     "serving bf16 (8192, 5, 256)": dict(
-                         lstm["bodies"]["bfloat16"], max_abs_err=err_lstm),
-                     "serving float32 (8192, 5, 256)":
-                         lstm["bodies"]["float32"]}),
+             max_abs_err=err_seq, **train["k5"]["sequence"],
+             bodies={
+                 "sequence (16, 1998, 256) float32": dict(
+                     train["k5"]["sequence"],
+                     launches=run_fused["lstm_seq"] + train["sequence"],
+                     max_abs_err=err_seq),
+                 "serving (16, 1998, 256) float32": dict(
+                     train["k5"]["serving"], launches=srv_launches,
+                     max_abs_err=err_lstm_train["serving"]),
+                 "serving (8192, 5, 256) bf16": dict(
+                     lstm["bodies"]["bfloat16"],
+                     max_abs_err=err_lstm["bfloat16"], launches=srv_launches),
+                 "serving (8192, 5, 256) float32": dict(
+                     lstm["bodies"]["float32"],
+                     max_abs_err=err_lstm["float32"],
+                     launches=srv_launches)}),
         # K8 and K9: off the serving paths, as in the JAX package; their
         # launches are read over the kv server run (the slice's path): 0
         dict(name="fused_attend", route="cuda", source=src + "attend_pair.cu",

@@ -9,8 +9,9 @@ import torch
 
 from vap_realtime_tpu.ops.pallas.lstm import lstm_pallas
 from vap_realtime_tpu_torch.ops.basic import lstm
+from vap_realtime_tpu_torch.ops.cuda import lstm as k5
 from vap_realtime_tpu_torch.ops.cuda.lstm import (
-    lstm_fused, lstm_scan, lstm_scan_plain, pack_w_hh,
+    lstm_fused, lstm_scan, lstm_scan_plain, pack_w_hh, pack_w_hh_seq,
 )
 
 T_ = torch.as_tensor
@@ -106,3 +107,87 @@ def test_pack_w_hh_layout():
         assert torch.equal(by_k, w[:, cols])
         seen.append(cols)
     assert sorted(np.concatenate(seen).tolist()) == list(range(4 * H))
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_pack_w_hh_seq_layout(cluster):
+    """The sequence body's weight layout (cluster, H / 2, 4H / cluster,
+    2): block r's local column j = 8 nt + 2 q + e is gate 2 (q & 1) + e of
+    unit (H / cluster) r + 2 nt + (q >> 1) (lanes q and q ^ 1 of an MMA
+    tile share a unit, so the cell update stays in the block), K rows in
+    pairs; every column of W_hh^T lands once, column by column."""
+    H = 256
+    w = torch.from_numpy(np.random.RandomState(5).randn(H, 4 * H)
+                         .astype(np.float32))
+    wp = pack_w_hh_seq(w, cluster)
+    n = 4 * H // cluster
+    assert wp.shape == (cluster, H // 2, n, 2) and wp.dtype == torch.float32
+    seen = []
+    for r in range(cluster):
+        by_k = wp[r].permute(0, 2, 1).reshape(H, n)     # (k, j)
+        for j in range(n):
+            nt, q, e = j // 8, (j % 8) // 2, j % 2
+            col = (2 * (q & 1) + e) * H + (H // cluster) * r + 2 * nt + (
+                q >> 1)
+            assert torch.equal(by_k[:, j], w[:, col]), (r, j)
+            seen.append(col)
+    assert sorted(seen) == list(range(4 * H))
+
+
+# The body (and the sequence body's cluster size) lstm_scan takes on the
+# grid measured on the card (PERF.md, tools/lstm_bodies.py): the fastest
+# at every T there.  B = 112 and 128 straddle the 7 clusters of 16
+# blocks that fit at once (measured in an earlier run of the tool: at T =
+# 5 the two cluster sizes were within 3% at B = 128).
+BODY_GRID = {16: "sequence 16", 64: "sequence 16", 112: "sequence 16",
+             128: "sequence 8", 256: "sequence 16", 1024: "sequence 8",
+             2048: "sequence 8", 4096: "sequence 8", 8192: "serving"}
+# What runs at once on the card the grid was measured on (NVIDIA H100 80GB
+# HBM3): 132 SMs, one serving block each; `max_active_clusters` 15 of 8
+# blocks, 7 of 16.
+H100_SXM = {"serving": 132, 8: 15, 16: 7}
+
+
+def _pick(B, at_once):
+    got = k5._body(B, at_once)
+    return (f"sequence {k5._cluster(B, at_once)}" if got == "sequence"
+            else got)
+
+
+@pytest.mark.parametrize("B,want", sorted(BODY_GRID.items()))
+def test_body_choice_by_shape(B, want):
+    """The body depends on B and the card alone (the sequence length
+    scales both bodies alike): the training encoder's 16 streams take the
+    sequence body on clusters of 16 blocks, the serving shape's 8192
+    channel-streams keep the serving body, and the measured grid gives
+    its winner."""
+    assert _pick(B, H100_SXM) == want
+
+
+def test_body_choice_follows_the_card():
+    """On a card that runs half as many blocks and clusters at once the
+    waves double: the serving body's one wave wins from B = 4096 on, the
+    training encoder's 16 streams stay on the sequence body."""
+    half = {"serving": 66, 8: 7, 16: 3}
+    assert _pick(16, half) == "sequence 16"
+    assert _pick(2048, half) == "sequence 8"
+    assert _pick(4096, half) == _pick(8192, half) == "serving"
+    assert _pick(4096, H100_SXM) == "sequence 8"
+
+
+@pytest.mark.parametrize("B,T", [(16, 40), (20, 7), (8, 5)])
+def test_wrapper_cpu_goes_to_plain_whatever_the_body(B, T):
+    """On CPU tensors the wrapper is lstm_scan_plain at any shape, the
+    ones whose CUDA body would be the sequence body included: bit-equal,
+    and no body's counter moves; another non-CUDA device raises."""
+    x, h0, c0, w_ih, w_hh, b_ih, b_hh = map(T_, _inputs(seed=6, B=B, T=T))
+    gi = x @ w_ih.T + b_ih
+    names = ("launches", "serving_launches", "sequence_launches")
+    before = [getattr(lstm_scan, n) for n in names]
+    for a, b in zip(lstm_scan(gi, h0, c0, w_hh.T, b_hh),
+                    lstm_scan_plain(gi, h0, c0, w_hh.T, b_hh)):
+        assert torch.equal(a, b)
+    assert [getattr(lstm_scan, n) for n in names] == before
+    m = lambda t: t.to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        lstm_scan(m(gi), m(h0), m(c0), m(w_hh.T), m(b_hh))

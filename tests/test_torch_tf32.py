@@ -14,9 +14,11 @@ import torch
 from vap_realtime_tpu_torch.ops.cuda.cpc_conv import (
     cpc_conv_tail_plain, pack_tail_params,
 )
-from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_scan_plain
+from vap_realtime_tpu_torch.ops.cuda.lstm import (
+    SEQ_K_SPLITS, lstm_scan_plain,
+)
 from vap_realtime_tpu_torch.ops.cuda.tf32 import (
-    matmul_3xtf32, tf32_round, tf32_split,
+    matmul_3xtf32, matmul_3xtf32_ksplit, tf32_round, tf32_split,
 )
 from vap_realtime_tpu_torch.weights.convert import params_to_torch
 from vap_realtime_tpu_torch.weights.synthetic import synthetic_params
@@ -95,20 +97,28 @@ def test_cpc_tail_3xtf32_within_1e5_of_float64(enc):
     assert _tail_errors(enc, _matmul_1xtf32) > 1e-4
 
 
-@pytest.mark.parametrize("T", [5, 10])
+@pytest.mark.parametrize("T", [5, 10, 1998])
 def test_lstm_3xtf32_within_1e6_of_float64(T):
     """K5's recurrence in 3xTF32 stays within 1e-6 of a float64 run (its
-    float32 contract against the plain version is 1e-5), at 20 Hz (T = 5)
-    and 10 Hz (T = 10)."""
+    float32 contract against the plain version is 1e-5): the serving
+    body's product at 20 Hz (T = 5) and 10 Hz (T = 10), 512 streams; and
+    at the training encoder's length (16 streams, T = 1998, 20 s) the
+    sequence body's summation order at both its cluster sizes
+    (`matmul_3xtf32_ksplit`: the K slices in 3xTF32, their partial sums
+    added in K order, then added to gi + b_hh)."""
     rs = np.random.RandomState(3)
-    B, H = 512, 256
+    B, H = (16 if T == 1998 else 512), 256
     gi = torch.from_numpy((0.5 * rs.randn(B, T, 4 * H)).astype(np.float32))
     h0, c0 = (torch.from_numpy((0.1 * rs.randn(B, H)).astype(np.float32))
               for _ in range(2))
     w = torch.from_numpy((rs.randn(H, 4 * H) / 16).astype(np.float32))
     b = torch.from_numpy((0.06 * rs.randn(4 * H)).astype(np.float32))
     ref = lstm_scan_plain(gi.double(), h0.double(), c0.double(), w, b)
-    got = lstm_scan_plain(gi, h0, c0, w, b, matmul=matmul_3xtf32)
-    for a, r in zip(got, ref):
-        assert a.dtype == torch.float32
-        assert (a.double() - r).abs().max().item() <= 1e-6
+    matmuls = ([matmul_3xtf32] if T != 1998 else
+               [lambda a, b, ks=ks: matmul_3xtf32_ksplit(a, b, ks)
+                for ks in SEQ_K_SPLITS.values()])
+    for matmul in matmuls:
+        got = lstm_scan_plain(gi, h0, c0, w, b, matmul=matmul)
+        for a, r in zip(got, ref):
+            assert a.dtype == torch.float32
+            assert (a.double() - r).abs().max().item() <= 1e-6

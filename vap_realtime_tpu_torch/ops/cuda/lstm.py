@@ -1,27 +1,44 @@
-"""Fused short-sequence LSTM scan: CUDA kernel wrapper + plain version.
+"""Fused LSTM scan: CUDA kernel wrapper + plain version.
 
 `lstm_scan` replaces the TPU kernel `lstm_scan`
 (vap_realtime_tpu/ops/pallas/lstm.py:48, body `_lstm_kernel`:26): the
 recurrence of the CPC context net's 1-layer LSTM over precomputed input
-gates, T = 100 // frame_hz steps (5 at 20 Hz), gates i, f, g, o, float32
-math.  `lstm_fused` is the drop-in for `ops.basic.lstm` (the counterpart
-of `lstm_pallas`:95); like the JAX package's, the serving step does not
-call it.  The kernel is `vap_realtime_tpu_torch/csrc/lstm_scan.cu`,
-hand-written for Hopper: 64 streams a block, the step's product h W_hh^T
-on the tensor cores in 3xTF32 (float32 accuracy from three TF32 MMAs,
-`ops/cuda/tf32.py`), W_hh^T streamed through shared memory with its gate
-columns interleaved by `pack_w_hh` so one shuffle gives a lane all four
-gates of its cells; see its header.
+gates, gates i, f, g, o, float32 math.  `lstm_fused` is the drop-in for
+`ops.basic.lstm` (the counterpart of `lstm_pallas`:95); like the JAX
+package's, the serving step does not call it; the training encoder
+(`models/encoder.py` `encode_sequence`) does, at (16, 1998, 256) for
+8 stereo 20 s clips.  The kernel is
+`vap_realtime_tpu_torch/csrc/lstm_scan.cu`, hand-written for Hopper, the
+step's product h W_hh^T on the tensor cores in 3xTF32 (float32 accuracy
+from three TF32 MMAs, `ops/cuda/tf32.py`), with two bodies (see its
+header):
 
-Bound on the H100: operations.  At 2B = 8192 channel-streams, T = 5,
-H = 256: 21.5 GFLOP of float32 recurrent matmuls (0.32 ms at 67 TFLOP/s
-on the CUDA cores; as 3xTF32 64.4 GFLOP of TF32, 0.13 ms at 495
-TFLOP/s); the bytes (gates in, outputs, 1 MB of weights) are ~0.12 GB
-(0.036 ms at 3.35 TB/s).
+- the serving body: 64 streams a block, W_hh^T streamed from L2 through
+  shared memory every step, its gate columns interleaved by `pack_w_hh`
+  so one shuffle gives a lane all four gates of its cells;
+- the sequence body, for long sequences at small batch: 16 streams a
+  thread-block cluster of 16 blocks (8 at larger B, `_cluster`), each
+  block owning 256 / cluster units' four gates (`pack_w_hh_seq`) with its
+  slice of W_hh^T resident in shared memory for all T steps, h_t sent to
+  every block of the cluster through distributed shared memory
+  (`st.async`), each block waiting on its own mbarrier.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
-tensor it runs `lstm_scan_plain`.  `lstm_scan.launches` counts kernel
-launches.
+`_body(B, at_once)` picks the body from the batch and how many blocks or
+clusters the card runs at once (`_at_once`), by the crossover measured on
+the card (PERF.md); there is no option for it.  Each body has its own
+launch function (`_launch_serving`, `_launch_sequence`), which
+`chip_smoke.py` also calls to hold both against the plain version.
+
+Bound on the H100: operations, 2 T B H 4H float32 FLOP (as 3xTF32, three
+times that in TF32 at 495 TFLOP/s): 0.13 ms at (8192, 5, 256), 0.10 ms at
+(16, 1998, 256); the sequence body is bound in practice by the latency of
+its ~2,000 dependent steps, not by either.
+
+On a CUDA tensor the wrapper launches a body or raises (a cluster that
+does not fit raises too; nothing falls back); on a CPU tensor it runs
+`lstm_scan_plain`.  `lstm_scan.launches` counts kernel launches,
+`lstm_scan.serving_launches` and `lstm_scan.sequence_launches` each
+body's.
 """
 
 from __future__ import annotations
@@ -63,19 +80,28 @@ def lstm_scan_plain(gi_seq: Tensor, h0: Tensor, c0: Tensor, w_hh_t: Tensor,
     return torch.stack(ys, dim=1), h.to(h0.dtype), c.to(c0.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The kernel library, built on first use, with its C signature."""
-    from vap_realtime_tpu_torch.ops.cuda.build import load
-
-    lib = load("lstm_scan")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a built `lstm_scan.cu` (or a variant of
+    it, `tools/k5_ablate.py`) on `lib`; returns it."""
+    P, I = ctypes.c_void_p, ctypes.c_int
     fn = lib.lstm_scan_launch
     fn.restype = ctypes.c_int
-    P, I = ctypes.c_void_p, ctypes.c_int
     # gi dtype, h dtype; gi, h0, c0, w_packed, b_hh; ys, h_T, c_T; hx; B,
     # T, H; stream
     fn.argtypes = [I, I, P, P, P, P, P, P, P, P, P, I, I, I, P]
+    seq = lib.lstm_seq_launch
+    seq.restype = ctypes.c_int
+    # the same without hx, then cluster; stream; max_clusters
+    seq.argtypes = [I, I, P, P, P, P, P, P, P, P, I, I, I, I, P, P]
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The kernel library, built on first use, with its C signatures."""
+    from vap_realtime_tpu_torch.ops.cuda.build import load
+
+    return bind(load("lstm_scan"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -111,9 +137,149 @@ def pack_w_hh(w_hh_t: Tensor) -> Tensor:
     return w.permute(2, 0, 3, 1).contiguous()
 
 
+# The sequence body: streams a cluster; per cluster size, the K slices of
+# a block's product (csrc `SeqShape::kKSplit`: the reduction order the
+# tests replay).
+SEQ_ROWS = 16
+SEQ_K_SPLITS = {8: 4, 16: 8}
+# Each body's time a step for one wave, measured on an H100 (NVIDIA H100
+# 80GB HBM3, 700 W; `tools/lstm_bodies.py`, PERF.md): key ("serving", or
+# the sequence body's cluster size) -> (microseconds a step, streams a
+# block or cluster).  How many blocks or clusters run at once is the
+# card's (`_at_once`).
+_STEP_MODEL = {"serving": (104.0, 64), 8: (4.2, SEQ_ROWS),
+               16: (2.55, SEQ_ROWS)}
+
+
+def _waves_us(key, B: int, at_once: dict) -> float:
+    """Microseconds a step of body `key` at B streams on a card that runs
+    at_once[key] of its blocks (serving) or clusters together: a wave's
+    step x waves."""
+    step, rows = _STEP_MODEL[key]
+    units = -(-B // rows)
+    return step * -(-units // at_once[key])
+
+
+def _body(B: int, at_once: dict) -> str:
+    """"serving" or "sequence": the faster body at B streams (`_waves_us`;
+    the sequence length scales both alike, so it does not enter)."""
+    best = min(_STEP_MODEL, key=lambda k: _waves_us(k, B, at_once))
+    return "serving" if best == "serving" else "sequence"
+
+
+def _cluster(B: int, at_once: dict) -> int:
+    """The sequence body's cluster size at B streams: 16 blocks (W_hh^T's
+    TF32 parts resident, a shorter step, fewer clusters at once) or 8
+    (W_hh^T raw, more at once), whichever needs less time."""
+    return min((8, 16), key=lambda c: _waves_us(c, B, at_once))
+
+
+@functools.lru_cache(maxsize=None)
+def _at_once(device: torch.device) -> dict:
+    """{"serving": blocks, 8 / 16: clusters} that run together on
+    `device`: the serving body takes one SM a block (197 KB of shared
+    memory), the sequence body's clusters `max_active_clusters`."""
+    with torch.cuda.device(device):
+        out = {c: max_active_clusters(c) for c in (8, 16)}
+    out["serving"] = torch.cuda.get_device_properties(
+        device).multi_processor_count
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _seq_columns(H: int, cluster: int, device: torch.device) -> Tensor:
+    """(cluster, 4H / cluster) on `device`: the W_hh^T column (gate * H
+    + unit) of block r's local column j = 8 nt + 2 q + e, which the MMA
+    puts in lane q's accumulator e of column tile nt: gate 2 (q & 1) + e
+    of unit (H / cluster) r + 2 nt + (q >> 1).  Lanes q and q ^ 1 share a
+    unit, so one shuffle gives a lane all four gates of its cell."""
+    n = 4 * H // cluster
+    j = torch.arange(n)
+    nt, q, e = j // 8, (j % 8) // 2, j % 2
+    r = torch.arange(cluster)[:, None]
+    unit = (H // cluster) * r + 2 * nt + (q >> 1)
+    return ((2 * (q & 1) + e) * H + unit).to(device)
+
+
+def pack_w_hh_seq(w_hh_t: Tensor, cluster: int) -> Tensor:
+    """W_hh^T (H, 4H), gate-major columns -> the sequence body's blocks'
+    slices (cluster, H / 2, 4H / cluster, 2) float32: block r holds its
+    units' four gates in `_seq_columns` order, K rows in pairs (row k at
+    [r, k // 2, :, k % 2]) as in `pack_w_hh`."""
+    H = w_hh_t.shape[0]
+    cols = _seq_columns(H, cluster, w_hh_t.device).reshape(-1)
+    n = 4 * H // cluster
+    w = w_hh_t.float()[:, cols].reshape(H // 2, 2, cluster, n)
+    return w.permute(2, 0, 3, 1).contiguous()
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"lstm_scan: {msg}")
+
+
+def _outputs(gi: Tensor, h0: Tensor, c0: Tensor):
+    B, T, H4 = gi.shape
+    return (torch.empty((B, T, H4 // 4), dtype=gi.dtype, device=gi.device),
+            torch.empty_like(h0), torch.empty_like(c0))
+
+
+def _raise(rc: int, body: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"lstm_scan: {body} body launch failed, "
+                           f"cudaError {rc}")
+
+
+def _launch_serving(gi: Tensor, h0: Tensor, c0: Tensor, w_hh_t: Tensor,
+                    b: Tensor):
+    """The serving body on checked, contiguous CUDA tensors (b float32)."""
+    B, T, H4 = gi.shape
+    H = H4 // 4
+    w = pack_w_hh(w_hh_t)
+    ys, h_t, c_t = _outputs(gi, h0, c0)
+    hx = torch.empty((B, H), dtype=torch.float32, device=gi.device)  # h_t
+    with torch.cuda.device(gi.device):
+        rc = _lib().lstm_scan_launch(
+            _DTYPES[gi.dtype], _DTYPES[h0.dtype], gi.data_ptr(),
+            h0.data_ptr(), c0.data_ptr(), w.data_ptr(), b.data_ptr(),
+            ys.data_ptr(), h_t.data_ptr(), c_t.data_ptr(), hx.data_ptr(),
+            B, T, H,
+            torch.cuda.current_stream(gi.device).cuda_stream)
+    _raise(rc, "serving")
+    lstm_scan.launches += 1
+    lstm_scan.serving_launches += 1
+    return ys, h_t, c_t
+
+
+def _launch_sequence(gi: Tensor, h0: Tensor, c0: Tensor, w_hh_t: Tensor,
+                     b: Tensor, cluster: int):
+    """The sequence body on checked, contiguous CUDA tensors (b float32):
+    ceil(B / 16) clusters of `cluster` blocks (8, or 16 where the card
+    allows it).  Raises where no such cluster fits."""
+    B, T, H4 = gi.shape
+    w = pack_w_hh_seq(w_hh_t, cluster)
+    ys, h_t, c_t = _outputs(gi, h0, c0)
+    with torch.cuda.device(gi.device):
+        rc = _lib().lstm_seq_launch(
+            _DTYPES[gi.dtype], _DTYPES[h0.dtype], gi.data_ptr(),
+            h0.data_ptr(), c0.data_ptr(), w.data_ptr(), b.data_ptr(),
+            ys.data_ptr(), h_t.data_ptr(), c_t.data_ptr(), B, T, H4 // 4,
+            cluster, torch.cuda.current_stream(gi.device).cuda_stream, None)
+    _raise(rc, "sequence")
+    lstm_scan.launches += 1
+    lstm_scan.sequence_launches += 1
+    return ys, h_t, c_t
+
+
+def max_active_clusters(cluster: int) -> int:
+    """cudaOccupancyMaxActiveClusters of the sequence body (float32) on
+    the current card; raises where none fits."""
+    n = ctypes.c_int(0)
+    rc = _lib().lstm_seq_launch(0, 0, None, None, None, None, None, None,
+                                None, None, SEQ_ROWS, 1, 256, cluster, None,
+                                ctypes.byref(n))
+    _raise(rc, "sequence")
+    return n.value
 
 
 def lstm_scan(gi_seq: Tensor, h0: Tensor, c0: Tensor, w_hh_t: Tensor,
@@ -122,8 +288,9 @@ def lstm_scan(gi_seq: Tensor, h0: Tensor, c0: Tensor, w_hh_t: Tensor,
 
     gi_seq: (B, T, 4H) = x @ W_ih.T + b_ih; h0, c0: (B, H); w_hh_t:
     (H, 4H), the TRANSPOSED recurrent weights; b_hh: (4H,).  gi and h0/c0
-    are float32 or bf16 (each its own); H = 256.  Returns (ys (B, T, H)
-    in gi's dtype, h_T, c_T in h0's)."""
+    are float32 or bf16 (each its own); H = 256.  The body follows from
+    B and the card (`_body`).  Returns (ys (B, T, H) in gi's dtype, h_T,
+    c_T in h0's)."""
     if gi_seq.device.type == "cpu":
         return lstm_scan_plain(gi_seq, h0, c0, w_hh_t, b_hh)
     _check(gi_seq.device.type == "cuda", f"unsupported device "
@@ -139,29 +306,20 @@ def lstm_scan(gi_seq: Tensor, h0: Tensor, c0: Tensor, w_hh_t: Tensor,
            f"h0, c0 must be ({B}, {H})")
     _check(tuple(w_hh_t.shape) == (H, H4) and b_hh.numel() == H4,
            f"w_hh_t must be ({H}, {H4}), b_hh ({H4},)")
-    w = pack_w_hh(w_hh_t)
     b = b_hh.float().reshape(H4).contiguous()
     gi, h0c, c0c = gi_seq.contiguous(), h0.contiguous(), c0.contiguous()
-    for t in (h0c, c0c, w, b):
+    for t in (h0c, c0c, w_hh_t, b):
         _check(t.device == gi.device, "all tensors on one device")
-    ys = torch.empty((B, T, H), dtype=gi.dtype, device=gi.device)
-    h_t = torch.empty_like(h0c)
-    c_t = torch.empty_like(c0c)
-    hx = torch.empty((B, H), dtype=torch.float32, device=gi.device)  # h_t
-    with torch.cuda.device(gi.device):
-        rc = _lib().lstm_scan_launch(
-            _DTYPES[gi.dtype], _DTYPES[h0c.dtype], gi.data_ptr(),
-            h0c.data_ptr(), c0c.data_ptr(), w.data_ptr(), b.data_ptr(),
-            ys.data_ptr(), h_t.data_ptr(), c_t.data_ptr(), hx.data_ptr(),
-            B, T, H,
-            torch.cuda.current_stream(gi.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"lstm_scan: kernel launch failed, cudaError {rc}")
-    lstm_scan.launches += 1
-    return ys, h_t, c_t
+    at_once = _at_once(gi.device)
+    if _body(B, at_once) == "sequence":
+        return _launch_sequence(gi, h0c, c0c, w_hh_t, b,
+                                _cluster(B, at_once))
+    return _launch_serving(gi, h0c, c0c, w_hh_t, b)
 
 
 lstm_scan.launches = 0
+lstm_scan.serving_launches = 0
+lstm_scan.sequence_launches = 0
 
 
 def lstm_fused(x: Tensor, h0: Tensor, c0: Tensor, w_ih: Tensor,

@@ -6,8 +6,10 @@ each float32 operand x is split into hi = tf32(x) and lo = tf32(x - hi)
 by `cvt.rna.tf32.f32` (round to nearest, ties away from zero, the 13 low
 mantissa bits cleared), and a b is summed as hi_a hi_b + (hi_a lo_b +
 lo_a hi_b) in float32.  `tf32_split` reproduces that rounding bit for bit
-and `matmul_3xtf32` the product, so the CPU tests keep the evidence for the
-rounding choice the card's kernels rely on.  Only tests use them.
+and `matmul_3xtf32` the product (`matmul_3xtf32_ksplit` as K5's sequence
+body sums it: K in consecutive slices, their partial products added in K
+order), so the CPU tests keep the evidence for the rounding choice the
+card's kernels rely on.  Only tests use them.
 """
 
 from __future__ import annotations
@@ -44,3 +46,16 @@ def matmul_3xtf32(a: Tensor, b: Tensor) -> Tensor:
     a_hi, a_lo = tf32_split(a)
     b_hi, b_lo = tf32_split(b)
     return a_hi @ b_hi + (a_hi @ b_lo + a_lo @ b_hi)
+
+
+def matmul_3xtf32_ksplit(a: Tensor, b: Tensor, parts: int) -> Tensor:
+    """a @ b as K5's sequence body takes it: K cut into `parts`
+    consecutive slices, each slice's product in 3xTF32 (one warp's
+    accumulator), the partial products added in K order (the shared-memory
+    reduction)."""
+    k = a.shape[-1] // parts
+    out = None
+    for j in range(parts):
+        p = matmul_3xtf32(a[..., j * k:(j + 1) * k], b[j * k:(j + 1) * k])
+        out = p if out is None else out + p
+    return out
