@@ -2030,6 +2030,28 @@ def phase_d_hybrid(cfg, p_bf16, gpu) -> None:
         torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def recorded_ticks():
+    """The port's span recorder on around a block; the list it yields
+    holds the block's `vap.tick` spans once the block ends (a tick of an
+    arena or of a `VapEngine`: their count and host time)."""
+    from vap_realtime_tpu_torch.utils import spans
+
+    spans.take()
+    spans.enable(True)
+    ticks = []
+    try:
+        yield ticks
+    finally:
+        spans.enable(False)
+        ticks.extend(r for r in spans.take() if r.name == "vap.tick")
+
+
+def tick_ms(ticks) -> float:
+    """Mean host ms of `vap.tick` spans."""
+    return sum(r.end_ns - r.start_ns for r in ticks) * 1e-6 / len(ticks)
+
+
 def phase_c(cfg, params_np, config="bf16"):
     """The native server on the card, with the arena of a configuration
     (CONFIGS): 8 loopback connections.  Returns the kernels' launches
@@ -2091,21 +2113,22 @@ def phase_c(cfg, params_np, config="bf16"):
 
     zero_counts()                                    # main path: zero ...
     ticker = threading.Thread(target=srv.serve_forever)
-    ticker.start()
     clients = [threading.Thread(target=client, args=(i,))
                for i in range(n_conn)]
-    try:
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join(timeout=60)
-    finally:
-        srv.stop()
-        ticker.join(timeout=10)
+    with recorded_ticks() as stepped:
+        ticker.start()
+        try:
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=60)
+        finally:
+            srv.stop()
+            ticker.join(timeout=10)
     launches = counts()                              # ... and read
     check(not ticker.is_alive() and not any(c.is_alive() for c in clients),
           "server or client threads did not stop")
-    ticks = srv.tick_stats["n"]
+    ticks = len(stepped)
     # resync ticks of a hybrid arena: no attend launch
     R = kw.get("resync_every", 0)
     resyncs = sum(1 for g in range(step0, step0 + ticks)
@@ -2265,7 +2288,7 @@ def two_port_serve(engine, audio, n_frames):
     """VapServer on free ports around `engine`: one consumer, one producer
     streaming float64 hops of (2, N) `audio` paced as the CPU serving
     tests pace them (2 ms a hop), until `n_frames` results arrived.
-    Returns (results, server)."""
+    Returns (results, the engine's `vap.tick` spans)."""
     from vap_realtime_tpu_torch.io import wire
     from vap_realtime_tpu_torch.runtime.server import VapServer
 
@@ -2281,26 +2304,27 @@ def two_port_serve(engine, audio, n_frames):
                     wire.read_framed(c), "vap"))
 
     consumer = threading.Thread(target=consume)
-    try:
-        consumer.start()
-        deadline = time.time() + 10
-        while not srv.clients and time.time() < deadline:
-            time.sleep(0.01)
-        with socket.create_connection(("127.0.0.1", srv.port_in),
-                                      timeout=10) as p:
-            for h in range(n_frames * engine.cfg.frame_shift // 160):
-                p.sendall(wire.conv_2floatarray_2_bytearray(
-                    audio[0, h * 160:(h + 1) * 160],
-                    audio[1, h * 160:(h + 1) * 160]))
-                time.sleep(0.002)
-            consumer.join(timeout=60)
-    finally:
-        srv.stop()
+    with recorded_ticks() as stepped:
+        try:
+            consumer.start()
+            deadline = time.time() + 10
+            while not srv.clients and time.time() < deadline:
+                time.sleep(0.01)
+            with socket.create_connection(("127.0.0.1", srv.port_in),
+                                          timeout=10) as p:
+                for h in range(n_frames * engine.cfg.frame_shift // 160):
+                    p.sendall(wire.conv_2floatarray_2_bytearray(
+                        audio[0, h * 160:(h + 1) * 160],
+                        audio[1, h * 160:(h + 1) * 160]))
+                    time.sleep(0.002)
+                consumer.join(timeout=60)
+        finally:
+            srv.stop()
     check(not consumer.is_alive() and len(results) == n_frames
-          and srv.tick_stats["n"] == n_frames,
+          and len(stepped) == n_frames,
           f"VapServer: {len(results)} results of {n_frames}, "
-          f"{srv.tick_stats['n']} frames stepped")
-    return results, srv
+          f"{len(stepped)} frames stepped")
+    return results, stepped
 
 
 def overlapped_frames(audio, cfg, n):
@@ -2400,9 +2424,9 @@ def phase_f_server(cfg, params_np, gpu) -> int:
     eng = VapEngine(cfg, params=params_np, device="cuda")
     eng.warmup()
     zero_counts()
-    res, srv = two_port_serve(eng, audio, F_FRAMES)
+    res, stepped = two_port_serve(eng, audio, F_FRAMES)
     k2 += launches_per_frame(counts(), F_FRAMES, "VapServer kv")
-    ms_kv = srv.tick_stats["seconds"] / srv.tick_stats["n"] * 1e3
+    ms_kv = tick_ms(stepped)
     frames = overlapped_frames(audio, cfg, F_FRAMES)
     alone_kv = engine_alone_ms(eng, frames)
     ref = VapEngine(cfg, params=params_np, device="cpu")
@@ -2418,9 +2442,9 @@ def phase_f_server(cfg, params_np, gpu) -> int:
                     device="cuda")
     eng.warmup()
     zero_counts()
-    res, srv = two_port_serve(eng, audio, F_FRAMES)
+    res, stepped = two_port_serve(eng, audio, F_FRAMES)
     k2 += launches_per_frame(counts(), F_FRAMES, "VapServer fast bf16")
-    ms_fast = srv.tick_stats["seconds"] / srv.tick_stats["n"] * 1e3
+    ms_fast = tick_ms(stepped)
     alone_fast = engine_alone_ms(eng, fresh)
     twin = VapEngine(cfg, params=params_np, path="fast",
                      dtype=torch.bfloat16, attend_impl="plain",
@@ -2483,20 +2507,21 @@ def phase_f_batched(cfg, params_np, gpu) -> int:
                                       results[i]))
                for i in range(n_conn)]
     zero_counts()
-    try:
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join(timeout=60)
-    finally:
-        srv.stop()
+    with recorded_ticks() as stepped:
+        try:
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=60)
+        finally:
+            srv.stop()
     got = counts()
     check(not any(c.is_alive() for c in clients)
           and all(len(r) == F_FRAMES for r in results),
           f"BatchedVapServer results {[len(r) for r in results]}")
-    ticks = srv.tick_stats["n"]
+    ticks = len(stepped)
     k2 = launches_per_frame(got, ticks, "BatchedVapServer kv")
-    ms = srv.tick_stats["seconds"] / ticks * 1e3
+    ms = tick_ms(stepped)
     ref = StreamArena(cfg, params_np, capacity=n_conn, device="cpu")
     slots = [ref.add_stream() for _ in range(n_conn)]
     frames = [overlapped_frames(a, cfg, F_FRAMES) for a in audios]
@@ -2534,8 +2559,9 @@ def phase_f_batched(cfg, params_np, gpu) -> int:
           f"ticks, card vs CPU StreamArena max |d| {d:.3e} (atol 1e-4), "
           f"launches {got} = 7 K2 a tick; a fifth connection to a "
           f"capacity-4 arena rejected", flush=True)
-    print(f"[f] BatchedVapServer ms per tick (arena.step, {n_conn} streams "
-          f"of capacity {SERVER_CAPACITY}): {ms:.3f} | {gpu}", flush=True)
+    print(f"[f] BatchedVapServer host ms per tick (the arena's vap.tick "
+          f"span: upload and dispatch, {n_conn} streams of capacity "
+          f"{SERVER_CAPACITY}): {ms:.3f} | {gpu}", flush=True)
     return k2
 
 
@@ -3355,33 +3381,36 @@ def phase_h_client(cfg, params_np) -> int:
          "--port_num", str(srv.port_out), "--print_every", "1"],
         cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        deadline = time.time() + 60
-        while not srv.clients and time.time() < deadline:
-            time.sleep(0.05)
-        check(len(srv.clients) == 1, "the console client did not connect")
-        with tempfile.TemporaryDirectory() as tmp:
-            left = os.path.join(tmp, "l.wav")
-            right = os.path.join(tmp, "r.wav")
-            write_wav(left, audio[0], 16000)
-            write_wav(right, audio[1], 16000)
-            zero_counts()
-            wav_main(["--port_num", str(srv.port_in),
-                      "--command_port_num", str(port_cmd),
-                      "--input_wav_left", left, "--input_wav_right", right])
-        deadline = time.time() + 30
-        while srv.tick_stats["n"] < frames and time.time() < deadline:
-            time.sleep(0.05)
-        time.sleep(0.5)              # the last results reach the console
-    finally:
-        srv.stop()
+    with recorded_ticks() as stepped:
         try:
-            out, err = console.communicate(timeout=30)
+            deadline = time.time() + 60
+            while not srv.clients and time.time() < deadline:
+                time.sleep(0.05)
+            check(len(srv.clients) == 1,
+                  "the console client did not connect")
+            with tempfile.TemporaryDirectory() as tmp:
+                left = os.path.join(tmp, "l.wav")
+                right = os.path.join(tmp, "r.wav")
+                write_wav(left, audio[0], 16000)
+                write_wav(right, audio[1], 16000)
+                zero_counts()
+                wav_main(["--port_num", str(srv.port_in),
+                          "--command_port_num", str(port_cmd),
+                          "--input_wav_left", left,
+                          "--input_wav_right", right])
+            deadline = time.time() + 30
+            while engine.state.step < frames and time.time() < deadline:
+                time.sleep(0.05)
+            time.sleep(0.5)          # the last results reach the console
         finally:
-            console.kill()
+            srv.stop()
+            try:
+                out, err = console.communicate(timeout=30)
+            finally:
+                console.kill()
     got = counts()
-    check(srv.tick_stats["n"] == frames,
-          f"VapServer stepped {srv.tick_stats['n']} of {frames} frames")
+    check(len(stepped) == frames,
+          f"VapServer stepped {len(stepped)} of {frames} frames")
     k2 = launches_per_frame(got, frames, "input_wav -> VapServer kv")
     lines = [ln for ln in out.splitlines() if ln.startswith("t=")]
     # "t=... p_now=[a, b] p_future=[a, b] vad=[a, b]": six values a line
@@ -3395,7 +3424,7 @@ def phase_h_client(cfg, params_np) -> int:
           f"VapEngine(path='kv', cuda, float32) -> output_console: "
           f"{len(lines)} results of {frames} frames, all finite; {k2} K2 "
           f"launches (7 a frame); engine "
-          f"{srv.tick_stats['seconds'] / frames * 1e3:.3f} ms a frame",
+          f"{tick_ms(stepped):.3f} ms a frame",
           flush=True)
     return k2
 

@@ -35,6 +35,7 @@ from vap_realtime_tpu_torch.models.transformer import (
     fold_in, gpt_forward, gpt_stereo_forward, init_gpt_params, init_linear,
 )
 from vap_realtime_tpu_torch.ops.basic import linear
+from vap_realtime_tpu_torch.utils.spans import span, traced
 from vap_realtime_tpu_torch.weights.convert import _unflatten, tree_items
 
 Tensors = Dict[str, torch.Tensor]
@@ -124,13 +125,15 @@ def forward_waveform(params, waveform: torch.Tensor, cfg: VapConfig,
     """
     B = waveform.shape[0]
     wav = torch.cat([waveform[:, 0], waveform[:, 1]])
-    if cfg.context_limit_cpc_sec > 0:
-        e = encode_sequence_limited(params["encoder"], wav,
-                                    cfg.downsample_kernel,
-                                    cfg.context_limit_cpc_sec,
-                                    cfg.sample_rate)
-    else:
-        e = encode_sequence(params["encoder"], wav, cfg.downsample_kernel)
+    with span("vap.encode"):
+        if cfg.context_limit_cpc_sec > 0:
+            e = encode_sequence_limited(params["encoder"], wav,
+                                        cfg.downsample_kernel,
+                                        cfg.context_limit_cpc_sec,
+                                        cfg.sample_rate)
+        else:
+            e = encode_sequence(params["encoder"], wav,
+                                cfg.downsample_kernel)
     return forward_context(params, e[:B], e[B:], cfg, generator)
 
 
@@ -174,6 +177,7 @@ class VapModel(torch.nn.Module):
         return forward_waveform(self.params, waveform, self.cfg, generator)
 
 
+@traced("vap.heads")
 def heads_forward(params, trunk: Tensors, cfg: VapConfig) -> Tensors:
     """All output heads for the configured mode.
 
@@ -208,6 +212,7 @@ def heads_forward(params, trunk: Tensors, cfg: VapConfig) -> Tensors:
     return out
 
 
+@traced("vap.probs")
 def probs_from_outputs(outputs: Tensors, cfg: VapConfig) -> Tensors:
     """Head logits -> the mode's probability outputs.
 

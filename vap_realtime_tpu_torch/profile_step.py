@@ -25,8 +25,11 @@ name and power limit:
   the encoder alone (CUDA events) and of the 7 attend launches of a KV
   step (CUDA events); the trunk is the rest;
 - the top CUDA kernels by device time over the steps (torch.profiler),
-  and the device's busy share of that window (summed kernel time over
-  wall time; overlapping kernels would push it above 100%).
+  and the device's busy share of that window (the union of the kernels'
+  intervals over the wall time: kernels that overlap count once);
+- each layer span's host self ms a step (`utils/spans.py`: the span's
+  host time less its child spans'), over as many steps again with the
+  span recorder on and the profiler off.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from vap_realtime_tpu_torch.runtime import incremental as inc
 from vap_realtime_tpu_torch.runtime.arena import (
     FRESH_PATHS, HYBRID_PATHS, init_path_state, path_step,
 )
+from vap_realtime_tpu_torch.utils import spans
 from vap_realtime_tpu_torch.weights.convert import params_to_torch
 from vap_realtime_tpu_torch.weights.synthetic import synthetic_params
 
@@ -187,9 +191,21 @@ def attend_ms(kv, cfg, B, dt, staged, impl, g, n) -> float:
         for ph in range(7)], n)
 
 
+def union_length(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
 def device_profile(step, n: int, gpu: str) -> None:
     """torch.profiler over n steps: the device's busy share of the wall
-    time and the top CUDA kernels by device time."""
+    time (the union of the kernels' intervals, inside the synchronised
+    window) and the top CUDA kernels by device time; then n steps with
+    the span recorder on: each span's host self ms a step."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -199,15 +215,32 @@ def device_profile(step, n: int, gpu: str) -> None:
             step(i)
         torch.cuda.synchronize()
         wall_us = (time.time() - t) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_us = union_length(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == cuda
+        and not getattr(e, "is_user_annotation", False))
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
     dev_us = sum(e.self_device_time_total for e in kernels)
     print(f"[profile] {n} steps in {wall_us / 1e3:.3f} ms wall; device "
-          f"kernel time {dev_us / 1e3:.3f} ms = {100 * dev_us / wall_us:.1f}%"
-          f" busy | {gpu}", flush=True)
+          f"busy {busy_us / 1e3:.3f} ms = {100 * busy_us / wall_us:.1f}% "
+          f"(summed kernel time {dev_us / 1e3:.3f} ms) | {gpu}", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"[profile]   {e.self_device_time_total / n / 1e3:8.3f} "
               f"ms/step  x{e.count // n:<4d} {e.key[:90]}", flush=True)
+    spans.take()
+    spans.enable(True)
+    try:
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+    finally:
+        spans.enable(False)
+    table = spans.self_times(spans.take())
+    for name, d in sorted(table.items(), key=lambda kv: -kv[1]["self_ms"]):
+        print(f"[profile]   span {name:<12s} x{d['count'] / n:<4g} host self "
+              f"{d['self_ms'] / n:8.3f} ms/step (with children "
+              f"{d['ms'] / n:.3f})", flush=True)
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ import torch
 
 from vap_realtime_tpu_torch.config import VapConfig
 from vap_realtime_tpu_torch.runtime import incremental, streaming
+from vap_realtime_tpu_torch.utils.spans import span
 from vap_realtime_tpu_torch.weights.convert import params_to_torch
 
 PATHS = ("kv", "fast", "full", "hybrid", "fast_hybrid")
@@ -112,6 +113,12 @@ def path_step(path: str, params, state, chunk: torch.Tensor,
     return incremental.fast_hybrid_step(params, state, chunk, cfg, active,
                                         conv_impl=conv_impl,
                                         conv_chunks=conv_chunks, **kw)
+
+
+def tick_index(state) -> Optional[int]:
+    """The state's tick counter (`KVState.step`, a host int), or None
+    for the full path's state, which keeps none."""
+    return getattr(getattr(state, "kv", state), "step", None)
 
 
 def _reset_slot(state, mask: torch.Tensor) -> None:
@@ -235,7 +242,9 @@ class StreamArena:
         """Reset MANY slots in one fixed-shape pass."""
         mask = np.zeros((self.capacity,), bool)
         mask[list(slots)] = True
-        _reset_slot(self.state, self._upload(mask))
+        with span("vap.reset", n=int(mask.sum()),
+                  id=tick_index(self.state)):
+            _reset_slot(self.state, self._upload(mask))
 
     # --- stepping ----------------------------------------------------------
 
@@ -243,22 +252,26 @@ class StreamArena:
         """Host array -> device tensor without stalling the host: a
         pinned copy, then an asynchronous transfer (the pinned block is
         not reused before the transfer completes)."""
-        t = torch.from_numpy(arr)
-        if self.device.type == "cpu":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        with span("vap.upload", n=arr.nbytes):
+            t = torch.from_numpy(arr)
+            if self.device.type == "cpu":
+                return t
+            return t.pin_memory().to(self.device, non_blocking=True)
 
     def _run(self, frames: np.ndarray, act: np.ndarray, merge: str = "auto",
              resync_mode: str = "auto"):
-        return self.step_tensors(self._upload(frames), self._upload(act),
-                                 merge, resync_mode)
+        with span("vap.tick", id=tick_index(self.state)):
+            return self.step_tensors(self._upload(frames),
+                                     self._upload(act), merge, resync_mode)
 
     def step_tensors(self, x: torch.Tensor, act: torch.Tensor,
                      merge: str = "auto", resync_mode: str = "auto"):
         """One tick on a (capacity, 2, chunk_samples) chunk batch and a
         (capacity,) active mask already on the arena's device (int16
         chunks are normalised here); returns the device output dict
-        unread."""
+        unread.  `step`, `step_device` and `step_device_batch` call it
+        inside a `vap.tick` span that also holds their uploads; a direct
+        call's layer spans have no tick around them."""
         with on_device(self.device):
             wire_i16 = x.dtype == torch.int16
             x = x.to(self.dtype)

@@ -37,8 +37,9 @@ import torch
 from vap_realtime_tpu_torch.config import FRAME_CONTEXT_PADDING, VapConfig
 from vap_realtime_tpu_torch.runtime.arena import (
     FRESH_PATHS, check_path, init_path_state, on_device, path_step,
-    resolve_device,
+    resolve_device, tick_index,
 )
+from vap_realtime_tpu_torch.utils.spans import span
 from vap_realtime_tpu_torch.weights.convert import (
     load_pytree_npz, load_torch_checkpoint, params_to_torch,
 )
@@ -161,7 +162,8 @@ class VapEngine:
                 f"expected chunk shape {(self.batch, 2, self.chunk_samples)}"
                 f" (batch, channels, samples), got {chunk.shape}")
         t0 = time.time()
-        with on_device(self.device):
+        with span("vap.tick", id=tick_index(self.state)), \
+                on_device(self.device):
             x = torch.from_numpy(chunk).to(self.device).to(self.dtype)
             self.state, out = self._step(self.state, x)
             out = {k: v.float().cpu().numpy() for k, v in out.items()}

@@ -53,6 +53,7 @@ from vap_realtime_tpu_torch.ops.cuda.attend import (
 from vap_realtime_tpu_torch.runtime.streaming import (
     _masked_bias, scan_frames, trunk_full,
 )
+from vap_realtime_tpu_torch.utils.spans import span, traced
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
@@ -225,6 +226,7 @@ def kv_step(params: Params, state: KVState, chunk: Tensor, cfg: VapConfig,
     return state, outs
 
 
+@traced("vap.encode")
 def _chunked_encode(params: Params, kv: KVState, chunk: Tensor,
                     cfg: VapConfig):
     """The chunked encoder over overlapped frames (B, 2, frame_samples):
@@ -369,6 +371,7 @@ def _grouped_attend(state: KVState, q: Tensor, k_cur: Tensor,
     return (out / denom[..., None]).reshape(B, D).to(dtype)
 
 
+@traced("vap.trunk")
 def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
              c_new: Tensor, cfg: VapConfig, active: Tensor, slots: str,
              attend_impl: str = "einsum", merge: str = "auto"
@@ -446,46 +449,47 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
 
     def attend2(q2, k2, v2, pair_base):
         """Twin attentions of one phase; set s reads pair pair_base + s."""
-        if attend_impl == "einsum":
-            return torch.stack([
-                _einsum_attend(state, q2[:, s], k2[:, s], v2[:, s],
-                               2 * (pair_base + s), bias, H, staged)
-                for s in (0, 1)], dim=1)
-        if attend_impl == "grouped":
-            return torch.stack([
-                _grouped_attend(state, q2[:, s], k2[:, s], v2[:, s],
-                                2 * (pair_base + s), age_cat, slopes, H,
-                                staged)
-                for s in (0, 1)], dim=1)
-        fn = functools.partial(
-            attend_pair if attend_impl in ("kernel", "kernel3")
-            else attend_pair_plain, impl="compact" if compact else "bcast")
-        ph = pair_base // 2
-        stage = state.stage if staged else None
-        if quant == "global":
-            # frozen-scale fold: the kernel sees a scale-free int8
-            # problem — q rides c_k (scores of dequantised K == scores of
-            # codes against q * c_k), k_cur / v_cur ride 1/c so the
-            # current position lands in code units, the output scales
-            # back by c_v (JAX incremental.py:449-472).  Each fold is one
-            # kernel: float32 math (the scales are float32), the result
-            # rounded to the state dtype, as the JAX package's casts.
-            c = gscale_safe[:, ph, 0]                          # (B, 4)
-            ck, cv = c[:, 0::2, None], c[:, 1::2, None]        # (B, 2, 1)
-            fold = lambda op, x, c: op(x, c, out=torch.empty(
-                x.shape, dtype=dtype, device=x.device))
-            out = fn(state.cache, fold(torch.mul, q2, ck),
-                     fold(torch.div, k2, ck), fold(torch.div, v2, cv),
-                     age_f, stage, age_st_f, pair_base=pair_base,
-                     num_heads=H)
-            return torch.mul(out, cv, out=out)
-        return fn(state.cache, q2.to(dtype).contiguous(),
-                  k2.to(dtype).contiguous(), v2.to(dtype).contiguous(),
-                  age_f, stage, age_st_f,
-                  scale=state.scale[:, ph] if row else None,
-                  stage_scale=(state.stage_scale[:, :, ph]
-                               if row and staged else None),
-                  pair_base=pair_base, num_heads=H)
+        with span("vap.attend"):
+            if attend_impl == "einsum":
+                return torch.stack([
+                    _einsum_attend(state, q2[:, s], k2[:, s], v2[:, s],
+                                   2 * (pair_base + s), bias, H, staged)
+                    for s in (0, 1)], dim=1)
+            if attend_impl == "grouped":
+                return torch.stack([
+                    _grouped_attend(state, q2[:, s], k2[:, s], v2[:, s],
+                                    2 * (pair_base + s), age_cat, slopes, H,
+                                    staged)
+                    for s in (0, 1)], dim=1)
+            fn = functools.partial(
+                attend_pair if attend_impl in ("kernel", "kernel3")
+                else attend_pair_plain, impl="compact" if compact else "bcast")
+            ph = pair_base // 2
+            stage = state.stage if staged else None
+            if quant == "global":
+                # frozen-scale fold: the kernel sees a scale-free int8
+                # problem — q rides c_k (scores of dequantised K == scores of
+                # codes against q * c_k), k_cur / v_cur ride 1/c so the
+                # current position lands in code units, the output scales
+                # back by c_v (JAX incremental.py:449-472).  Each fold is one
+                # kernel: float32 math (the scales are float32), the result
+                # rounded to the state dtype, as the JAX package's casts.
+                c = gscale_safe[:, ph, 0]                          # (B, 4)
+                ck, cv = c[:, 0::2, None], c[:, 1::2, None]        # (B, 2, 1)
+                fold = lambda op, x, c: op(x, c, out=torch.empty(
+                    x.shape, dtype=dtype, device=x.device))
+                out = fn(state.cache, fold(torch.mul, q2, ck),
+                         fold(torch.div, k2, ck), fold(torch.div, v2, cv),
+                         age_f, stage, age_st_f, pair_base=pair_base,
+                         num_heads=H)
+                return torch.mul(out, cv, out=out)
+            return fn(state.cache, q2.to(dtype).contiguous(),
+                      k2.to(dtype).contiguous(), v2.to(dtype).contiguous(),
+                      age_f, stage, age_st_f,
+                      scale=state.scale[:, ph] if row else None,
+                      stage_scale=(state.stage_scale[:, :, ph]
+                                   if row and staged else None),
+                      pair_base=pair_base, num_heads=H)
 
     def ffn(x, layer):
         h = layer_norm(x, layer["ln_ffn"]["w"], layer["ln_ffn"]["b"])
@@ -557,18 +561,20 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
         do_merge = ((g + 1) % STAGE_S == 0 if merge == "auto"
                     else merge == "force")
         if do_merge:
-            # every S ticks: each staged row goes to its stream's own ring
-            # position stamp % T (placement identical to "stream")
-            valid = state.stage_stamp >= 0                     # (S, B)
-            idx = torch.remainder(state.stage_stamp, T)
-            _scatter_rows_multi(state.cache,
-                                state.stage.view(S, B, P, -1), idx, valid)
-            _scatter_rows_multi(stamp4, state.stage_stamp.view(S, B, 1, 1),
-                                idx, valid)
-            if row:
-                _scatter_rows_multi(state.scale[..., None],
-                                    state.stage_scale[..., None], idx, valid)
-            state.stage_stamp.fill_(-1)
+            with span("vap.merge"):
+                # every S ticks: each staged row goes to its stream's own ring
+                # position stamp % T (placement identical to "stream")
+                valid = state.stage_stamp >= 0                     # (S, B)
+                idx = torch.remainder(state.stage_stamp, T)
+                _scatter_rows_multi(state.cache,
+                                    state.stage.view(S, B, P, -1), idx, valid)
+                _scatter_rows_multi(stamp4, state.stage_stamp.view(S, B, 1, 1),
+                                    idx, valid)
+                if row:
+                    _scatter_rows_multi(state.scale[..., None],
+                                        state.stage_scale[..., None], idx,
+                                        valid)
+                state.stage_stamp.fill_(-1)
     elif slots == "stream":
         # per-stream ring position; a frozen tick touches nothing
         idx = torch.remainder(state.count, T)
@@ -661,6 +667,7 @@ def _all_active(x: Tensor, active: Optional[Tensor]) -> Tensor:
     return torch.ones((x.shape[0],), dtype=torch.bool, device=x.device)
 
 
+@traced("vap.encode")
 def _fast_encode(params: Params, state, new: Tensor, cfg: VapConfig,
                  active: Tensor, conv_impl: str, conv_chunks: int):
     """The fast path's streaming encoder over FRESH samples (B, 2, L):
@@ -808,6 +815,7 @@ def _trunk_rows(params: Params, e_ctx: Tensor, count: Tensor,
     return {k: v[:, -1] for k, v in probs.items()}, rows
 
 
+@traced("vap.resync")
 def _resync(params: Params, kv: KVState, e_ctx: Tensor, h_new: Tensor,
             c_new: Tensor, cfg: VapConfig, active: Tensor
             ) -> Dict[str, Tensor]:

@@ -94,8 +94,6 @@ class VapServer:
         self._out_ready = threading.Event()
         self._producer: Optional[socket.socket] = None
         self._threads: List[threading.Thread] = []
-        # frames stepped and the engine's seconds over them
-        self.tick_stats = {"n": 0, "seconds": 0.0}
 
     # --- output side -------------------------------------------------------
 
@@ -165,11 +163,8 @@ class VapServer:
             x2 = np.concatenate([x2, a2])
             if len(x1) < frame:
                 continue
-            t0 = time.perf_counter()
             outs = self.engine.process_batch(
                 np.stack([x1[:frame], x2[:frame]])[None])
-            self.tick_stats["seconds"] += time.perf_counter() - t0
-            self.tick_stats["n"] += 1
             self._publish(time.time(), x1[pad:frame], x2[pad:frame], outs)
             x1 = x1[frame - pad:]
             x2 = x2[frame - pad:]

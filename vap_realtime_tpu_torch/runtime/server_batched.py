@@ -66,8 +66,6 @@ class BatchedVapServer:
         self._threads: List[threading.Thread] = []
         self._serve_thread: Optional[threading.Thread] = None
         self.bound_port: Optional[int] = None
-        # ticks stepped and the arena's seconds over them
-        self.tick_stats = {"n": 0, "seconds": 0.0}
 
     # --- per-connection reader ---------------------------------------------
 
@@ -114,10 +112,7 @@ class BatchedVapServer:
                     c.pending = None
         if not chunks:
             return
-        t0 = time.perf_counter()
         results = self.arena.step({s: v[0] for s, v in chunks.items()})
-        self.tick_stats["seconds"] += time.perf_counter() - t0
-        self.tick_stats["n"] += 1
         t = time.time()
         for c in conns:
             if c.slot not in results:

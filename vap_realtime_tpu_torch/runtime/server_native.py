@@ -29,6 +29,7 @@ from vap_realtime_tpu_torch.io.native_ingest import NativeIngest
 from vap_realtime_tpu_torch.runtime import cli
 from vap_realtime_tpu_torch.runtime.arena import FRESH_PATHS, StreamArena
 from vap_realtime_tpu_torch.runtime.server import RESULT_KEYS
+from vap_realtime_tpu_torch.utils.spans import span
 
 
 class NativeVapServer:
@@ -57,50 +58,47 @@ class NativeVapServer:
         # host, gens) of the previous dispatch, shipped after the current
         # dispatch
         self._pending = None
-        self.tick_stats = {"n": 0, "dispatch": 0.0, "fetch": 0.0,
-                           "send": 0.0}
 
     def tick(self) -> int:
         """One serving tick: drain ready frames, detect slot reuse,
         dispatch one arena step, ship the PREVIOUS step's results.
         Returns #streams dispatched this tick.  poll() double-buffers its
         frame array, so the previous tick's audio is intact when its
-        results ship one tick later."""
+        results ship one tick later.  The three parts are spans
+        (`utils/spans.py`): vap.serve.dispatch (n: streams dispatched),
+        vap.serve.fetch and vap.serve.send (n: results shipped)."""
         slots, frames = self.ingest.poll()
-        t0 = time.time()
-        gens_now = self.ingest.generations()
-        if slots:
-            sarr = np.asarray(slots)
-            fresh = sarr[gens_now[sarr] != self._gens[sarr]]
-            if len(fresh):
-                self.arena.reset_slots(fresh.tolist())
-                self._gens[fresh] = gens_now[fresh]
-            out_dev = self.arena.step_device_batch(frames, sarr)
-            # the generation each result was computed FOR: the native
-            # sender drops a result whose slot was reused since
-            prev, self._pending = self._pending, (
-                sarr, frames, self._readback(out_dev),
-                gens_now[sarr].copy())
-            self.tick_stats["n"] += 1
-        else:
-            prev, self._pending = self._pending, None
-        t1 = time.time()
-        self.tick_stats["dispatch"] += t1 - t0
+        with span("vap.serve.dispatch", n=len(slots)):
+            gens_now = self.ingest.generations()
+            if slots:
+                sarr = np.asarray(slots)
+                fresh = sarr[gens_now[sarr] != self._gens[sarr]]
+                if len(fresh):
+                    self.arena.reset_slots(fresh.tolist())
+                    self._gens[fresh] = gens_now[fresh]
+                out_dev = self.arena.step_device_batch(frames, sarr)
+                # the generation each result was computed FOR: the native
+                # sender drops a result whose slot was reused since
+                prev, self._pending = self._pending, (
+                    sarr, frames, self._readback(out_dev),
+                    gens_now[sarr].copy())
+            else:
+                prev, self._pending = self._pending, None
         if prev is None:
             return len(slots)
         p_slots, p_frames, (host, copied), p_gens = prev
-        if copied is not None:
-            copied.synchronize()     # this tick's step may still be running
         n = len(p_slots)
-        mats = [host[key].numpy()[p_slots].reshape(n, -1)
-                for key in RESULT_KEYS[self.mode]]
-        self.tick_stats["fetch"] += time.time() - t1
-        t = time.time()
-        probs = np.concatenate(mats, axis=1)
-        self.ingest.send_results(p_slots, p_gens, t, p_frames, self._pad,
-                                 probs, [m.shape[1] for m in mats])
+        with span("vap.serve.fetch", n=n):
+            if copied is not None:
+                copied.synchronize()   # this tick's step may still be running
+            mats = [host[key].numpy()[p_slots].reshape(n, -1)
+                    for key in RESULT_KEYS[self.mode]]
+        with span("vap.serve.send", n=n):
+            probs = np.concatenate(mats, axis=1)
+            self.ingest.send_results(p_slots, p_gens, time.time(), p_frames,
+                                     self._pad, probs,
+                                     [m.shape[1] for m in mats])
         self.frames_served += n
-        self.tick_stats["send"] += time.time() - t
         return len(slots)
 
     def _readback(self, out):

@@ -9,8 +9,9 @@ wire format) in a subprocess, and records sustained results per second
 and end-to-end frame latency percentiles, socket ingest, host-to-device
 transfer, the step, readback and result serialisation included.  The
 server's own split of a tick (dispatch / fetch / send ms) comes from
-its `tick_stats`; each run also records the CPU seconds of the server's
-process and of the load generator over its wall seconds.
+its spans (`utils/spans.py`, recorded over each run); each run also
+records the CPU seconds of the server's process and of the load
+generator over its wall seconds.
 
 A run is `realtime` when it delivered at least 97% of n * hz results per
 second; `sustained_streams` is the largest n of a realtime run whose p99
@@ -141,6 +142,7 @@ def serve_run(arena, n: int, args, loadgen: str) -> dict:
     from vap_realtime_tpu_torch.config import FRAME_CONTEXT_PADDING
     from vap_realtime_tpu_torch.runtime.arena import FRESH_PATHS
     from vap_realtime_tpu_torch.runtime.server_native import NativeVapServer
+    from vap_realtime_tpu_torch.utils import spans
 
     overlap = (0 if args.engine_path in FRESH_PATHS
                else FRAME_CONTEXT_PADDING)
@@ -149,6 +151,8 @@ def serve_run(arena, n: int, args, loadgen: str) -> dict:
     th = threading.Thread(target=server.serve_forever, daemon=True)
     cpu0 = [_cpu_s(who) for who in _RUSAGE]
     t0 = time.perf_counter()
+    recording = spans.enabled()
+    spans.enable(True)
     th.start()
     try:
         cmd = [loadgen, "--port", str(server.port), "--streams", str(n),
@@ -168,6 +172,8 @@ def serve_run(arena, n: int, args, loadgen: str) -> dict:
     finally:
         server.stop()
         th.join(timeout=10)
+        spans.enable(recording)
+        records = spans.take()
     # CPU seconds over the run's wall seconds: this process (the server's
     # threads) and the load generator, which share the host's cores
     cpu1 = [_cpu_s(who) for who in _RUSAGE]
@@ -175,12 +181,15 @@ def serve_run(arena, n: int, args, loadgen: str) -> dict:
                     "server": round(cpu1[0] - cpu0[0], 2),
                     "loadgen": round(cpu1[1] - cpu0[1], 2)}
     run["realtime"] = run["results_per_sec"] >= 0.97 * n * args.hz
-    st = server.tick_stats
-    if st["n"]:
+    # ticks that dispatched streams; each part's host ms over them
+    ticks = sum(1 for r in records
+                if r.name == "vap.serve.dispatch" and r.n)
+    if ticks:
+        ms = spans.self_times(records)
         run["server_ms_per_tick"] = {
-            k: round(st[k] / st["n"] * 1e3, 3)
+            k: round(ms.get(f"vap.serve.{k}", {"ms": 0.0})["ms"] / ticks, 3)
             for k in ("dispatch", "fetch", "send")}
-        run["ticks"] = st["n"]
+        run["ticks"] = ticks
     return run
 
 

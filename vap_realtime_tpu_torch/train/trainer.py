@@ -59,6 +59,7 @@ from vap_realtime_tpu_torch.train.metrics import (
 from vap_realtime_tpu_torch.train.step import (
     loss_from_outputs, make_optimizer,
 )
+from vap_realtime_tpu_torch.utils.spans import span
 from vap_realtime_tpu_torch.weights.convert import (
     _flatten, _unflatten, load_pytree_npz, params_to_numpy, save_pytree_npz,
 )
@@ -100,20 +101,33 @@ def make_train_step(tx: torch.optim.Optimizer, cfg: VapConfig,
     With `augment`, the noise-robust (MC) waveform augmentation
     (reference train/transforms.py via AudioAugmentationCallback) draws
     from `fold_in(generator, 0)` and dropout from `fold_in(generator,
-    1)`; otherwise dropout draws from `generator`."""
+    1)`; otherwise dropout draws from `generator`.  The step's layers are
+    spans (`utils/spans.py`) identified by the step's index: the step,
+    the forward (`loss_fn`'s model call), the loss, the backward and the
+    optimizer (its zero_grad and its update)."""
     if augment:
         from vap_realtime_tpu_torch.train.transforms import augment_batch
+    index = 0
 
     def step(model, batch, generator: torch.Generator):
-        if augment:
-            batch = dict(batch, waveform=augment_batch(
-                batch["waveform"], fold_in(generator, 0)))
-            generator = fold_in(generator, 1)
-        tx.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(model, batch, cfg, generator)
-        loss.backward()
-        tx.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        nonlocal index
+        with span("vap.train.step", id=index):
+            index += 1
+            if augment:
+                batch = dict(batch, waveform=augment_batch(
+                    batch["waveform"], fold_in(generator, 0)))
+                generator = fold_in(generator, 1)
+            with span("vap.optimizer"):
+                tx.zero_grad(set_to_none=True)
+            with span("vap.forward"):
+                outs = model(batch["waveform"], generator)
+            with span("vap.loss"):
+                loss, metrics = loss_from_outputs(outs, batch, cfg)
+            with span("vap.backward"):
+                loss.backward()
+            with span("vap.optimizer"):
+                tx.step()
+            return {k: v.detach() for k, v in metrics.items()}
     return step
 
 
