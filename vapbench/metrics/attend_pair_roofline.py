@@ -1,9 +1,11 @@
 """K2's share of its roofline: the launches' byte bound (`counts/
-attend_pair.py` at the cell's B, T and stage S, at 3.35 TB/s) over their
-measured device time, over the traced ticks."""
+attend_pair.py` at the cell's B, T and stage S, at 3.35 TB/s) times
+every launch among the profiled stretch's device ops, over their device
+time: count and time from the same launches (one launch a call)."""
 
+from vapbench.common import log
 from vapbench.counts import attend_pair
-from vapbench.trace import traced_spans
+from vapbench.trace import kernel_calls
 
 PATTERN = "attend_pair_kernel"
 
@@ -12,12 +14,11 @@ def read(ctx, name):
     summ = ctx.get("summary")
     if not summ:
         return None
-    spans = traced_spans(ctx)
-    durs = [op["e"] - op["s"] for op in summ["ops"]
-            if PATTERN in op["name"]
-            and any(a <= op["s"] < b for a, b in spans)]
-    if not durs:
+    calls, t = kernel_calls(summ["ops"], PATTERN)
+    log("trace: attend_pair calls timed", calls, "counter",
+        ctx.get("counters", {}).get("attend_pair.launches"))
+    if not calls:
         return None
     bound = attend_pair.bound_s(ctx["streams"], ctx["T"], ctx["stage"],
                                 ctx["peaks"], ctx["model"]["dim"])
-    return 100.0 * bound * len(durs) / sum(durs)
+    return 100.0 * bound * calls / t

@@ -17,7 +17,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import re
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from vapbench.common import HERE, load_json
 
@@ -146,7 +146,8 @@ def _is_copy(name: str) -> bool:
 def summarize(events, kmap: Dict) -> Dict:
     """Reduce the profiler's events (times in microseconds from the
     trace's start) to: the harness's ranges by name, the device ops with
-    their layers, and the launch lookups' coverage."""
+    their layers and whether the stretch launched them (their launch is
+    among its runtime calls), and the launch lookups' coverage."""
     from torch.autograd import DeviceType
 
     ranges: Dict[str, List[Interval]] = {}
@@ -181,12 +182,14 @@ def summarize(events, kmap: Dict) -> Dict:
     ops = []
     n_span = n_name = n_default = 0
     for name, s, e, cid in device:
+        t = launch_at.get(cid)
+        launched = t is not None
         if _is_copy(name):
-            ops.append({"name": name, "s": s, "e": e, "layer": None})
+            ops.append({"name": name, "s": s, "e": e, "layer": None,
+                        "launched": launched})
             continue
         layer = None
-        t = launch_at.get(cid)
-        if t is not None:
+        if launched:
             for lname, rs in layer_ranges.items():
                 if any(a <= t <= b for a, b in rs):
                     layer = lname
@@ -201,7 +204,8 @@ def summarize(events, kmap: Dict) -> Dict:
         if layer is None:
             layer = default
             n_default += 1
-        ops.append({"name": name, "s": s, "e": e, "layer": layer})
+        ops.append({"name": name, "s": s, "e": e, "layer": layer,
+                    "launched": launched})
     top = sorted(runtime.items(), key=lambda kv: -kv[1])[:6]
     # which host op each blocking sync ran inside (the innermost)
     by_op: Dict[str, List[float]] = {}
@@ -214,14 +218,54 @@ def summarize(events, kmap: Dict) -> Dict:
     return {"ranges": ranges, "ops": ops, "syncs_by_host_op": by_op,
             "attributed": {"by_span": n_span, "by_name": n_name,
                            "by_default": n_default,
-                           "launches_seen": len(launch_at)},
+                           "launches_seen": len(launch_at),
+                           "ops_not_launched": sum(not op["launched"]
+                                                   for op in ops)},
             "host_runtime_s": top}
 
 
-def device_time(ops, spans: List[Interval], layer: str) -> float:
-    """Summed seconds of `layer`'s ops that start inside `spans`."""
-    return sum(op["e"] - op["s"] for op in ops if op["layer"] == layer
-               and any(a <= op["s"] < b for a, b in spans))
+def device_time(ops, layer: str) -> float:
+    """Summed seconds of `layer`'s ops that the profiled stretch launched
+    (their launch is among its runtime calls): the work of the ticks or
+    steps dispatched inside it, wherever the device's clock puts it
+    against the host's ranges."""
+    return sum(op["e"] - op["s"] for op in ops
+               if op["layer"] == layer and op["launched"])
+
+
+def dispatched(ctx) -> int:
+    """The ticks (or steps) dispatched inside the profiled stretch: the
+    ranges of the loop's first range name (the open loop's tick, the
+    closed loop's dispatch; the stop's synchronise lets each finish)."""
+    return len(ctx["summary"]["ranges"].get(ctx["tick_names"][0], []))
+
+
+def kernel_calls(ops, first: str, then: Optional[str] = None,
+                 per_call: int = 1) -> Tuple[int, float]:
+    """(whole calls, their summed device seconds) of a kernel over every
+    device op of the profiled stretch, with no range filter: the profiler
+    records from `Profile.start()` to `Profile.stop()`, whose synchronise
+    lets every launch finish.  A call is one launch whose name matches the
+    pattern `first`, then the next `per_call - 1` launches on the device
+    timeline that match `then`.  A `then` launch with no call open (the
+    rest of a call in flight when the stretch began) and a call cut short
+    are left out, their count and their time together."""
+    rf = re.compile(first)
+    rt = re.compile(then) if then else None
+    calls, secs = 0, 0.0
+    open_ = None                 # [launches, seconds] of the call open
+    for op in sorted(ops, key=lambda o: o["s"]):
+        if rf.search(op["name"]):
+            open_ = [0, 0.0]
+        elif open_ is None or rt is None or not rt.search(op["name"]):
+            continue
+        open_[0] += 1
+        open_[1] += op["e"] - op["s"]
+        if open_[0] == per_call:
+            calls += 1
+            secs += open_[1]
+            open_ = None
+    return calls, secs
 
 
 def breakdown(summ: Dict, window: Interval) -> Dict:
