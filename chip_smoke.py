@@ -70,7 +70,13 @@ Phases (any failed check raises, so the script exits non-zero):
            (bf16exp at 2e-2 in any dtype: it rounds to bf16 by design);
          - cache_read (K12) over the whole cache at B=4096 and 64, float32
            / bf16 / int8: |d| <= 1e-5 x the column's sum |x|, and two
-           launches bit-equal (no atomics).
+           launches bit-equal (no atomics);
+         - stage_merge (the staged ring's merge, one launch) bit-equal to
+           its plain version (ring, stamps, row scales as bytes; the
+           stage left empty): bf16, float32, int8 with frozen scales and
+           with row scales, B = 4096 and 4097, T = 50 and 200, random
+           payload bytes, a quarter of the staged rows invalid, stamps
+           wrapped round the ring.
   (b)    The full-width fast step (vap, 20 Hz, 2.5 s context, synthetic
          weights) in seven configurations: staged slots with the bf16
          cache, the int8 cache with frozen scales (quant="global") and
@@ -127,7 +133,9 @@ Phases (any failed check raises, so the script exits non-zero):
          and the component bench over every stage, with the launch
          counters zeroed just before and read just after; K11's and K12's
          ms per launch beside their bounds, plain versions and (K12)
-         torch.sum.
+         torch.sum; the stage merge's device time at the open cells'
+         shapes (20480 x T = 50 and 14336 x T = 200 streams, bf16, every
+         row valid) beside its byte floor and the plain version's time.
   (c)    The main paths through their user entry points: the native server
          (capacity 64, bf16, int16 wire) answers 8 loopback connections
          streaming 1 s of synthetic audio each (>= 15 results on each),
@@ -138,7 +146,9 @@ Phases (any failed check raises, so the script exits non-zero):
          tick); and StreamArena(path="fast_hybrid", resync_every=6), with
          resync ticks inside the run (counted; 7 K2 launches per
          incremental tick).  The launch counters are zeroed just before
-         each run and read just after.  Then VapEngine(path="fast",
+         each run and read just after; stage_merge launches once on each
+         merge tick of the staged arenas (1 tick in 8, none on a resync
+         tick) and on no other tick.  Then VapEngine(path="fast",
          conv_impl="fused"), VapEngine(path="full") and
          VapEngine(path="fast_hybrid") take a few process_batch calls on the
          card, and run_offline(path="full" and "hybrid") on synthetic audio
@@ -1805,6 +1815,144 @@ def phase_a_read() -> float:
     return worst
 
 
+MERGE_MODES = {"bf16": (torch.bfloat16, False),
+               "float32": (torch.float32, False),
+               "q8g": (torch.int8, "global"), "q8": (torch.int8, "row")}
+# the open cells' shapes: (streams, ring rows) of vap_jp_20hz_2500ms and
+# nod_erica_20hz_10000ms at the cells' loads
+MERGE_CELLS = {"vap open": (20480, 50), "nod open": (14336, 200)}
+
+
+def merge_inputs(mode: str, nb: int, Tn: int, seed: int):
+    """A staged merge's tensors on the card: (cache, stamp, stage,
+    stage_stamp, scale, stage_scale).  Payload and scales are random
+    bytes (a byte copy is checked as bytes, NaN patterns included); about
+    a quarter of the staged rows invalid, stream 0 all invalid, stamps
+    wrapped round the ring several times and distinct mod Tn per stream."""
+    dtype, quant = MERGE_MODES[mode]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def raw(shape, dt):
+        es = torch.empty((), dtype=dt).element_size()
+        n = int(np.prod(shape)) * es
+        return torch.randint(0, 256, (n,), generator=g, device="cuda",
+                             dtype=torch.uint8).view(dt).view(shape)
+
+    cache = raw((nb, P, Tn, 4 * D), dtype)
+    stage = raw((S, nb, P * 4 * D), dtype)
+    stamp = torch.randint(-1, 8 * Tn, (nb, Tn), generator=g, device="cuda",
+                          dtype=torch.int32)
+    base = torch.randint(0, 8 * Tn, (1, nb), generator=g, device="cuda",
+                         dtype=torch.int32)
+    st = base + torch.arange(S, device="cuda", dtype=torch.int32)[:, None]
+    st = torch.where(torch.rand((S, nb), generator=g, device="cuda") < 0.25,
+                     -1, st)
+    st[:, 0] = -1
+    scale = stage_scale = None
+    if quant == "row":
+        scale = raw((nb, P, Tn), torch.float32)
+        stage_scale = raw((S, nb, P), torch.float32)
+    return cache, stamp, stage, st.contiguous(), scale, stage_scale
+
+
+def _as_bytes(t):
+    return t.view(torch.uint8)
+
+
+def phase_a_merge() -> int:
+    """The stage-merge kernel against its plain version on the card, bit
+    for bit (ring, stamps, row scales as bytes; the stage marked empty):
+    bf16, float32, the int8 cache with frozen scales (q8g) and with row
+    scales (q8), B = 4096 and a ragged 4097, T = 50 and 200.  One launch
+    a merge.  Returns the launches."""
+    from vap_realtime_tpu_torch.ops.cuda.merge import (
+        stage_merge, stage_merge_plain,
+    )
+
+    stage_merge.launches = 0
+    n = 0
+    for mode in MERGE_MODES:
+        for nb in (B, B + 1):
+            for Tn in (T, 4 * T):
+                ts = merge_inputs(mode, nb, Tn, seed=nb + Tn)
+                nvalid = int((ts[3] >= 0).sum())
+                want = [None if t is None else t.clone() for t in ts]
+                stage_merge_plain(*want)
+                before = stage_merge.launches
+                stage_merge(*ts)
+                torch.cuda.synchronize()
+                check(stage_merge.launches == before + 1,
+                      f"stage_merge {mode}: {stage_merge.launches - before}"
+                      f" launches a merge")
+                n += 1
+                for name, got, w in zip(("cache", "stamp", "stage",
+                                         "stage_stamp", "scale",
+                                         "stage_scale"), ts, want):
+                    if w is not None:
+                        check(torch.equal(_as_bytes(got), _as_bytes(w)),
+                              f"stage_merge {mode} B={nb} T={Tn}: {name} "
+                              f"differs from the plain version")
+                check(bool((ts[3] == -1).all()),
+                      f"stage_merge {mode} B={nb} T={Tn}: stage not empty")
+                rows = "ring, stamps" + (", scales" if ts[4] is not None
+                                         else "")
+                print(f"[a] stage_merge {mode} ({nb}, {P}, {Tn}, {4 * D}), "
+                      f"S={S}, {nvalid} of {S * nb} staged rows valid: "
+                      f"{rows} bit-equal to the plain version, stage empty",
+                      flush=True)
+                del ts, want
+                torch.cuda.empty_cache()
+    return n
+
+
+def phase_d_merge(gpu) -> dict:
+    """The stage-merge kernel's device time (the profiler, without the
+    stamps' restore each call needs) at the open cells' shapes, bf16,
+    every staged row valid as in the cells' traffic, beside its byte floor
+    (each staged row read once and written once) and the plain version's
+    time (CUDA events, the restore included).  Returns the JSON fields
+    (the vap open shape's at the top level)."""
+    from vap_realtime_tpu_torch.ops.cuda.merge import (
+        stage_merge, stage_merge_plain,
+    )
+    from vap_realtime_tpu_torch.profile_step import cuda_ms
+
+    shapes = {}
+    for name, (nb, Tn) in MERGE_CELLS.items():
+        cache, stamp, stage, _, _, _ = merge_inputs("bf16", nb, Tn, seed=5)
+        saved = (torch.arange(S, device="cuda", dtype=torch.int32)[:, None]
+                 + 3 * Tn + torch.zeros((1, nb), device="cuda",
+                                        dtype=torch.int32))
+        ss = saved.clone()
+
+        def kernel():
+            ss.copy_(saved)
+            stage_merge(cache, stamp, stage, ss)
+
+        def plain():
+            ss.copy_(saved)
+            stage_merge_plain(cache, stamp, stage, ss)
+
+        dev = kernel_device_ms(kernel, "stage_merge_kernel", 20)
+        ms = cuda_ms(kernel, reps=20, warm=3)
+        plain_ms = cuda_ms(plain, reps=3, warm=1)
+        nbytes = 2 * stage.numel() * stage.element_size()
+        bound_ms, bound_by = bound(nbytes, 0)
+        shapes[name] = dict(ms=dev, ms_with_restore=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            streams=nb, ring_rows=Tn)
+        print(f"[d] stage_merge bf16 {name} ({nb}, {P}, {Tn}, {4 * D}), "
+              f"S={S}, all rows valid: the kernel {dev:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB at "
+              f"3.35 TB/s) = {100 * bound_ms / dev:.1f}% of bound, "
+              f"{nbytes / dev / 1e6:.1f} GB/s ({dev / bound_ms:.3f}x the "
+              f"floor); with the stamps' restore {ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms | {gpu}", flush=True)
+        del cache, stamp, stage, saved, ss
+        torch.cuda.empty_cache()
+    return dict(shapes["vap open"], library_ms=None, shapes=shapes)
+
+
 def hybrid_steps(p, cfg, nb, frames, dtype, device, path, R, plain=False,
                  active=None):
     """hybrid_step / fast_hybrid_step over `frames` from a fresh staged
@@ -2057,6 +2205,7 @@ def phase_c(cfg, params_np, config="bf16"):
     (CONFIGS): 8 loopback connections.  Returns the kernels' launches
     over the run."""
     from vap_realtime_tpu_torch.io import wire
+    from vap_realtime_tpu_torch.ops.cuda.merge import stage_merge
     from vap_realtime_tpu_torch.runtime.arena import StreamArena
     from vap_realtime_tpu_torch.runtime.server_native import NativeVapServer
     from vap_realtime_tpu_torch.weights.synthetic import synthetic_audio
@@ -2071,7 +2220,7 @@ def phase_c(cfg, params_np, config="bf16"):
                         resync_every=kw.get("resync_every"),
                         wire_dtype=np.int16, device="cuda")
     arena.warmup()
-    step0 = arena.state.kv.step if hasattr(arena.state, "kv") else 0
+    step0 = getattr(arena.state, "kv", arena.state).step
     srv = NativeVapServer(arena, port=0, wire_int16=True)
     n_conn, hops = 8, 100                            # 1 s of audio each
     audios = [synthetic_audio(16000, seed=7 + i) for i in range(n_conn)]
@@ -2112,6 +2261,7 @@ def phase_c(cfg, params_np, config="bf16"):
             rd.join(timeout=30)
 
     zero_counts()                                    # main path: zero ...
+    stage_merge.launches = 0
     ticker = threading.Thread(target=srv.serve_forever)
     clients = [threading.Thread(target=client, args=(i,))
                for i in range(n_conn)]
@@ -2126,13 +2276,22 @@ def phase_c(cfg, params_np, config="bf16"):
             srv.stop()
             ticker.join(timeout=10)
     launches = counts()                              # ... and read
+    merge_launches = stage_merge.launches
     check(not ticker.is_alive() and not any(c.is_alive() for c in clients),
           "server or client threads did not stop")
     ticks = len(stepped)
-    # resync ticks of a hybrid arena: no attend launch
+    # resync ticks of a hybrid arena: no attend launch, no merge
     R = kw.get("resync_every", 0)
     resyncs = sum(1 for g in range(step0, step0 + ticks)
                   if R and (g + 1) % R == 0)
+    # the staged merge: one launch on each merge tick, none on the others
+    staged = kw.get("slots", "staged") == "staged"
+    merges = sum(1 for g in range(step0, step0 + ticks)
+                 if staged and (g + 1) % S == 0
+                 and not (R and (g + 1) % R == 0))
+    check(merge_launches == merges,
+          f"{merge_launches} stage_merge launches over {ticks} server ticks "
+          f"holding {merges} merge ticks")
     want = {k: v * ticks for k, v in per_step(config).items()}
     want["attend"] = per_step(config)["attend"] * (ticks - resyncs)
     check(launches == want and ticks > 0 and (resyncs > 0 or not R),
@@ -2166,8 +2325,9 @@ def phase_c(cfg, params_np, config="bf16"):
           f"({skipped} frames skipped), {ticks} ticks"
           f"{f' ({resyncs} resync ticks)' if R else ''}, launches "
           f"{launches} = {per_step(config)} per "
-          f"{'incremental ' if R else ''}tick", flush=True)
-    return launches
+          f"{'incremental ' if R else ''}tick; stage_merge {merge_launches} "
+          f"= the {merges} merge ticks, 0 on the others", flush=True)
+    return dict(launches, merge=merge_launches)
 
 
 def phase_e(cfg, params_np) -> None:
@@ -3748,6 +3908,7 @@ def main() -> int:
     err_tail = phase_a_tail()
     err_lab = phase_a_lab()
     err_read = phase_a_read()
+    merge_checked = phase_a_merge()
     p_bf16, frames, run_steps_b = phase_b(cfg, params_np)
     p4, frames4 = phase_b_slice4(cfg, params_np)
     phase_b_hybrid(cfg, params_np)
@@ -3757,6 +3918,7 @@ def main() -> int:
     del p_bf16, frames, p4, frames4
     torch.cuda.empty_cache()
     lab, read, run_lab = phase_d_lab(gpu)
+    merge = phase_d_merge(gpu)
     run_bf16 = phase_c(cfg, params_np, "bf16")
     run_q8g = phase_c(cfg, params_np, "q8g_normk")
     run_fused = phase_c(cfg, params_np, "fused_compact")
@@ -3845,6 +4007,14 @@ def main() -> int:
         dict(name="cache_read", route="cuda", source=src + "cache_read.cu",
              replaces="tools/component_bench.py:393",
              launches=run_lab["read"], max_abs_err=err_read, **read),
+        # replaces no TPU kernel (the JAX merge is XLA scatters): one
+        # launch a merge tick over the server runs, checked bit-equal to
+        # the plain version in (a) over `merge_checked` merges
+        dict(name="stage_merge", route="cuda", source=src + "stage_merge.cu",
+             replaces=None,
+             launches=sum(r["merge"] for r in (run_bf16, run_q8g, run_fused,
+                                               run_kv, run_hybrid)),
+             max_abs_err=0.0, merges_checked=merge_checked, **merge),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

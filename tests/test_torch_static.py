@@ -37,7 +37,8 @@ def test_every_port_module_is_scanned():
     two-port and batched servers, the static step and its export tool,
     the serving tools, the clients, the demo and the examples, and the
     export and checkpoint tools, the web runner's server and the encoder,
-    roofline and scatter labs, and K5's crossover and ablation tools."""
+    roofline and scatter labs, K5's crossover and ablation tools, and the
+    staged merge's wrapper."""
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     pkg = "vap_realtime_tpu_torch/"
     for mod in ("ops/cuda/attend.py", "ops/cuda/channorm.py",
@@ -65,7 +66,8 @@ def test_every_port_module_is_scanned():
                 "tools/vap_offline_exported.py", "tools/export_web.py",
                 "clients/web_runner/serve.py", "tools/encoder_lab.py",
                 "tools/roofline.py", "tools/scatter_lab.py",
-                "tools/lstm_bodies.py", "tools/k5_ablate.py"):
+                "tools/lstm_bodies.py", "tools/k5_ablate.py",
+                "ops/cuda/merge.py"):
         assert pkg + mod in rel, mod
 
 

@@ -50,6 +50,7 @@ from vap_realtime_tpu_torch.ops.basic import gelu, layer_norm, linear
 from vap_realtime_tpu_torch.ops.cuda.attend import (
     DEAD, attend_pair, attend_pair_plain,
 )
+from vap_realtime_tpu_torch.ops.cuda.merge import scatter_rows, stage_merge
 from vap_realtime_tpu_torch.runtime.streaming import (
     _masked_bias, scan_frames, trunk_full,
 )
@@ -250,33 +251,6 @@ def run_frames_kv(params: Params, state: KVState, frames: Tensor,
     return scan_frames(functools.partial(kv_step, slots=slots,
                                          attend_impl=attend_impl),
                        params, state, frames, cfg)
-
-
-def _scatter_rows(cache: Tensor, rows: Tensor, idx: Tensor,
-                  valid: Tensor) -> None:
-    """In place: cache[b, :, idx[b]] = rows[b] for every stream b with
-    valid[b]; other streams' rows stay as they are.
-
-    cache (B, P, T, X); rows (B, P, X); idx (B,) int; valid (B,) bool.
-    The JAX package writes with `.at[...].set(mode="drop")` and parks
-    the invalid streams' targets out of range (T, or T + i); torch's
-    index_put_ raises on out-of-range targets instead.  So an invalid
-    stream writes its OWN current row at an in-range position (0): one
-    target per stream, no duplicates, no change.
-    """
-    b = torch.arange(cache.shape[0], device=cache.device)
-    t = torch.where(valid, idx, 0)
-    old = cache[b, :, t]                                   # (B, P, X)
-    cache[b, :, t] = torch.where(valid.view(-1, 1, 1), rows, old)
-
-
-def _scatter_rows_multi(cache: Tensor, vals: Tensor, idx: Tensor,
-                        valid: Tensor) -> None:
-    """S-row variant of `_scatter_rows` (the staged-merge write), one row
-    per stream at a time: vals (S, B, P, X); idx, valid (S, B).  A
-    stream's valid targets are distinct, so the order does not matter."""
-    for i in range(vals.shape[0]):
-        _scatter_rows(cache, vals[i], idx[i], valid[i])
 
 
 @functools.lru_cache(maxsize=None)
@@ -548,9 +522,6 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
         rows, state.scale = quantize_rows_global(rows, state.scale, active)
     else:
         rows = rows.to(dtype)
-    # stamps and row scales ride the same row writer as (B, 1|P, T, 1)
-    # views
-    stamp4 = state.stamp.view(B, 1, T, 1)
     if staged:
         S = state.stage.shape[0]
         si = g % S
@@ -561,28 +532,24 @@ def _kv_core(params: Params, state: KVState, e: Tensor, h_new: Tensor,
         do_merge = ((g + 1) % STAGE_S == 0 if merge == "auto"
                     else merge == "force")
         if do_merge:
-            with span("vap.merge"):
-                # every S ticks: each staged row goes to its stream's own ring
-                # position stamp % T (placement identical to "stream")
-                valid = state.stage_stamp >= 0                     # (S, B)
-                idx = torch.remainder(state.stage_stamp, T)
-                _scatter_rows_multi(state.cache,
-                                    state.stage.view(S, B, P, -1), idx, valid)
-                _scatter_rows_multi(stamp4, state.stage_stamp.view(S, B, 1, 1),
-                                    idx, valid)
-                if row:
-                    _scatter_rows_multi(state.scale[..., None],
-                                        state.stage_scale[..., None], idx,
-                                        valid)
-                state.stage_stamp.fill_(-1)
+            # every S ticks: each staged row goes to its stream's own ring
+            # position stamp % T (placement identical to "stream"); one
+            # kernel launch on the card.  n: the staged rows examined
+            with span("vap.merge", n=S * B):
+                stage_merge(state.cache, state.stamp, state.stage,
+                            state.stage_stamp,
+                            state.scale if row else None, state.stage_scale)
     elif slots == "stream":
         # per-stream ring position; a frozen tick touches nothing
         idx = torch.remainder(state.count, T)
-        _scatter_rows(state.cache, rows, idx, active)
-        _scatter_rows(stamp4, state.count.view(B, 1, 1), idx, active)
+        scatter_rows(state.cache, rows, idx, active)
+        # stamps and row scales ride the same row writer as (B, 1|P, T, 1)
+        # views
+        scatter_rows(state.stamp.view(B, 1, T, 1), state.count.view(B, 1, 1),
+                     idx, active)
         if row:
-            _scatter_rows(state.scale[..., None], scale_new[..., None], idx,
-                          active)
+            scatter_rows(state.scale[..., None], scale_new[..., None], idx,
+                         active)
     elif slots == "global":
         # one scalar slot for all streams; frozen streams keep their row
         t = g % T
@@ -889,7 +856,7 @@ def _hybrid_core(params: Params, kv: KVState, e_ctx: Tensor, e: Tensor,
         raise ValueError(f"resync_mode {resync_mode!r} not in "
                          f"{RESYNC_MODES}")
     T = cfg.context_frames
-    _scatter_rows(e_ctx, e, torch.remainder(kv.count, T), active)
+    scatter_rows(e_ctx, e, torch.remainder(kv.count, T), active)
     if resync_mode == "force" or (
             resync_mode == "auto" and resync_every > 0
             and (kv.step + 1) % resync_every == 0):
