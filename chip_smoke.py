@@ -136,6 +136,17 @@ Phases (any failed check raises, so the script exits non-zero):
          torch.sum; the stage merge's device time at the open cells'
          shapes (20480 x T = 50 and 14336 x T = 200 streams, bf16, every
          row valid) beside its byte floor and the plain version's time.
+  (k7)   K7 at the 20 Hz and the 5 Hz frame (800 and 3,200 fresh
+         samples) on 8192 channel-streams, bf16, three frames carrying
+         state: against the plain version (|d| <= 2^-6 (1 + |plain|)),
+         the 5 Hz frame bit-equal to four 800-sample calls in a row and
+         counted as four body calls and 8192 x 3200 samples a frame; ms
+         a frame beside the operation bound; the 20 Hz frame's digest of
+         z and the carries (the parent commit's build prints the same when
+         the 800-sample body is unchanged).  Then one tick of the nod
+         5 Hz / 10 s configuration through the benchmark's serving call
+         (64 streams, bf16): finite, 4 K7 body calls and 7 K2 launches,
+         its fields within the cell's limit of the float64 reference.
   (c)    The main paths through their user entry points: the native server
          (capacity 64, bf16, int16 wire) answers 8 loopback connections
          streaming 1 s of synthetic audio each (>= 15 results on each),
@@ -1951,6 +1962,151 @@ def phase_d_merge(gpu) -> dict:
         del cache, stamp, stage, saved, ss
         torch.cuda.empty_cache()
     return dict(shapes["vap open"], library_ms=None, shapes=shapes)
+
+
+# K7's frames in the long-frame phase: the 20 Hz frame (one body call,
+# as before) and the 5 Hz frame (four 800-sample body calls)
+K7_FRAMES = (800, 3200)
+
+
+def k7_digest(seed: int, N: int, L: int) -> str:
+    """sha256 of K7's bf16 outputs (z and every carry, 3 frames) on
+    `fused_inputs(seed, bf16, N, L)`: the same digest from two builds
+    means bit-equal outputs."""
+    import hashlib
+
+    from vap_realtime_tpu_torch.ops.cuda.encoder import conv_stack_fused
+
+    c0, news, carries, packed, _ = fused_inputs(seed, torch.bfloat16, N, L)
+    st, h = (c0, *carries), hashlib.sha256()
+    for new in news:
+        z, st = conv_stack_fused(st[0], new, st[1:], *packed)
+        for t in (z, *st):
+            h.update(t.contiguous().view(torch.int16).cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()
+
+
+def phase_k7_long(gpu) -> dict:
+    """K7 on 8192 channel-streams at the 20 Hz and the 5 Hz frame, bf16:
+    three frames each carrying its own state against the plain version
+    (the tolerance of (a)); the 5 Hz frame bit-equal to four 800-sample
+    calls in a row and counted as four body calls of 800 samples; each
+    frame's ms a call beside its operation bound; and the 20 Hz frame's
+    digest (`k7_digest`), which a run of the parent commit's build prints
+    the same when its body is unchanged.  Returns {L: fields}."""
+    from vap_realtime_tpu_torch.ops.cuda.encoder import (
+        conv_stack_fused, conv_stack_fused_plain,
+    )
+    from vap_realtime_tpu_torch.profile_step import cuda_ms
+    from vapbench.counts.conv_stack_fused import call_ops
+
+    N, out = 2 * B, {}
+    for L in K7_FRAMES:
+        c0, news, carries, packed, _ = fused_inputs(31, torch.bfloat16, N, L)
+        st_k = st_p = st_c = (c0, *carries)
+        err = 0.0
+        calls0 = conv_stack_fused.launches
+        samples0 = conv_stack_fused.samples
+        for f, new in enumerate(news):
+            zk, st_k = conv_stack_fused(st_k[0], new, st_k[1:], *packed)
+            zp, st_p = conv_stack_fused_plain(st_p[0], new, st_p[1:],
+                                              *packed)
+            zc = []
+            for at in range(0, L, 800):
+                z1, st_c = conv_stack_fused(st_c[0], new[:, at:at + 800],
+                                            st_c[1:], *packed)
+                zc.append(z1)
+            torch.cuda.synchronize()
+            what = f"L={L} frame {f}"
+            check(zk.shape == (N, L // 160, C)
+                  and torch.isfinite(zk).all().item(),
+                  f"conv_stack_fused output {what}")
+            check(torch.equal(zk, torch.cat(zc, dim=1)) and all(
+                torch.equal(a, b) for a, b in zip(st_k, st_c)),
+                f"conv_stack_fused {what}: not bit-equal to 800-sample calls")
+            check(torch.equal(st_k[0], st_p[0]), f"carry c0 {what}")
+            for name, got, want in [("z", zk, zp)] + [
+                    (f"c{i}", a, b) for i, (a, b) in
+                    enumerate(zip(st_k[1:], st_p[1:]), start=1)]:
+                d = (got.float() - want.float()).abs()
+                check(bool((d <= 2 ** -6 * (1 + want.float().abs())).all()),
+                      f"conv_stack_fused vs plain {what} {name}: max |d| "
+                      f"{d.max().item():.3e}")
+                err = max(err, d.max().item())
+        pieces = L // 800
+        calls = conv_stack_fused.launches - calls0
+        samples = conv_stack_fused.samples - samples0
+        # 3 frames through the wrapper, 3 x pieces 800-sample calls
+        check(calls == 3 * pieces + 3 * pieces,
+              f"conv_stack_fused L={L}: {calls} body calls counted, "
+              f"expected {6 * pieces}")
+        check(samples == 6 * N * L,
+              f"conv_stack_fused L={L}: {samples} samples counted, "
+              f"expected {6 * N * L}")
+        args = (st_k[0], news[0], st_k[1:], *packed)
+        ms = cuda_ms(lambda: conv_stack_fused(*args), reps=10, warm=2)
+        plain_ms = cuda_ms(lambda: conv_stack_fused_plain(*args), reps=2)
+        flops = call_ops(N, L)
+        bound_ms = 1e3 * flops / BF16_FLOP_PER_S
+        digest = k7_digest(31, N, L) if L == 800 else None
+        out[L] = dict(ms=ms, bound_ms=bound_ms, share=100 * bound_ms / ms,
+                      plain_ms=plain_ms, body_calls=pieces,
+                      max_abs_err=err, digest=digest)
+        print(f"[k7] conv_stack_fused bf16 ({N} x {L}): {pieces} body "
+              f"call(s) a frame, {ms:.4f} ms a frame, bound {bound_ms:.4f} "
+              f"ms ({flops / 1e12:.3f} TFLOP at 989 TFLOP/s) = "
+              f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.4f} "
+              f"ms; max |kernel - plain| {err:.3e} (|d| <= 2^-6 (1 + "
+              f"|plain|)); bit-equal to {pieces} 800-sample call(s)"
+              + (f"; digest {digest}" if digest else "") + f" | {gpu}",
+              flush=True)
+        del c0, news, carries, st_k, st_p, st_c, zk, zp, zc, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_rate5(gpu) -> dict:
+    """One 5 Hz tick on the card: the nod 5 Hz / 10 s configuration
+    (`vapbench/configs/nod_erica_5hz_10000ms.json`) through the
+    benchmark's serving call (`vapbench.serving.Serving`: StreamArena on
+    the fast path, fused K7, staged slots, K2, bf16, int16 wire) at 64
+    streams and seeded weights, after 3 frozen ticks: finite fields, 4
+    K7 body calls and 7 K2 launches a tick, its ms; the sampled streams'
+    fields against the float64 reference (`vapbench/reference/`) in units
+    of a sound bf16 computation's gap, under the cell's limit."""
+    from vap_realtime_tpu_torch.ops.cuda.attend import attend_pair
+    from vap_realtime_tpu_torch.ops.cuda.encoder import conv_stack_fused
+    from vapbench.common import load_config, load_workload
+    from vapbench.serving import Serving
+
+    wl = load_workload("nod5-fast-open")
+    wl = dict(wl, audio=dict(wl["audio"], clips=4, seconds=4))
+    sv = Serving(wl, load_config(wl["config"]), 2 ** 33 + 1, "cuda",
+                 streams=SERVER_CAPACITY)
+    sv.frozen_ticks(3)
+    sv.audio.fill(0, sv.frames[0])
+    calls0, k2 = conv_stack_fused.launches, attend_pair.launches
+    t = time.perf_counter()
+    sv.collect(*sv.dispatch(0))
+    ms = 1e3 * (time.perf_counter() - t)
+    calls = conv_stack_fused.launches - calls0
+    k2 = attend_pair.launches - k2
+    sv.free()
+    chk = sv.check(1)
+    limit = wl["check"]["limits"]["max_gap_ratio"]
+    check(sv.failed == 0, "5 Hz tick: non-finite fields")
+    check(calls == 4 and k2 == 7, f"5 Hz tick: {calls} K7 body calls and "
+          f"{k2} K2 launches, expected 4 and 7")
+    check(chk["max_gap_ratio"] <= limit, f"5 Hz tick against the "
+          f"reference: max_gap_ratio {chk['max_gap_ratio']:.3f}")
+    print(f"[rate5] nod 5 Hz / 10 s, {SERVER_CAPACITY} streams: one tick "
+          f"{ms:.2f} ms (4 K7 body calls of 800 samples, 7 K2 launches); "
+          f"against the float64 reference max |d| {chk['max_gap']:.3e}, "
+          f"{chk['max_gap_ratio']:.3f}x a sound bf16 computation's (limit "
+          f"{limit}) | {gpu}", flush=True)
+    return dict(ms=ms, max_gap=chk["max_gap"],
+                max_gap_ratio=chk["max_gap_ratio"])
 
 
 def hybrid_steps(p, cfg, nb, frames, dtype, device, path, R, plain=False,
@@ -3919,6 +4075,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lab, read, run_lab = phase_d_lab(gpu)
     merge = phase_d_merge(gpu)
+    k7_long = phase_k7_long(gpu)
+    rate5 = phase_rate5(gpu)
     run_bf16 = phase_c(cfg, params_np, "bf16")
     run_q8g = phase_c(cfg, params_np, "q8g_normk")
     run_fused = phase_c(cfg, params_np, "fused_compact")
@@ -3967,7 +4125,9 @@ def main() -> int:
              source=src + "conv_stack_fused.cu",
              replaces="vap_realtime_tpu/ops/pallas/encoder.py:291",
              launches=run_fused["fused"] + lab_i["fused"],
-             max_abs_err=err_fused, **fused),
+             max_abs_err=err_fused, **fused,
+             frames={str(k): v for k, v in k7_long.items()},
+             rate5_tick=rate5),
         # off the serving paths, as in the JAX package; its main path is
         # the training encoder's LSTM, (16, 1998, 256) float32, one launch
         # a forward over (g), on the sequence body; both bodies at that

@@ -17,7 +17,12 @@ FRAMES, BATCH = 12, 2
 # (frame_hz, head mode); one stereo layer at full width, 1 s of context
 # (10 / 50 / 20 frames: at 10 Hz the hybrid path resyncs inside the 12)
 VARIANTS = {"10hz": (10, "vap"), "50hz": (50, "vap"), "bc": (20, "bc"),
-            "nod": (20, "nod")}
+            "nod": (20, "nod"), "5hz": (5, "nod")}
+# the context where 1 s is too short: staged slots need a ring of at
+# least 8 rows, so 5 Hz takes 2 s (10 rows: the ring wraps and the hybrid
+# path resyncs inside the 12 frames; a frame is 3,200 fresh samples, the
+# length K7 takes in pieces on the card)
+CONTEXT_SEC = {5: 2.0}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -36,11 +41,12 @@ def test_engine_matches_jax_at_other_rates_and_heads(path, variant):
     """VapEngine(path, device="cpu") against the JAX engine (its default
     einsum attend; the port's kernel attend runs its plain version here)
     over 12 frames at batch 2 through process_batch, every output at atol
-    1e-4, at 10 and 50 Hz (vap heads) and at 20 Hz with the bc and nod
-    heads."""
+    1e-4, at 10 and 50 Hz (vap heads), at 20 Hz with the bc and nod
+    heads and at 5 Hz with the nod heads."""
     hz, mode = VARIANTS[variant]
     kw = dict(dim=256, encoder_dim=256, num_heads=4, frame_hz=hz,
-              context_len_sec=1.0, cross_layers=1, mode=mode)
+              context_len_sec=CONTEXT_SEC.get(hz, 1.0), cross_layers=1,
+              mode=mode)
     jc = jcfg.VapConfig(**kw)
     init = jax.jit(init_vap_params, static_argnums=1)
     jp = jax.tree_util.tree_map(np.asarray, init(jax.random.PRNGKey(8), jc))

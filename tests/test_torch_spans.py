@@ -63,7 +63,8 @@ def test_off_span_is_one_shared_noop_and_records_nothing():
 
 def test_fast_tick_spans_nest_share_the_tick_id_and_count_bytes():
     """A staged fast-path tick: vap.tick holds the two uploads, the
-    encoder and the trunk; the trunk holds the 7 attends, the heads, the
+    encoder and the trunk; the encoder holds its conv stack, LSTM and
+    downsample; the trunk holds the 7 attends, the heads, the
     probabilities and, on every STAGE_S-th tick alone, the merge."""
     arena = _arena()
     slots = np.arange(arena.capacity)
@@ -85,6 +86,8 @@ def test_fast_tick_spans_nest_share_the_tick_id_and_count_bytes():
             "vap.upload", "vap.upload", "vap.encode", "vap.trunk"]
         assert [recs[j].n for j in kids[:2]] == [
             frames[0].nbytes, arena.capacity * np.dtype(bool).itemsize]
+        assert [recs[j].name for j in _children(recs, kids[2])] == [
+            "vap.encode.conv", "vap.encode.lstm", "vap.encode.down"]
         trunk = kids[-1]
         names = [recs[j].name for j in _children(recs, trunk)]
         assert names[:7] == ["vap.attend"] * 7
@@ -94,7 +97,7 @@ def test_fast_tick_spans_nest_share_the_tick_id_and_count_bytes():
             merged.append(tick.id)
         inside = [r for r in recs if tick.start_ns <= r.start_ns
                   and r.end_ns <= tick.end_ns]
-        assert len(inside) == 1 + 4 + len(names)
+        assert len(inside) == 1 + 4 + 3 + len(names)
         assert all(r.id == tick.id for r in inside)
         assert all(recs[j].start_ns >= tick.start_ns
                    and recs[j].end_ns <= tick.end_ns for j in kids)

@@ -48,6 +48,7 @@ from vap_realtime_tpu_torch.ops.cuda.encoder import (
     cpc_conv_stack_streaming_fused,
 )
 from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_fused
+from vap_realtime_tpu_torch.utils.spans import span
 
 # (kernel, stride, padding) for the 5 CPC convs
 # (reference: encoder_components.py:83-92).
@@ -258,16 +259,21 @@ def encode_chunk_streaming(params: Params, new: torch.Tensor,
     new: (B, 16000//frame_hz); h0, c0: (B, C) LSTM state.  conv_impl:
     one of CONV_IMPLS ("fused": the whole-stack kernel, whose results in
     bf16 are more precise than the "conv" path's; see ops/cuda/encoder.py).
-    Returns (emb (B, C), new_conv_state, h_new, c_new).
+    Returns (emb (B, C), new_conv_state, h_new, c_new).  Its three
+    stages are the spans `vap.encode.conv` (the conv stack), `.lstm` (the
+    100 // frame_hz steps of the plain LSTM) and `.down` (the downsample).
     """
     check_conv_impl(conv_impl)
     stack = {"normk": cpc_conv_stack_streaming_normk,
              "fused": cpc_conv_stack_streaming_fused,
              "blocked": cpc_conv_stack_streaming_blocked,
              }.get(conv_impl, cpc_conv_stack_streaming)
-    z, conv_state = stack(params, new, conv_state)
-    y, h_new, c_new = cpc_context(params, z, h0, c0)
-    e = downsample(params, y, downsample_kernel)
+    with span("vap.encode.conv"):
+        z, conv_state = stack(params, new, conv_state)
+    with span("vap.encode.lstm"):
+        y, h_new, c_new = cpc_context(params, z, h0, c0)
+    with span("vap.encode.down"):
+        e = downsample(params, y, downsample_kernel)
     return e[:, 0, :], conv_state, h_new, c_new
 
 

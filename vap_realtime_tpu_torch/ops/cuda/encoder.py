@@ -34,9 +34,22 @@ stride-block form: 0.50 TFLOP per step at 2B = 8192 (0.51 ms at the bf16
 tensor-core peak, 7.5 ms at the 67 TFLOP/s float32 CUDA-core peak); the
 bytes (waveform, carries, output, weights) are ~0.13 GB.
 
+Long frames.  One body call takes at most 80 conv1 rows a stream in
+bf16 (`kMaxT1`: L <= 1600 samples, 10 Hz) and what fits the float32
+body's shared memory (L <= 800).  A longer frame (L = 3200 at 5 Hz) runs
+as consecutive body calls over `PIECE`-sample pieces (the 20 Hz frame),
+each piece's carries out the next one's carries in (`in_pieces`).  The
+stack is causal and every layer's input rows are stored in the
+activation dtype in both forms, so the pieces compute the whole frame's
+rows from the same operands: the kernel's scratch (X1..X4, ~122 KB a
+channel-stream in bf16) stays at the 20 Hz frame's size, where one call
+over L = 3200 would need ~476 KB.
+
 On a CUDA tensor the wrapper launches the kernels or raises; on a CPU
-tensor it runs `conv_stack_fused_plain`.  `conv_stack_fused.launches`
-counts calls (`CUDA_LAUNCHES` kernel launches each).
+tensor it runs `conv_stack_fused_plain` over the whole frame.
+`conv_stack_fused.launches` counts body calls (`CUDA_LAUNCHES` kernel
+launches each; a frame in pieces makes one a piece) and
+`conv_stack_fused.samples` the channel-stream samples they computed.
 """
 
 from __future__ import annotations
@@ -251,12 +264,46 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"conv_stack_fused: {msg}")
 
 
+# the piece a frame longer than one body call takes runs in: the 20 Hz
+# frame, which both bodies take
+PIECE = 800
+
+
+def piece_samples(L: int, fits) -> int:
+    """The samples a body call takes for a frame of L: L when one call
+    fits it (`fits(L)`), else PIECE when L is a whole number of fitting
+    pieces; raises otherwise."""
+    if fits(L):
+        return L
+    _check(L > PIECE and L % PIECE == 0 and fits(PIECE),
+           f"L = {L}: one body call takes at most 1600 samples in bf16 "
+           f"(kMaxT1 = 80 conv1 rows) and 800 in float32 (its shared "
+           f"memory), and a longer frame runs in pieces of {PIECE} only "
+           f"when L is a multiple of {PIECE}")
+    return PIECE
+
+
+def in_pieces(stack, c0: Tensor, new: Tensor, carries, w0: Tensor, wts,
+              aux: Tensor, piece: int = PIECE):
+    """`stack` (the signature of `conv_stack_fused_plain`) over new (B, L)
+    as L / piece consecutive calls, each piece's new carries the next
+    one's carries in; z of the pieces concatenated over time.  Returns
+    what one call over the whole frame returns."""
+    zs = []
+    for at in range(0, new.shape[1], piece):
+        z, (c0, *carries) = stack(c0, new[:, at:at + piece], tuple(carries),
+                                  w0, wts, aux)
+        zs.append(z)
+    return torch.cat(zs, dim=1), (c0, *carries)
+
+
 def conv_stack_fused(c0: Tensor, new: Tensor, carries, w0: Tensor, wts,
                      aux: Tensor):
-    """The whole streaming conv stack on the card (one call: one launch in
-    float32, five in bf16): same arguments and results as
-    `conv_stack_fused_plain`.  The activation dtype (new's) is float32 or
-    bf16; every tensor lies on one device."""
+    """The whole streaming conv stack on the card (a body call: one
+    launch in float32, five in bf16; a frame longer than one call takes
+    runs in PIECE-sample pieces, a call each): same arguments and results
+    as `conv_stack_fused_plain`.  The activation dtype (new's) is float32
+    or bf16; every tensor lies on one device."""
     if new.device.type == "cpu":
         return conv_stack_fused_plain(c0, new, carries, w0, wts, aux)
     _check(new.device.type == "cuda", f"unsupported device {new.device}")
@@ -265,10 +312,7 @@ def conv_stack_fused(c0: Tensor, new: Tensor, carries, w0: Tensor, wts,
     _check(new.dim() == 2, f"new must be (B, L), got {tuple(new.shape)}")
     B, L = new.shape
     _check(B > 0 and L % CONV0_S == 0, f"L = {L} not a multiple of 5")
-    T0 = L // CONV0_S
-    lens = tail_lens(T0)
-    T4 = lens[-1][1]
-    _check(T4 > 0, f"L = {L} too short")
+    _check(tail_lens(L // CONV0_S)[-1][1] > 0, f"L = {L} too short")
     c0 = c0.reshape(B, CONV0_S).to(dt).contiguous()
     cs = [c.to(dt).contiguous() for c in carries]
     for c, (k, s) in zip(cs, TAIL_KS):
@@ -282,15 +326,25 @@ def conv_stack_fused(c0: Tensor, new: Tensor, carries, w0: Tensor, wts,
                f"(2, {s * C}, {C}) {dt}, contiguous")
     _check(tuple(aux.shape) == (15, C) and aux.dtype == torch.float32
            and aux.is_contiguous(), "aux must be (15, C) float32")
-    new = new.contiguous()
-    for t in (c0, *cs, w0, *wts, aux):
+    for t in (new, c0, *cs, w0, *wts, aux):
         _check(t.device == new.device, "all tensors on one device")
-    smem = _lib().conv_stack_fused_smem(_DTYPES[dt], T0)
-    _check(0 < smem <= SMEM_LIMIT,
-           f"L = {L} needs {smem} bytes of shared memory per block "
-           f"(at most {SMEM_LIMIT})")
+    piece = piece_samples(L, lambda n: 0 < _lib().conv_stack_fused_smem(
+        _DTYPES[dt], n // CONV0_S) <= SMEM_LIMIT)
+    if piece == L:
+        return _call(c0, new, cs, w0, wts, aux)
+    return in_pieces(_call, c0, new, cs, w0, wts, aux, piece)
+
+
+def _call(c0: Tensor, new: Tensor, cs, w0: Tensor, wts, aux: Tensor):
+    """One body call over a frame it takes, on checked operands (c0 and
+    the carries contiguous)."""
+    new = new.contiguous()
+    dt = new.dtype
+    B, L = new.shape
+    T0 = L // CONV0_S
+    lens = tail_lens(T0)
     dev = new.device
-    z = torch.empty((B, T4, C), dtype=dt, device=dev)
+    z = torch.empty((B, lens[-1][1], C), dtype=dt, device=dev)
     n0 = torch.empty((B, CONV0_S), dtype=dt, device=dev)
     ns = [torch.empty_like(c) for c in cs]
     ptrs = [new.data_ptr(), c0.data_ptr(), *[c.data_ptr() for c in cs],
@@ -314,10 +368,12 @@ def conv_stack_fused(c0: Tensor, new: Tensor, carries, w0: Tensor, wts,
         raise RuntimeError(f"conv_stack_fused: kernel launch failed, "
                            f"cudaError {rc}")
     conv_stack_fused.launches += 1
+    conv_stack_fused.samples += B * L
     return z, (n0, *ns)
 
 
 conv_stack_fused.launches = 0
+conv_stack_fused.samples = 0
 
 
 def cpc_conv_stack_streaming_fused(params: Params, new: Tensor,
