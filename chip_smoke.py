@@ -147,6 +147,14 @@ Phases (any failed check raises, so the script exits non-zero):
          5 Hz / 10 s configuration through the benchmark's serving call
          (64 streams, bf16): finite, 4 K7 body calls and 7 K2 launches,
          its fields within the cell's limit of the float64 reference.
+  (sync) Warm ticks of the benchmark's serving call (64 streams, bf16) on
+         the three serving configurations (vap 20 Hz / 2.5 s, nod 20 Hz
+         and 5 Hz / 10 s) past a merge tick, each `step_device_batch`
+         under `torch.cuda.set_sync_debug_mode("error")`: none blocks the
+         host, and no bin-sum table is built; first the mode is shown to
+         raise on a table built from host memory.  Then ticks whose
+         probability fields are computed twice, with the cached tables and
+         with a table built on every call: bit-equal.
   (c)    The main paths through their user entry points: the native server
          (capacity 64, bf16, int16 wire) answers 8 loopback connections
          streaming 1 s of synthetic audio each (>= 15 results on each),
@@ -2107,6 +2115,93 @@ def phase_rate5(gpu) -> dict:
           f"{limit}) | {gpu}", flush=True)
     return dict(ms=ms, max_gap=chk["max_gap"],
                 max_gap_ratio=chk["max_gap_ratio"])
+
+
+# one cell of each serving configuration
+SYNC_CELLS = ("vap20-fast-open", "nod20-fast-open", "nod5-fast-open")
+
+
+@contextlib.contextmanager
+def sync_debug_error():
+    """Any blocking CUDA sync inside the block raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def phase_sync(gpu) -> dict:
+    """Warm serving ticks hold no blocking sync: for each serving
+    configuration, the benchmark's serving call at 64 streams after 3
+    frozen ticks, 9 ticks (one merges the stage) each under the sync
+    debug mode "error"; `bin_sum_table.builds` unchanged.  Then 3 ticks
+    whose `vap.probs` also runs with a table built on every call: every
+    field bit-equal.  Returns {workload: {ticks, builds, equal}}."""
+    from vap_realtime_tpu_torch.models import objective as obj
+    from vap_realtime_tpu_torch.runtime import incremental
+    from vapbench.common import load_config, load_workload
+    from vapbench.serving import Serving
+
+    probs = torch.full((4, 256), 1 / 256, device="cuda")
+    try:
+        with sync_debug_error():
+            obj._bin_sum_table(0, 1, 4, probs.dtype, probs.device)
+        raised = False
+    except RuntimeError:
+        raised = True
+    check(raised, "sync debug mode: a table built from host memory did not "
+          "raise")
+    cached_probs = incremental.probs_from_outputs
+    out = {}
+    for name in SYNC_CELLS:
+        wl = load_workload(name)
+        wl = dict(wl, audio=dict(wl["audio"], clips=4, seconds=4))
+        sv = Serving(wl, load_config(wl["config"]), 2 ** 33 + 3, "cuda",
+                     streams=SERVER_CAPACITY)
+        sv.frozen_ticks(3)
+        builds = obj.bin_sum_table.builds
+        for k in range(9):
+            sv.audio.fill(k, sv.frames[0])
+            with sync_debug_error():
+                sv.arena.step_device_batch(sv.frames[0].numpy(), sv.slots)
+            torch.cuda.synchronize()
+        check(obj.bin_sum_table.builds == builds,
+              f"{name}: {obj.bin_sum_table.builds - builds} bin-sum tables "
+              f"built on warm ticks")
+        equal = []
+
+        def both(outputs, cfg):
+            got = cached_probs(outputs, cfg)
+            table, obj.bin_sum_table = obj.bin_sum_table, obj._bin_sum_table
+            try:
+                want = cached_probs(outputs, cfg)
+            finally:
+                obj.bin_sum_table = table
+            equal.append(all(torch.equal(got[f], want[f]) for f in got))
+            return got
+
+        incremental.probs_from_outputs = both
+        try:
+            for k in range(9, 12):
+                sv.audio.fill(k, sv.frames[0])
+                res = sv.arena.step_device_batch(sv.frames[0].numpy(),
+                                                 sv.slots)
+        finally:
+            incremental.probs_from_outputs = cached_probs
+        finite = all(bool(torch.isfinite(v.float()).all())
+                     for v in res.values())
+        sv.free()
+        check(finite, f"{name}: non-finite fields")
+        check(len(equal) == 3 and all(equal), f"{name}: the fields with the "
+              f"cached tables differ from a table built per call: {equal}")
+        out[name] = dict(ticks=9, builds=obj.bin_sum_table.builds - builds,
+                         equal=len(equal))
+        print(f"[sync] {name} ({wl['config']}), {SERVER_CAPACITY} streams: "
+              f"9 warm ticks under sync debug mode \"error\", none raised, 0 "
+              f"tables built; 3 ticks' fields bit-equal to a table built per "
+              f"call | {gpu}", flush=True)
+    return out
 
 
 def hybrid_steps(p, cfg, nb, frames, dtype, device, path, R, plain=False,
@@ -4077,6 +4172,7 @@ def main() -> int:
     merge = phase_d_merge(gpu)
     k7_long = phase_k7_long(gpu)
     rate5 = phase_rate5(gpu)
+    phase_sync(gpu)
     run_bf16 = phase_c(cfg, params_np, "bf16")
     run_q8g = phase_c(cfg, params_np, "q8g_normk")
     run_fused = phase_c(cfg, params_np, "fused_compact")

@@ -41,12 +41,43 @@ def bin_sum_matrix(from_bin: int, to_bin: int, n_bins: int = 4) -> np.ndarray:
     return codebook_states(n_bins)[:, :, from_bin:to_bin + 1].sum(-1)
 
 
+def bin_sum_table(from_bin: int, to_bin: int, n_bins: int, dtype,
+                  device) -> Tensor:
+    """`bin_sum_matrix` as a tensor, built once per bins, dtype and device
+    (a copy from host memory, which on the card waits for all queued
+    work: a serving tick that rebuilt it would stall its host); read-only.
+    While a graph is traced (`torch.export`) it is built anew and not
+    cached, so the cache never holds a traced stand-in for a tensor.
+    `bin_sum_table.builds` counts the tables built for the cache."""
+    if torch.compiler.is_compiling():
+        return _bin_sum_table(from_bin, to_bin, n_bins, dtype, device)
+    return _bin_sum_table_cached(from_bin, to_bin, n_bins, dtype, device)
+
+
+bin_sum_table.builds = 0
+
+
+def _bin_sum_table(from_bin: int, to_bin: int, n_bins: int, dtype,
+                   device) -> Tensor:
+    return torch.as_tensor(bin_sum_matrix(from_bin, to_bin, n_bins),
+                           dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _bin_sum_table_cached(from_bin: int, to_bin: int, n_bins: int, dtype,
+                          device) -> Tensor:
+    bin_sum_table.builds += 1
+    # a plain tensor even when first asked for under inference mode, so
+    # that a later call with autograd on may save it for the backward
+    with torch.inference_mode(False):
+        return _bin_sum_table(from_bin, to_bin, n_bins, dtype, device)
+
+
 def probs_next_speaker_aggregate(probs: torch.Tensor, from_bin: int,
                                  to_bin: int, n_bins: int = 4
                                  ) -> torch.Tensor:
     """probs: (..., n_classes) -> (..., 2) normalized next-speaker probs."""
-    abp = torch.as_tensor(bin_sum_matrix(from_bin, to_bin, n_bins),
-                          dtype=probs.dtype, device=probs.device)
+    abp = bin_sum_table(from_bin, to_bin, n_bins, probs.dtype, probs.device)
     p = probs @ abp
     return p / (p.sum(dim=-1, keepdim=True) + 1e-5)
 
