@@ -482,7 +482,7 @@ def attend_inputs_int8(case: str, seed: int, nb: int = B, Tn: int = T,
 
 
 def fold_global(q2, kc2, vc2):
-    """The quant="global" fold of `_kv_core` with one frozen scale
+    """The quant="global" fold of `cache_format.attend` with one frozen scale
     CODE_SCALE for k and v: q * c_k, k_cur / c_k, v_cur / c_v; the
     kernel's output times c_v is in float units."""
     f = lambda x, c: (x.float() * c).to(x.dtype).contiguous()

@@ -73,22 +73,14 @@ def test_plain_matches_einsum_attend(staged):
     st = tinc.KVState(cache=T_(cache), lstm_h=torch.zeros(B, 2, D),
                       lstm_c=torch.zeros(B, 2, D), count=None, stamp=None,
                       step=0, stage=T_(stage) if staged else None)
-    ages = np.concatenate([age, sage.T], 1) if staged else age
-    live = T_(ages < DEAD / 2)
-    slopes = torch.tensor(tinc.alibi_slopes(cfg.num_heads))
-    bias = torch.where(live[:, None, :],
-                       -T_(ages)[:, None, :] * slopes[None, :, None],
-                       float("-inf"))
+    reads = (T_(age),) + ((T_(stage), T_(sage)) if staged else (None, None))
     for phase in range(P):
-        got = attend_pair_plain(
-            T_(cache), T_(q), T_(kc), T_(vc), T_(age),
-            *((T_(stage), T_(sage)) if staged else (None, None)),
-            pair_base=2 * phase, num_heads=H)
+        got = attend_pair_plain(T_(cache), T_(q), T_(kc), T_(vc), *reads,
+                                pair_base=2 * phase, num_heads=H)
+        want = tinc.ATTENDS["einsum"](st, T_(q), T_(kc), T_(vc), 2 * phase,
+                                      reads, cfg.num_heads)
         for s in range(2):
-            want = tinc._einsum_attend(st, T_(q[:, s]), T_(kc[:, s]),
-                                       T_(vc[:, s]), 4 * phase + 2 * s,
-                                       bias, H, staged)
-            np.testing.assert_allclose(got[:, s].numpy(), want.numpy(),
+            np.testing.assert_allclose(got[:, s].numpy(), want[:, s].numpy(),
                                        atol=2e-5)
 
 

@@ -20,6 +20,7 @@ from vap_realtime_tpu.runtime import incremental as jinc
 from vap_realtime_tpu_torch import config as tcfg
 from vap_realtime_tpu_torch.ops.cuda.attend import DEAD, attend_pair_plain
 from vap_realtime_tpu_torch.runtime import arena as tarena
+from vap_realtime_tpu_torch.runtime import cache_format
 from vap_realtime_tpu_torch.runtime import incremental as tinc
 from vap_realtime_tpu_torch.weights.convert import params_to_torch
 from vap_realtime_tpu_torch.weights.synthetic import (
@@ -67,7 +68,7 @@ def test_quantize_rows_matches_jax():
     rows = (rs.randn(3, 7, 256) * rs.rand(3, 7, 1) * 4).astype(np.float32)
     rows[1, 2] = 0.0
     jq, js = jinc.quantize_rows(jnp.asarray(rows))
-    tq, ts = tinc.quantize_rows(T_(rows))
+    tq, ts = cache_format.quantize_rows(T_(rows))
     assert tq.dtype == torch.int8 and tuple(ts.shape) == (3, 7)
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6)
@@ -88,7 +89,8 @@ def test_quantize_rows_global_gating_and_freeze():
         act = np.asarray(act)
         jq, gs_j = jinc.quantize_rows_global(jnp.asarray(rows), gs_j,
                                              jnp.asarray(act))
-        tq, gs_t = tinc.quantize_rows_global(T_(rows), gs_t, T_(act))
+        tq, gs_t = cache_format.quantize_rows_global(T_(rows), gs_t,
+                                                     T_(act))
         np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
         np.testing.assert_allclose(gs_t.numpy(), np.asarray(gs_j),
                                    rtol=1e-6)

@@ -37,8 +37,8 @@ def test_every_port_module_is_scanned():
     two-port and batched servers, the static step and its export tool,
     the serving tools, the clients, the demo and the examples, and the
     export and checkpoint tools, the web runner's server and the encoder,
-    roofline and scatter labs, K5's crossover and ablation tools, and the
-    staged merge's wrapper."""
+    roofline and scatter labs, K5's crossover and ablation tools, the
+    staged merge's wrapper and the KV cache's format."""
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     pkg = "vap_realtime_tpu_torch/"
     for mod in ("ops/cuda/attend.py", "ops/cuda/channorm.py",
@@ -67,7 +67,7 @@ def test_every_port_module_is_scanned():
                 "clients/web_runner/serve.py", "tools/encoder_lab.py",
                 "tools/roofline.py", "tools/scatter_lab.py",
                 "tools/lstm_bodies.py", "tools/k5_ablate.py",
-                "ops/cuda/merge.py"):
+                "ops/cuda/merge.py", "runtime/cache_format.py"):
         assert pkg + mod in rel, mod
 
 

@@ -48,6 +48,7 @@ from vap_realtime_tpu_torch.runtime import incremental as inc
 from vap_realtime_tpu_torch.runtime.arena import (
     FRESH_PATHS, HYBRID_PATHS, init_path_state, path_step,
 )
+from vap_realtime_tpu_torch.runtime.cli import add_quant_arg
 from vap_realtime_tpu_torch.utils import spans
 from vap_realtime_tpu_torch.weights.convert import params_to_torch
 from vap_realtime_tpu_torch.weights.synthetic import synthetic_params
@@ -80,13 +81,11 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--engine_path", default="fast",
                     choices=["fast", "kv", "full", "hybrid", "fast_hybrid"])
-    ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
-                    choices=["row", "global"])
+    add_quant_arg(ap)
     ap.add_argument("--conv_impl", choices=list(CONV_IMPLS), default="conv")
     ap.add_argument("--attend_impl", choices=["kernel", "kernel3"],
                     default="kernel")
-    ap.add_argument("--slots", choices=["staged", "stream", "global"],
-                    default="staged")
+    ap.add_argument("--slots", choices=list(inc.SLOTS), default="staged")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")

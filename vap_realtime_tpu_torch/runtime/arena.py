@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from vap_realtime_tpu_torch.config import VapConfig
-from vap_realtime_tpu_torch.runtime import incremental, streaming
+from vap_realtime_tpu_torch.runtime import cache_format, incremental, streaming
 from vap_realtime_tpu_torch.utils.spans import span
 from vap_realtime_tpu_torch.weights.convert import params_to_torch
 
@@ -154,8 +154,7 @@ def _reset_slot(state, mask: torch.Tensor) -> None:
     kv.stamp.masked_fill_(mask.view(-1, 1), -1)
     if kv.stage_stamp is not None:
         kv.stage_stamp.masked_fill_(mask.view(1, -1), -1)
-    if kv.quant == "global":
-        kv.scale.masked_fill_(mask.view(-1, 1, 1, 1), 0)
+    cache_format.reset(kv, mask)
 
 
 class StreamArena:

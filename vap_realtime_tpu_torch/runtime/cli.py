@@ -5,7 +5,8 @@ Weights (`add_weight_args` / `load_weights`): `--synthetic_weights`,
 `--checkpoint_npz` (a params pytree .npz) or `--vap_model` +
 `--cpc_model` (the reference's .pt checkpoints), in that order of
 precedence, as in the JAX package's entry points.  The step
-(`add_step_args`): the engine path, slot policy, attend, int8 cache,
+(`add_step_args`): the engine path, slot policy, attend, int8 cache
+(`add_quant_arg`, alone where an entry point declares the rest itself),
 device and dtype, with the port's names (`kernel` / `kernel3` where the
 JAX servers say `pallas` / `pallas3`; a bare `--quant_cache` means
 "row").
@@ -18,6 +19,7 @@ import argparse
 from vap_realtime_tpu_torch.config import VapConfig
 from vap_realtime_tpu_torch.runtime.arena import PATHS
 from vap_realtime_tpu_torch.runtime.engine import Params, load_params
+from vap_realtime_tpu_torch.runtime.incremental import SLOTS
 
 WEIGHT_SOURCES = ("--checkpoint_npz, --vap_model with --cpc_model, or "
                   "--synthetic_weights")
@@ -59,8 +61,7 @@ def add_step_args(ap: argparse.ArgumentParser) -> None:
                          "conv + KV step (fresh samples); 'hybrid' / "
                          "'fast_hybrid' = kv / fast with a full-trunk "
                          "resync every context_frames ticks")
-    ap.add_argument("--slots", choices=["stream", "global", "staged"],
-                    default="staged",
+    ap.add_argument("--slots", choices=list(SLOTS), default="staged",
                     help="KV write-slot policy: 'staged' (default) = exact "
                          "per-stream isolation with a merge every 8 ticks; "
                          "'stream' = per-frame row write (same contract); "
@@ -72,10 +73,17 @@ def add_step_args(ap: argparse.ArgumentParser) -> None:
                          "'kernel3' = its compact-softmax body (needs "
                          "--slots stream or global); 'grouped' / 'einsum' "
                          "= plain PyTorch attention")
-    ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
-                    choices=["row", "global"],
-                    help="int8 KV cache: bare flag or 'row' = per-row "
-                         "scales; 'global' = per-stream frozen scales")
+    add_quant_arg(ap)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 weights and state (default float32)")
+
+
+def add_quant_arg(ap: argparse.ArgumentParser) -> None:
+    """`--quant_cache`: the KV cache's format (`runtime/cache_format.py`),
+    as every entry point with a KV step spells it."""
+    ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
+                    choices=["row", "global"],
+                    help="int8 KV cache (all but the full path): bare flag "
+                         "or 'row' = per-row scales; 'global' = per-stream "
+                         "frozen scales")

@@ -99,11 +99,7 @@ def main(argv: Optional[list] = None) -> None:
                          "incremental KV cache, 'fast' = streaming conv + "
                          "KV; 'hybrid' / 'fast_hybrid' = kv / fast with a "
                          "full-trunk resync every context_frames frames")
-    ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
-                    choices=["row", "global"],
-                    help="int8 KV cache (all but full): bare flag or 'row' = "
-                         "per-row scales; 'global' = per-stream frozen "
-                         "scales")
+    cli.add_quant_arg(ap)
     ap.add_argument("--attend_impl",
                     choices=["kernel", "kernel3", "grouped", "einsum"],
                     default="kernel",

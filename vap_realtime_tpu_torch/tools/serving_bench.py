@@ -44,6 +44,8 @@ import time
 import numpy as np
 import torch
 
+from vap_realtime_tpu_torch.runtime.cli import add_quant_arg
+
 RAMP_MS = 3000                     # the load generator's connection ramp
 # whose CPU seconds a run records: this process, its ended children
 _RUSAGE = (resource.RUSAGE_SELF, resource.RUSAGE_CHILDREN)
@@ -124,10 +126,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--int16", action="store_true", default=True,
                     help="int16 wire format (4x lower socket bandwidth)")
     ap.add_argument("--f64-wire", dest="int16", action="store_false")
-    ap.add_argument("--quant_cache", nargs="?", const="row", default=False,
-                    choices=["row", "global"],
-                    help="int8 KV cache: bare flag or 'row' = per-row "
-                         "scales; 'global' = per-stream frozen scales")
+    add_quant_arg(ap)
     ap.add_argument("--stub_device", action="store_true",
                     help="replace the arena with an instant host stub: "
                          "the host leg of the serving tick alone, no CUDA")
