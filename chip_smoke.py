@@ -55,6 +55,16 @@ Phases (any failed check raises, so the script exits non-zero):
            (12 masked rows), at (16, 5, 256) and at (1024, 200, 256)
            (random gates; lstm_scan takes clusters of 8 blocks there),
            where lstm_scan takes the sequence body; the max |d| printed;
+         - lstm_serve (the serving LSTM, bf16, `phase_a_serve`) at the
+           serving cells' (rows, steps), (83,968, 20), (51,200, 5),
+           (40,960, 5), (28,672, 5), and ragged (200, 20), (129, 5), (5,
+           5): one launch a call, |kernel - plain| <= 2^-7 |plain| + 2^-8,
+           and each one's distance to the float64 run printed; its ms a
+           launch beside the bf16 operation bound, the plain version,
+           ops.basic.lstm and torch.nn.LSTM (`time_serve`, in (d)); one
+           fast_step tick of the nod 5 Hz and vap 20 Hz cells launches it
+           once and drops the plain LSTM's per-step GEMMs
+           (`phase_serve_tick`, after the 5 Hz tick);
          - fused_attend (K8, one k/v slot pair) at B=4096 and 64, T=50,
            all 14 slot pairs, float32 (atol 1e-4) and bf16 (atol/rtol
            2e-2), mixed live/DEAD and all-DEAD (output == v_cur), against
@@ -897,6 +907,183 @@ def phase_a_lstm() -> dict:
     check(lstm_pick(2 * B) == "serving", "lstm_scan left the serving body "
           f"at the serving shape ({2 * B}, 5)")
     return worst
+
+
+# the serving LSTM's (rows, steps) in the serving cells: nod5 open (2 x
+# 41,984 streams, 20 steps), vap sat (2 x 25,600, 5), vap open (2 x
+# 20,480), nod open (2 x 14,336)
+SERVE_SHAPES = ((83968, 20), (51200, 5), (40960, 5), (28672, 5))
+# ragged shapes beside them: rows past the last 128-row tile
+SERVE_RAGGED = ((200, 20), (129, 5), (5, 5))
+
+
+def serve_inputs(seed: int, N: int, Tn: int):
+    """Serving-LSTM inputs on the card, bf16: x (N, Tn, 256) >= 0 like
+    K7's ReLU'd rows (|N(0, 1)|), h0 and c0 a running stream's state (0.3
+    and 0.5 N(0, 1)), weights and biases U(+-1/16) (PyTorch's LSTM init
+    at H = 256)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    u = lambda *s: (2 * torch.rand(*s, generator=g, device="cuda") - 1) / 16
+    bf = torch.bfloat16
+    return (rn(N, Tn, C).abs().to(bf), (0.3 * rn(N, C)).to(bf),
+            (0.5 * rn(N, C)).to(bf), u(4 * C, C).to(bf), u(4 * C, C).to(bf),
+            u(4 * C).to(bf), u(4 * C).to(bf))
+
+
+def phase_a_serve() -> dict:
+    """lstm_serve (the serving LSTM kernel) against lstm_serve_plain on the
+    card in bf16 at the serving cells' shapes and ragged ones: one launch
+    a call; |kernel - plain| <= 2^-7 |plain| + 2^-8 (the kernel's gate
+    functions are tanh.approx, ~2^-11 relative, and its sums run in
+    another order, so a bf16 rounding of h can land one ulp (2^-8
+    relative) apart and carry through the recurrence); beside it each
+    one's distance to the float64 run of the same function (the plain
+    version with a float64 state: nothing rounded).  Returns {shape:
+    {err, kernel_vs_f64, plain_vs_f64}}."""
+    from vap_realtime_tpu_torch.ops.cuda.lstm import (
+        lstm_serve, lstm_serve_plain,
+    )
+
+    out = {}
+    for N, Tn in SERVE_RAGGED + SERVE_SHAPES:
+        args = serve_inputs(25, N, Tn)
+        n0 = lstm_serve.launches
+        got = lstm_serve(*args)
+        torch.cuda.synchronize()
+        check(lstm_serve.launches == n0 + 1, "lstm_serve: not one launch")
+        want = lstm_serve_plain(*args)
+        ref = lstm_serve_plain(*[a.double() for a in args])
+        err = err_k = err_p = 0.0
+        for name, a, b, r in zip(("ys", "h_T", "c_T"), got, want, ref):
+            check(a.dtype == torch.bfloat16 and a.shape == b.shape
+                  and torch.isfinite(a).all().item(),
+                  f"lstm_serve ({N}, {Tn}) {name}")
+            d = (a.float() - b.float()).abs()
+            tol = 2 ** -7 * b.float().abs() + 2 ** -8
+            check(bool((d <= tol).all()), f"lstm_serve vs plain ({N}, {Tn}) "
+                  f"{name}: max |d| {d.max().item():.3e}")
+            err = max(err, d.max().item())
+            err_k = max(err_k, (a.double() - r).abs().max().item())
+            err_p = max(err_p, (b.double() - r).abs().max().item())
+        print(f"[a] lstm_serve bf16 ({N}, {Tn}, {C}): max |kernel - plain| "
+              f"{err:.3e} (2^-7 |plain| + 2^-8); against float64: kernel "
+              f"{err_k:.3e}, plain {err_p:.3e}", flush=True)
+        out[f"{N}x{Tn}"] = dict(err=err, kernel_vs_f64=err_k,
+                                plain_vs_f64=err_p)
+        del args, got, want, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_serve(gpu) -> dict:
+    """lstm_serve at the serving cells' shapes: ms a launch (CUDA events)
+    and the kernel's own device time (profiler), beside the bound (bf16
+    operations at 989 TFLOP/s, or the bytes: x in, ys out, h and c in and
+    out), the plain version, `ops.basic.lstm` in bf16 (what the serving
+    step ran before: a GEMM and ~10 elementwise kernels a step) and
+    torch.nn.LSTM on cuDNN in bf16 (the yardstick; the port never calls
+    it).  Returns {shape: numbers}."""
+    from vap_realtime_tpu_torch.ops.basic import lstm
+    from vap_realtime_tpu_torch.ops.cuda.lstm import (
+        lstm_serve, lstm_serve_plain,
+    )
+    from vap_realtime_tpu_torch.profile_step import cuda_ms
+
+    res = {}
+    for N, Tn in SERVE_SHAPES:
+        args = serve_inputs(26, N, Tn)
+        run = lambda: lstm_serve(*args)
+        ms = cuda_ms(run, reps=20, warm=3)
+        dev_ms = kernel_device_ms(run, "lstm_serve_kernel", 10)
+        plain_ms = cuda_ms(lambda: lstm_serve_plain(*args), reps=3, warm=1)
+        basic_ms = cuda_ms(lambda: lstm(*args), reps=5, warm=2)
+        net = torch.nn.LSTM(C, C, batch_first=True).to("cuda", torch.bfloat16)
+        with torch.no_grad():
+            for t, attr in zip(args[3:], ("weight_ih_l0", "weight_hh_l0",
+                                          "bias_ih_l0", "bias_hh_l0")):
+                getattr(net, attr).copy_(t)
+            net.flatten_parameters()
+            library_ms = cuda_ms(lambda: net(args[0], (args[1][None],
+                                                       args[2][None])),
+                                 reps=5, warm=2)
+        flops = 2 * N * Tn * 2 * C * 4 * C
+        nbytes = 2 * N * Tn * C * 2 + 4 * N * C * 2 + 4 * C * 2 * C * 2
+        bound_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        print(f"[d] lstm_serve bf16 ({N}, {Tn}, {C}): {ms:.4f} ms/launch "
+              f"(kernel alone {dev_ms:.4f}), bound {bound_ms:.4f} ms ({by}: "
+              f"{flops / 1e12:.3f} TFLOP at 989 TFLOP/s; {nbytes / 1e9:.3f} "
+              f"GB) = {100 * bound_ms / dev_ms:.1f}% of bound; plain "
+              f"{plain_ms:.4f} ms; ops.basic.lstm bf16 {basic_ms:.4f} ms; "
+              f"torch.nn.LSTM (cuDNN, bf16) {library_ms:.4f} ms | {gpu}",
+              flush=True)
+        res[f"{N}x{Tn}"] = dict(ms=ms, kernel_ms=dev_ms, bound_ms=bound_ms,
+                                bound_by=by, plain_ms=plain_ms,
+                                basic_ms=basic_ms, library_ms=library_ms)
+        del args, net
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_tick(gpu) -> dict:
+    """One tick of the benchmark's serving call (`vapbench.serving`, the
+    nod 5 Hz and the vap 20 Hz cells at 64 streams) profiled with the
+    kernel and with `cpc_context` sent to `ops.basic.lstm` (the parent's
+    LSTM; the comparison only, the port has no such switch): the kernel
+    launches once an encode call, and the tick drops the plain LSTM's
+    per-step GEMMs (cuBLAS `nvjet`, counted) and elementwise kernels, at
+    least 2 T kernels.  Returns
+    {cell: {kernels a tick with and without}}."""
+    from vap_realtime_tpu_torch.models import encoder as enc
+    from vap_realtime_tpu_torch.ops.basic import lstm
+    from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_serve
+    from vapbench.common import load_config, load_workload
+    from vapbench.serving import Serving
+
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    out = {}
+    for cell in ("nod5-fast-open", "vap20-fast-open"):
+        wl = load_workload(cell)
+        wl = dict(wl, audio=dict(wl["audio"], clips=4, seconds=4))
+        sv = Serving(wl, load_config(wl["config"]), 2 ** 33 + 3, "cuda",
+                     streams=SERVER_CAPACITY)
+        sv.frozen_ticks(3)
+        steps = sv.vcfg.cpc_frames_per_chunk
+        names = {}
+        for mode in ("kernel", "plain"):
+            kernel = enc.lstm_serve
+            if mode == "plain":
+                enc.lstm_serve = lambda *a: lstm(*a)
+            try:
+                sv.audio.fill(0, sv.frames[0])
+                n0 = lstm_serve.launches
+                with torch.profiler.profile(activities=[cuda]) as prof:
+                    sv.collect(*sv.dispatch(0))
+                    torch.cuda.synchronize()
+                launches = lstm_serve.launches - n0
+            finally:
+                enc.lstm_serve = kernel
+            ks = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            names[mode] = dict(
+                launches=launches, kernels=len(ks),
+                serve=sum("lstm_serve_kernel" in k for k in ks),
+                nvjet=sum("nvjet" in k for k in ks))
+        k, p = names["kernel"], names["plain"]
+        check(k["launches"] == 1 and k["serve"] == 1 and p["serve"] == 0,
+              f"{cell}: lstm_serve launched {k['launches']} times "
+              f"({k['serve']} kernels) a tick, expected 1")
+        check(p["kernels"] - k["kernels"] >= 2 * steps, f"{cell}: the tick "
+              f"launches {k['kernels']} kernels, {p['kernels']} with the "
+              f"plain LSTM's {steps} steps")
+        print(f"[serve] {cell}, {SERVER_CAPACITY} streams: one tick launches "
+              f"lstm_serve_kernel {k['serve']}x ({k['launches']} wrapper "
+              f"call), {k['kernels']} kernels, {k['nvjet']} nvjet GEMMs; "
+              f"with ops.basic.lstm {p['kernels']} kernels, {p['nvjet']} "
+              f"nvjet ({steps} LSTM steps) | {gpu}", flush=True)
+        out[cell] = names
+        sv.free()
+    return out
 
 
 def single_inputs(dtype, case: str, seed: int, nb: int = B):
@@ -4154,6 +4341,7 @@ def main() -> int:
     err_q8 = max(phase_a_compact_q8(), err_compact["int8 row"],
                  err_compact["int8 global"])
     err_lstm = phase_a_lstm()
+    err_serve = phase_a_serve()
     err_lstm_train = phase_a_lstm_train(params_np)
     err_single = phase_a_single()
     err_tail = phase_a_tail()
@@ -4172,6 +4360,8 @@ def main() -> int:
     merge = phase_d_merge(gpu)
     k7_long = phase_k7_long(gpu)
     rate5 = phase_rate5(gpu)
+    serve_tick = phase_serve_tick(gpu)
+    serve = time_serve(gpu)
     phase_sync(gpu)
     run_bf16 = phase_c(cfg, params_np, "bf16")
     run_q8g = phase_c(cfg, params_np, "q8g_normk")
@@ -4247,6 +4437,17 @@ def main() -> int:
                      lstm["bodies"]["float32"],
                      max_abs_err=err_lstm["float32"],
                      launches=srv_launches)}),
+        # replaces no TPU kernel (the JAX serving step runs the LSTM as
+        # XLA ops): one launch an encode call on CUDA bf16, counted over
+        # the two profiled ticks; its numbers at (83,968, 20), the others
+        # under "shapes"
+        dict(name="lstm_serve", route="cuda", source=src + "lstm_serve.cu",
+             replaces=None,
+             launches=sum(v["kernel"]["launches"]
+                          for v in serve_tick.values()),
+             max_abs_err=max(v["err"] for v in err_serve.values()),
+             **serve[f"{SERVE_SHAPES[0][0]}x{SERVE_SHAPES[0][1]}"],
+             shapes=serve),
         # K8 and K9: off the serving paths, as in the JAX package; their
         # launches are read over the kv server run (the slice's path): 0
         dict(name="fused_attend", route="cuda", source=src + "attend_pair.cu",

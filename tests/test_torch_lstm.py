@@ -1,6 +1,7 @@
 """PyTorch port: the fused LSTM scan (K5) against the JAX package — the
 kernel's plain version against the TPU kernel (`lstm_pallas`, Pallas in
-interpret mode) and against the port's own `ops.basic.lstm`."""
+interpret mode) and against the port's own `ops.basic.lstm` — and the
+serving LSTM kernel's plain version, wrapper and weight packing."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +12,8 @@ from vap_realtime_tpu.ops.pallas.lstm import lstm_pallas
 from vap_realtime_tpu_torch.ops.basic import lstm
 from vap_realtime_tpu_torch.ops.cuda import lstm as k5
 from vap_realtime_tpu_torch.ops.cuda.lstm import (
-    lstm_fused, lstm_scan, lstm_scan_plain, pack_w_hh, pack_w_hh_seq,
+    lstm_fused, lstm_scan, lstm_scan_plain, lstm_serve_plain, pack_w_hh,
+    pack_w_hh_seq,
 )
 
 T_ = torch.as_tensor
@@ -191,3 +193,143 @@ def test_wrapper_cpu_goes_to_plain_whatever_the_body(B, T):
     m = lambda t: t.to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         lstm_scan(m(gi), m(h0), m(c0), m(w_hh.T), m(b_hh))
+
+
+# --- the serving LSTM in bf16 (`lstm_serve`, csrc/lstm_serve.cu) ---------
+
+def _serve_inputs(seed, B, T, H=256):
+    """bf16 serving-LSTM inputs: x like K7's ReLU'd rows (|N(0, 1)|), h0
+    and c0 a running stream's state, weights and biases U(+-1/16)."""
+    rs = np.random.RandomState(seed)
+    u = lambda *s: rs.uniform(-1 / 16, 1 / 16, s)
+    bf = lambda a: torch.tensor(a, dtype=torch.float32).bfloat16()
+    return (bf(np.abs(rs.randn(B, T, H))), bf(0.3 * rs.randn(B, H)),
+            bf(0.5 * rs.randn(B, H)), bf(u(4 * H, H)), bf(u(4 * H, H)),
+            bf(u(4 * H)), bf(u(4 * H)))
+
+
+@pytest.mark.parametrize("T", [5, 20])
+def test_lstm_serve_plain_matches_float64(T):
+    """lstm_serve_plain (the kernel's rounding points: bf16 x / h
+    operands and weights, float32 bias sum, gates and c, bf16 ys / h_T /
+    c_T) against ops.basic.lstm in float64 on the same bf16 values, at
+    the 20 Hz and 5 Hz frames' steps and B = 200 (not a multiple of the
+    kernel's 128-row tile): |d| <= 2^-8 |ref| + 2^-9.  The outputs are
+    rounded to bf16 once (half an ulp, 2^-9 relative) and h's bf16
+    roundings at earlier steps reach them through W_hh (measured: 2.0e-3
+    on ys, 3.9e-3 on c at |c| ~1.4); the bound leaves about twice that.
+    And it is no less precise than the plain bf16 path it replaces
+    (ops.basic.lstm in bf16, which rounds every gate, product and c)."""
+    args = _serve_inputs(7 + T, 200, T)
+    got = lstm_serve_plain(*args)
+    ref = lstm(*[a.double() for a in args])
+    bf16_path = lstm(*args)
+    assert [t.dtype for t in got] == [torch.bfloat16] * 3
+    for name, g, r, p in zip(("ys", "h_T", "c_T"), got, ref, bf16_path):
+        d = (g.double() - r).abs()
+        assert bool((d <= 2 ** -8 * r.abs() + 2 ** -9).all()), (
+            name, d.max().item())
+        assert d.max() <= (p.double() - r).abs().max(), name
+
+
+def test_lstm_serve_cpu_dispatch():
+    """On CPU tensors lstm_serve is lstm_serve_plain, bit for bit, and
+    launches nothing."""
+    args = _serve_inputs(3, 131, 5)
+    before = k5.lstm_serve.launches
+    for a, b in zip(k5.lstm_serve(*args), lstm_serve_plain(*args)):
+        assert torch.equal(a, b)
+    assert k5.lstm_serve.launches == before
+
+
+def _bad_serve_args(case):
+    """The inputs of `_serve_inputs(9, 6, 5)` with one thing wrong."""
+    x, h0, c0, w_ih, w_hh, b_ih, b_hh = _serve_inputs(9, 6, 5)
+    if case == "dtype x":
+        x = x.float()
+    elif case == "dtype state":
+        h0 = h0.float()
+    elif case == "dtype weights":
+        w_hh = w_hh.float()
+    elif case == "shape x":
+        x = x[..., :128]
+    elif case == "shape state":
+        c0 = c0[:5]
+    elif case == "shape weights":
+        w_ih = w_ih[:, :128]
+    elif case == "contiguity x":
+        # the chunked conv stack's (B, C, T) view, transposed
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "contiguity slice":
+        x = torch.cat([x, x], dim=1)[:, 1:6]
+    elif case == "contiguity state":
+        h0 = torch.cat([h0, h0], dim=1)[:, ::2]
+    elif case == "device":
+        x, h0, c0, w_ih, w_hh, b_ih, b_hh = (
+            t.to("meta") for t in (x, h0, c0, w_ih, w_hh, b_ih, b_hh))
+    elif case == "devices mixed":
+        w_hh = w_hh.to("meta")
+    return x, h0, c0, w_ih, w_hh, b_ih, b_hh
+
+
+@pytest.mark.parametrize("case,match", [
+    ("dtype x", "bfloat16"), ("dtype state", "bfloat16"),
+    ("dtype weights", "bfloat16"), ("shape x", "x must be"),
+    ("shape state", "h0, c0 must be"), ("shape weights", "w_ih, w_hh must"),
+    ("contiguity x", "contiguous"), ("contiguity slice", "contiguous"),
+    ("contiguity state", "contiguous"),
+    ("device", "unsupported device"), ("devices mixed", "one device")])
+def test_lstm_serve_refuses(case, match):
+    """The wrapper raises ValueError on what the kernel does not take (a
+    dtype, a shape, a layout, a device), before any dispatch: nothing
+    falls back."""
+    with pytest.raises(ValueError, match=match):
+        k5.lstm_serve(*_bad_serve_args(case))
+
+
+def test_pack_w_serve_layout():
+    """The kernel's weights (4H, 2H) bf16: packed row n = 128 j + 32 m + 8
+    gate + r is the stacked [W_ih | W_hh] row of that gate and unit 32 j
+    + 8 m + r, so in wgmma m64n128's accumulator (columns 8 i + 2 (lane %
+    4) + {0, 1} of chunk j, i = 4 m + gate) a lane holds the four gates
+    of units 32 j + 8 m + 2 (lane % 4) + {0, 1}; the bias is b_ih + b_hh
+    in float32 in the same order; every row lands once; the packing is
+    cached per weight tensors."""
+    H = 256
+    _, _, _, w_ih, w_hh, b_ih, b_hh = _serve_inputs(11, 1, 1)
+    w, b = k5.pack_w_serve(w_ih, w_hh, b_ih, b_hh)
+    assert w.shape == (4 * H, 2 * H) and w.dtype == torch.bfloat16
+    assert b.shape == (4 * H,) and b.dtype == torch.float32
+    stacked = torch.cat([w_ih, w_hh], dim=1)
+    bias = b_ih.float() + b_hh.float()
+    seen = []
+    for j in range(8):
+        for lane in range(4):
+            for i in range(16):
+                m, gate = divmod(i, 4)
+                for e in range(2):
+                    n = 128 * j + 8 * i + 2 * lane + e
+                    row = gate * H + 32 * j + 8 * m + 2 * lane + e
+                    assert torch.equal(w[n], stacked[row]), (j, lane, i, e)
+                    assert b[n] == bias[row]
+                    seen.append(row)
+    assert sorted(seen) == list(range(4 * H))
+    assert k5.pack_w_serve(w_ih, w_hh, b_ih, b_hh)[0] is w
+    assert k5.pack_w_serve(w_ih, w_hh.clone(), b_ih, b_hh)[0] is not w
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cpc_context_on_the_cpu_keeps_basic_lstm(dtype):
+    """cpc_context sends CPU tensors, bf16 or float32, to ops.basic.lstm,
+    bit for bit, and leaves lstm_serve.launches alone (the kernel takes
+    CUDA bf16 tensors only)."""
+    from vap_realtime_tpu_torch.models.encoder import cpc_context
+
+    x, h0, c0, w_ih, w_hh, b_ih, b_hh = (
+        t.to(getattr(torch, dtype)) for t in _serve_inputs(12, 9, 5))
+    params = {"lstm": dict(w_ih=w_ih, w_hh=w_hh, b_ih=b_ih, b_hh=b_hh)}
+    before = k5.lstm_serve.launches
+    for a, b in zip(cpc_context(params, x, h0, c0),
+                    lstm(x, h0, c0, w_ih, w_hh, b_ih, b_hh)):
+        assert torch.equal(a, b)
+    assert k5.lstm_serve.launches == before

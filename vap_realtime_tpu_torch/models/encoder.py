@@ -47,7 +47,7 @@ from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
 from vap_realtime_tpu_torch.ops.cuda.encoder import (
     cpc_conv_stack_streaming_fused,
 )
-from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_fused
+from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_fused, lstm_serve
 from vap_realtime_tpu_torch.utils.spans import span
 
 # (kernel, stride, padding) for the 5 CPC convs
@@ -220,9 +220,16 @@ def cpc_conv_stack(params: Params, wav: torch.Tensor) -> torch.Tensor:
 
 def cpc_context(params: Params, z: torch.Tensor, h0: torch.Tensor,
                 c0: torch.Tensor):
-    """LSTM context network over (B, T, C); returns (y, h_T, c_T)."""
+    """LSTM context network over (B, T, C); returns (y, h_T, c_T).  CUDA
+    bf16 tensors (z, the state and the weights) take the serving kernel
+    (`lstm_serve`, ops/cuda/lstm.py: all T steps in one launch); any
+    other device or dtype `ops.basic.lstm`."""
     g = params["lstm"]
-    return lstm(z, h0, c0, g["w_ih"], g["w_hh"], g["b_ih"], g["b_hh"])
+    args = (z, h0, c0, g["w_ih"], g["w_hh"], g["b_ih"], g["b_hh"])
+    if z.is_cuda and all(t.dtype == torch.bfloat16 for t in args):
+        # the chunked conv stack's z is a (B, C, T) view transposed
+        return lstm_serve(z.contiguous(), *args[1:])
+    return lstm(*args)
 
 
 def downsample(params: Params, z: torch.Tensor, kernel: int) -> torch.Tensor:
@@ -261,7 +268,8 @@ def encode_chunk_streaming(params: Params, new: torch.Tensor,
     bf16 are more precise than the "conv" path's; see ops/cuda/encoder.py).
     Returns (emb (B, C), new_conv_state, h_new, c_new).  Its three
     stages are the spans `vap.encode.conv` (the conv stack), `.lstm` (the
-    100 // frame_hz steps of the plain LSTM) and `.down` (the downsample).
+    100 // frame_hz steps of the LSTM: `cpc_context`, one `lstm_serve`
+    launch on CUDA bf16) and `.down` (the downsample).
     """
     check_conv_impl(conv_impl)
     stack = {"normk": cpc_conv_stack_streaming_normk,
@@ -291,7 +299,9 @@ def encode_sequence_streaming_oracle(params: Params, wav: torch.Tensor,
         x = _plain_norm_relu(x, n["w"], n["b"])
     z = x.transpose(1, 2)
     zeros = z.new_zeros((wav.shape[0], z.shape[-1]))
-    y, _, _ = cpc_context(params, z, zeros, zeros)
+    g = params["lstm"]
+    y, _, _ = lstm(z, zeros, zeros, g["w_ih"], g["w_hh"], g["b_ih"],
+                   g["b_hh"])
     return downsample(params, y, downsample_kernel)
 
 

@@ -5,9 +5,9 @@
 recurrence of the CPC context net's 1-layer LSTM over precomputed input
 gates, gates i, f, g, o, float32 math.  `lstm_fused` is the drop-in for
 `ops.basic.lstm` (the counterpart of `lstm_pallas`:95); like the JAX
-package's, the serving step does not call it; the training encoder
-(`models/encoder.py` `encode_sequence`) does, at (16, 1998, 256) for
-8 stereo 20 s clips.  The kernel is
+package's, the serving step does not call it (it takes `lstm_serve`,
+below); the training encoder (`models/encoder.py` `encode_sequence`)
+does, at (16, 1998, 256) for 8 stereo 20 s clips.  The kernel is
 `vap_realtime_tpu_torch/csrc/lstm_scan.cu`, hand-written for Hopper, the
 step's product h W_hh^T on the tensor cores in 3xTF32 (float32 accuracy
 from three TF32 MMAs, `ops/cuda/tf32.py`), with two bodies (see its
@@ -39,12 +39,28 @@ does not fit raises too; nothing falls back); on a CPU tensor it runs
 `lstm_scan_plain`.  `lstm_scan.launches` counts kernel launches,
 `lstm_scan.serving_launches` and `lstm_scan.sequence_launches` each
 body's.
+
+`lstm_serve` is the serving LSTM in bf16 (the CPC context net of
+`models/encoder.py` `cpc_context` on CUDA bf16 tensors: 100 / frame_hz
+steps a frame), one launch of `vap_realtime_tpu_torch/csrc/lstm_serve.cu`
+for all T steps.  It replaces no TPU kernel (the JAX serving step runs
+the LSTM as XLA ops).  Input projection and recurrence are one product
+G = [x_t | h] [W_ih | W_hh]^T + (b_ih + b_hh) a step on the tensor cores
+(wgmma, bf16 operands, float32 accumulation); gates and c stay float32 in
+registers, h is rounded to bf16 once a step.  `pack_w_serve` packs the
+weights so a thread holds all four gates of its cells.  Bound on the
+H100: operations, 2 T B 512 1024 bf16 FLOP at 989 TFLOP/s (1.78 ms at
+(83,968, 20), 0.27 ms at (51,200, 5)).  On a CUDA tensor it launches or
+raises; on a CPU tensor it runs `lstm_serve_plain`.
+`lstm_serve.launches` counts its launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
+from typing import Any, Dict
 
 import torch
 
@@ -329,3 +345,148 @@ def lstm_fused(x: Tensor, h0: Tensor, c0: Tensor, w_ih: Tensor,
     (B, T, in); h0, c0 (B, H).  Returns (ys (B, T, H), h_T, c_T)."""
     gi = torch.matmul(x, w_ih.T) + b_ih
     return lstm_scan(gi, h0, c0, w_hh.T, b_hh)
+
+
+# --- the serving LSTM in bf16 (csrc/lstm_serve.cu) ---------------------
+
+SERVE_H = 256
+# gate columns a chunk of the kernel's step: 32 units x 4 gates
+SERVE_CHUNK = 128
+
+
+def lstm_serve_plain(x: Tensor, h0: Tensor, c0: Tensor, w_ih: Tensor,
+                     w_hh: Tensor, b_ih: Tensor, b_hh: Tensor):
+    """Plain PyTorch version of the serving kernel, with its rounding
+    points: a step's gates G = [x_t | h] [W_ih | W_hh]^T + (b_ih + b_hh)
+    from x's and h's values and the weights' (bf16 on the card), the bias
+    sum, the gates and c in float32; h rounded to x's dtype once a step
+    (ys, and the next step's operand).  A float64 h0 runs everything in
+    float64 (a reference).  x (B, T, H); h0, c0 (B, H); w_ih, w_hh
+    (4H, H), gates i, f, g, o.  Returns (ys (B, T, H) in x's dtype, h_T
+    in h0's, c_T in c0's)."""
+    H = h0.shape[-1]
+    ct = torch.float64 if h0.dtype == torch.float64 else torch.float32
+    w = torch.cat([w_ih, w_hh], dim=1).to(ct)
+    b = b_ih.to(ct) + b_hh.to(ct)
+    h, c = h0.to(ct), c0.to(ct)
+    ys = []
+    for t in range(x.shape[1]):
+        g = torch.cat([x[:, t].to(ct), h], dim=-1) @ w.T + b
+        i = torch.sigmoid(g[:, :H])
+        f = torch.sigmoid(g[:, H:2 * H])
+        gg = torch.tanh(g[:, 2 * H:3 * H])
+        o = torch.sigmoid(g[:, 3 * H:])
+        c = f * c + i * gg
+        y = (o * torch.tanh(c)).to(x.dtype)
+        h = y.to(ct)
+        ys.append(y)
+    return torch.stack(ys, dim=1), ys[-1].to(h0.dtype), c.to(c0.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _serve_rows(H: int, device: torch.device) -> Tensor:
+    """(4H,) on `device`: the gate-major row (gate * H + unit) of the
+    stacked [W_ih | W_hh] behind packed row n = 128 j + 32 m + 8 gate + r,
+    unit 32 j + 8 m + r.  In wgmma m64n128's accumulator a lane holds
+    columns 8 i + 2 (lane % 4) + {0, 1} of the chunk, i = 4 m + gate: the
+    four gates of units 32 j + 8 m + 2 (lane % 4) + {0, 1}."""
+    n = torch.arange(4 * H)
+    j, m = n // SERVE_CHUNK, (n % SERVE_CHUNK) // 32
+    gate, r = (n % 32) // 8, n % 8
+    return (gate * H + 32 * j + 8 * m + r).to(device)
+
+
+# kernel-private packing per w_ih tensor: id -> (weak references to the
+# four weight tensors, (W, bias))
+_SERVE_PACKED: Dict[int, Any] = {}
+
+
+def pack_w_serve(w_ih: Tensor, w_hh: Tensor, b_ih: Tensor, b_hh: Tensor):
+    """The kernel's weights: (W (4H, 2H) bf16, its rows the stacked
+    [W_ih | W_hh] rows in `_serve_rows` order; bias (4H,) float32 = b_ih
+    + b_hh in the same order), contiguous.  Cached per weight tensors
+    (read-only in inference)."""
+    key = id(w_ih)
+    refs, packed = _SERVE_PACKED.get(key, (None, None))
+    if refs is None or any(r() is not t for r, t in
+                           zip(refs, (w_ih, w_hh, b_ih, b_hh))):
+        rows = _serve_rows(w_hh.shape[1], w_ih.device)
+        packed = (torch.cat([w_ih, w_hh], dim=1)[rows].to(
+            torch.bfloat16).contiguous(),
+            (b_ih.float() + b_hh.float())[rows].contiguous())
+        refs = [weakref.ref(w_ih, lambda _, k=key: _SERVE_PACKED.pop(k, None))]
+        refs += [weakref.ref(t) for t in (w_hh, b_ih, b_hh)]
+        _SERVE_PACKED[key] = (refs, packed)
+    return packed
+
+
+@functools.lru_cache(maxsize=None)
+def _serve_lib() -> ctypes.CDLL:
+    """The serving kernel's library, built on first use, with its C
+    signature."""
+    from vap_realtime_tpu_torch.ops.cuda.build import load
+
+    lib = load("lstm_serve")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.lstm_serve_launch
+    fn.restype = I
+    # x, h0, c0, w, bias; ys, h_T, c_T; B, T; stream
+    fn.argtypes = [P, P, P, P, P, P, P, P, I, I, P]
+    return lib
+
+
+def _serve_check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"lstm_serve: {msg}")
+
+
+def lstm_serve(x: Tensor, h0: Tensor, c0: Tensor, w_ih: Tensor,
+               w_hh: Tensor, b_ih: Tensor, b_hh: Tensor):
+    """The serving LSTM over one frame in bf16: x (B, T, 256), h0, c0
+    (B, 256), contiguous; w_ih, w_hh (1024, 256), b_ih, b_hh (1024,); x,
+    h0, c0 and the weights bfloat16.  Returns (ys (B, T, 256), h_T,
+    c_T), bf16.  CUDA tensors: one kernel launch; CPU tensors:
+    `lstm_serve_plain`; anything else raises."""
+    H = SERVE_H
+    _serve_check(x.dim() == 3 and x.shape[2] == H and x.shape[0] > 0
+                 and x.shape[1] > 0, f"x must be (B, T, {H}), got "
+                 f"{tuple(x.shape)}")
+    B, T = x.shape[:2]
+    _serve_check(tuple(h0.shape) == (B, H) and tuple(c0.shape) == (B, H),
+                 f"h0, c0 must be ({B}, {H})")
+    _serve_check(tuple(w_ih.shape) == (4 * H, H)
+                 and tuple(w_hh.shape) == (4 * H, H)
+                 and tuple(b_ih.shape) == (4 * H,)
+                 and tuple(b_hh.shape) == (4 * H,),
+                 f"w_ih, w_hh must be ({4 * H}, {H}), b_ih, b_hh "
+                 f"({4 * H},)")
+    bf = torch.bfloat16
+    _serve_check(all(t.dtype == bf for t in (x, h0, c0, w_ih, w_hh)),
+                 "x, h0, c0, w_ih and w_hh must be bfloat16")
+    _serve_check(x.is_contiguous() and h0.is_contiguous()
+                 and c0.is_contiguous(), "x, h0 and c0 must be contiguous")
+    _serve_check(all(t.device == x.device
+                     for t in (h0, c0, w_ih, w_hh, b_ih, b_hh)),
+                 "all tensors on one device")
+    if x.device.type == "cpu":
+        return lstm_serve_plain(x, h0, c0, w_ih, w_hh, b_ih, b_hh)
+    _serve_check(x.device.type == "cuda", f"unsupported device {x.device}")
+    _serve_check(x.data_ptr() % 16 == 0 and h0.data_ptr() % 16 == 0,
+                 "x and h0 must be 16-byte aligned")
+    w, bias = pack_w_serve(w_ih, w_hh, b_ih, b_hh)
+    ys = torch.empty((B, T, H), dtype=bf, device=x.device)
+    h_t, c_t = torch.empty_like(h0), torch.empty_like(c0)
+    with torch.cuda.device(x.device):
+        rc = _serve_lib().lstm_serve_launch(
+            x.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+            w.data_ptr(), bias.data_ptr(), ys.data_ptr(), h_t.data_ptr(),
+            c_t.data_ptr(), B, T,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lstm_serve: kernel launch failed, cudaError "
+                           f"{rc}")
+    lstm_serve.launches += 1
+    return ys, h_t, c_t
+
+
+lstm_serve.launches = 0

@@ -8,7 +8,8 @@ GB/s and the share of the card's matmul peak, measured here with a chain
 of 4096 x 4096 x 4096 `torch.matmul`s in the same dtype:
 
   conv_encoder   the chunked CPC conv stack (conv0..conv4 + norms)
-  lstm_context   the LSTM over one frame's 100 Hz features (plain LSTM)
+  lstm_context   the LSTM over one frame's 100 Hz features (`cpc_context`:
+                 the serving kernel in bf16 on the card, plain otherwise)
   kv_step_total  kv_step (stream slots, the einsum attend, as in JAX)
 
 The JAX tool's relay-overhead calibration has no counterpart here: the
