@@ -157,6 +157,16 @@ Phases (any failed check raises, so the script exits non-zero):
          5 Hz / 10 s configuration through the benchmark's serving call
          (64 streams, bf16): finite, 4 K7 body calls and 7 K2 launches,
          its fields within the cell's limit of the float64 reference.
+  (k7bits) K7's bf16 body at (8192, 800), (8192, 1600), (83968, 3200
+         in four body calls) and a ragged (8195, 800), three frames
+         carrying state: the new carries c0 and c1 bit-equal to those of
+         the body that stored conv1's input X1 (K7_X1_C01: their digest;
+         z and c2-c4 move by conv1's summation order, held to the plain
+         version in (a) and (k7)), and each launch's device time,
+         conv0_kernel and the four conv_layer_kernel apart.
+         `python3 chip_smoke.py --k7-digests [check] [save=DIR] [ref=DIR]`
+         runs only this; with save= in one build's run and ref= in
+         another's, each output's max |d| between the two builds.
   (sync) Warm ticks of the benchmark's serving call (64 streams, bf16) on
          the three serving configurations (vap 20 Hz / 2.5 s, nod 20 Hz
          and 5 Hz / 10 s) past a merge tick, each `step_device_batch`
@@ -2164,22 +2174,26 @@ def phase_d_merge(gpu) -> dict:
 K7_FRAMES = (800, 3200)
 
 
-def k7_digest(seed: int, N: int, L: int) -> str:
-    """sha256 of K7's bf16 outputs (z and every carry, 3 frames) on
-    `fused_inputs(seed, bf16, N, L)`: the same digest from two builds
-    means bit-equal outputs."""
+def k7_digest(seed: int, N: int, L: int, keep: bool = False):
+    """sha256 of K7's bf16 outputs over 3 frames on `fused_inputs(seed,
+    bf16, N, L)`: (all: z and every carry; c01: the carries c0 and c1
+    alone), and with `keep` the last frame's (z, c0..c4) on the host.  The
+    same digest from two builds means bit-equal outputs."""
     import hashlib
 
     from vap_realtime_tpu_torch.ops.cuda.encoder import conv_stack_fused
 
     c0, news, carries, packed, _ = fused_inputs(seed, torch.bfloat16, N, L)
-    st, h = (c0, *carries), hashlib.sha256()
+    st, h, h01 = (c0, *carries), hashlib.sha256(), hashlib.sha256()
     for new in news:
         z, st = conv_stack_fused(st[0], new, st[1:], *packed)
-        for t in (z, *st):
-            h.update(t.contiguous().view(torch.int16).cpu().numpy()
-                     .tobytes())
-    return h.hexdigest()
+        for i, t in enumerate((z, *st)):
+            b = t.contiguous().view(torch.int16).cpu().numpy().tobytes()
+            h.update(b)
+            if i in (1, 2):
+                h01.update(b)
+    last = tuple(t.cpu() for t in (z, *st)) if keep else None
+    return h.hexdigest(), h01.hexdigest(), last
 
 
 def phase_k7_long(gpu) -> dict:
@@ -2244,7 +2258,7 @@ def phase_k7_long(gpu) -> dict:
         plain_ms = cuda_ms(lambda: conv_stack_fused_plain(*args), reps=2)
         flops = call_ops(N, L)
         bound_ms = 1e3 * flops / BF16_FLOP_PER_S
-        digest = k7_digest(31, N, L) if L == 800 else None
+        digest = k7_digest(31, N, L)[0] if L == 800 else None
         out[L] = dict(ms=ms, bound_ms=bound_ms, share=100 * bound_ms / ms,
                       plain_ms=plain_ms, body_calls=pieces,
                       max_abs_err=err, digest=digest)
@@ -2257,6 +2271,99 @@ def phase_k7_long(gpu) -> dict:
               + (f"; digest {digest}" if digest else "") + f" | {gpu}",
               flush=True)
         del c0, news, carries, st_k, st_p, st_c, zk, zp, zc, args
+        torch.cuda.empty_cache()
+    return out
+
+
+# K7 against the body that stored conv1's input X1 in device memory:
+# (channel-streams, samples a frame); the 5 Hz cell's 83,968
+# channel-streams take the 3,200-sample frame in four body calls, and
+# 2B + 3 is ragged against the 128-row tiles
+K7_BIT_CASES = ((2 * B, 800), (2 * B, 1600), (83968, 3200), (2 * B + 3, 800))
+# k7_digest(41, N, L)'s c01 (the carries c0 and c1 over three frames) of
+# that body, which conv0_kernel still computes the same way, built and
+# run on an NVIDIA H100 80GB HBM3 (torch 2.11.0+cu128, CUDA 12.8): the
+# inputs come from torch's CUDA generator, so another torch build may draw
+# others and change every digest at once
+K7_X1_C01 = {
+    (2 * B, 800):
+        "d5f9b5f3626567ec3541bb49140d5da3522a76a7442fde2a03867de7cf8084d4",
+    (2 * B, 1600):
+        "9d82172f54d40a7676cb4373f23e1e2e0b2330fafad8fab63481eaf6ae1948de",
+    (83968, 3200):
+        "d89f994edcdcaca978936afa178d9e644119f3a4e9cacc964013b18786f29604",
+    (2 * B + 3, 800):
+        "d96b330f1ba83d6de239758819ef68064989df4757a82e5faedf05719d9c31cf",
+}
+
+
+def phase_k7_bits(gpu, expect=None, save=None, ref=None) -> dict:
+    """K7's bf16 body at K7_BIT_CASES, three frames carrying state: the
+    digests of `k7_digest` (c0 and c1 held equal to `expect`, the body
+    that stored X1, where given); with `save` a directory, the last
+    frame's z and carries written there; with `ref` one that another
+    build's run saved to, each output's max |d| against it and the share
+    of its elements that differ; and each launch's device time a call
+    (`conv0_kernel`, then the four `conv_layer_kernel`, summed over a
+    frame's body calls).  `python3 chip_smoke.py --k7-digests [check]
+    [save=DIR] [ref=DIR]` runs only this, so two builds can be compared in
+    one call.  Returns {"N x L": fields}."""
+    import os
+
+    from vap_realtime_tpu_torch.ops.cuda.encoder import (
+        TILE_ROWS, conv_stack_fused,
+    )
+    from vap_realtime_tpu_torch.tools.k7_ablate import time_call
+
+    out = {}
+    for N, L in K7_BIT_CASES:
+        key, pieces = f"{N} x {L}", L // 800 if L > 1600 else 1
+        d_all, d01, last = k7_digest(41, N, L, keep=bool(save or ref))
+        out[key] = dict(digest=d_all, digest_c01=d01, body_calls=pieces)
+        line = f"digest {d_all}, c0/c1 {d01}"
+        path = lambda d: os.path.join(d, f"k7_{N}x{L}.pt")
+        if save:
+            os.makedirs(save, exist_ok=True)
+            torch.save(last, path(save))
+        if ref:
+            diffs = []
+            for name, a, b in zip(("z", "c0", "c1", "c2", "c3", "c4"), last,
+                                  torch.load(path(ref))):
+                d = (a.float() - b.float()).abs()
+                diffs.append((name, d.max().item(),
+                              (d > 0).float().mean().item()))
+            out[key]["vs_ref"] = {n: dict(max_abs=m, share=f)
+                                  for n, m, f in diffs}
+            line += "; vs ref (last frame) " + ", ".join(
+                f"{n} max |d| {m:.3e} ({100 * f:.3f}% differ)"
+                for n, m, f in diffs)
+        # timed at the serving shapes only: at the ragged 8195 the profiler
+        # dropped one K7 record of every window (3 to 6 calls, twice); a
+        # window it cuts short leaves the times unmeasured, not the check
+        if N % TILE_ROWS == 0:
+            c0, news, carries, packed, _ = fused_inputs(
+                41, torch.bfloat16, N, L)
+            try:
+                ms, per = time_call(lambda: conv_stack_fused(
+                    c0, news[0], carries, *packed), reps=3)
+            except RuntimeError as e:
+                line += f"; launch times not measured ({e})"
+            else:
+                per = [sum(per[i::5]) for i in range(5)]  # a launch, pieces
+                out[key].update(ms=ms, conv0_ms=per[0],
+                                conv_layer_ms=per[1:])
+                line += (f"; {ms:.4f} ms a frame; device ms conv0_kernel "
+                         f"{per[0]:.4f}, conv_layer_kernel "
+                         + ", ".join(f"{t:.4f}" for t in per[1:]))
+            del c0, news, carries
+        print(f"[k7bits] conv_stack_fused bf16 ({key}, {pieces} body "
+              f"call(s) a frame): {line} | {gpu}", flush=True)
+        if expect is not None:
+            check(d01 == expect.get((N, L)),
+                  f"conv_stack_fused ({key}): c0 or c1 differs from the "
+                  f"body that stored X1 (digest {d01}, expected "
+                  f"{expect.get((N, L))})")
+        del last
         torch.cuda.empty_cache()
     return out
 
@@ -4326,6 +4433,12 @@ def main() -> int:
     gpu = gpu_line()
     print(f"[gpu] {gpu} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+    if sys.argv[1:2] == ["--k7-digests"]:
+        opt = dict(a.split("=", 1) for a in sys.argv[2:] if "=" in a)
+        expect = K7_X1_C01 if "check" in sys.argv[2:] else None
+        print(json.dumps(phase_k7_bits(gpu, expect, opt.get("save"),
+                                       opt.get("ref"))), flush=True)
+        return 0
 
     build()
     cfg = VapConfig(frame_hz=20, context_len_sec=2.5)
@@ -4359,6 +4472,7 @@ def main() -> int:
     lab, read, run_lab = phase_d_lab(gpu)
     merge = phase_d_merge(gpu)
     k7_long = phase_k7_long(gpu)
+    k7_bits = phase_k7_bits(gpu, K7_X1_C01)
     rate5 = phase_rate5(gpu)
     serve_tick = phase_serve_tick(gpu)
     serve = time_serve(gpu)
@@ -4413,7 +4527,7 @@ def main() -> int:
              launches=run_fused["fused"] + lab_i["fused"],
              max_abs_err=err_fused, **fused,
              frames={str(k): v for k, v in k7_long.items()},
-             rate5_tick=rate5),
+             bit_cases=k7_bits, rate5_tick=rate5),
         # off the serving paths, as in the JAX package; its main path is
         # the training encoder's LSTM, (16, 1998, 256) float32, one launch
         # a forward over (g), on the sequence body; both bodies at that

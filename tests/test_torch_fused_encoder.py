@@ -267,77 +267,112 @@ def test_wrapper_cpu_dispatch_and_checks():
                                 tuple(map(meta, packed[1])), meta(packed[2]))
 
 
+def _conv1_tile(B, L, m0, y0, stats, c1, w, b):
+    """conv1's A operand for the tile at xm row m0 as the producer warps
+    build it: per X1 row block cb the TILE_ROWS rows `conv1_a_rows` names
+    (a conv0 row from its products y0 (B, T0, C) float32, its stored (mean,
+    rstd) and conv0's norm w, b (C,) in the activation dtype; a c1 row; or
+    zeros), which fill W[0]'s half of K as they are and W[1]'s one row up,
+    its last row zero.  Returns (A0, A1), each (TILE_ROWS, 4 C)."""
+    mean, rstd = stats
+    rows = tfused.TILE_ROWS
+    a0 = torch.zeros(rows, 4 * 256, dtype=c1.dtype)
+    a1 = torch.zeros_like(a0)
+    for cb in range(4):
+        kind, n, t = tfused.conv1_a_rows(B, L, m0, cb)
+        built = torch.zeros(rows, 256, dtype=c1.dtype)
+        conv, car = kind == 1, kind == -1
+        built[conv] = tfused._cnorm_apply(
+            y0[n[conv], t[conv]], mean[n[conv], t[conv]],
+            rstd[n[conv], t[conv]], w, b, c1.dtype)
+        built[car] = c1[n[car], t[car]]
+        a0[:, 256 * cb:256 * (cb + 1)] = built
+        a1[:rows - 1, 256 * cb:256 * (cb + 1)] = built[1:]
+    return a0, a1
+
+
 def _emulate_hopper_body(c0, new, carries, w0, wts, aux):
     """Plain-torch emulation of the bf16 body's data path (any dtype):
-    conv0 writes X1 = [c1 | conv0 rows] and the carries into X2..X4's
-    first rows; each tail layer reads X_l as the flat (B (T_out + 1),
-    s C) matrix of stride blocks of ALL streams, takes tiles of
-    TILE_ROWS output rows m with A = xm[m0 : m0 + 128] and xm[m0 + 1 :
-    m0 + 129] (rows past the end zero, as TMA fills them) against the
-    kernel-private W^T, and the epilogue writes row m = n (T_out + 1) + t
-    to the next input's row n (T_out + 2) + 2 + t (z: n T_out + t),
-    dropping the junk rows t = T_out and the ragged rows m >= M."""
+    conv0 stores each row's (mean, rstd), the new c1 and the carries into
+    X2..X4's first rows; conv1's A operand is built from conv0's products,
+    those statistics and c1 (`_conv1_tile`), and held bit-equal to the
+    boxes of the stored X1 = [c1 | conv0 rows] that TMA would read (the
+    stride-block rows of all streams, the junk row that straddles two
+    streams, zeros past the last one), but for W[1]'s last row, whose
+    output row the tile drops; each tail layer takes tiles of `rows`
+    output rows m (TILE_ROWS computed, conv1's last dropped) with A =
+    xm[m0 : m0 + 128] and xm[m0 + 1 : m0 + 129] against the kernel-private
+    W^T, and the epilogue writes row m = n (T_out + 1) + t to the next
+    input's row n (T_out + 2) + 2 + t (z: n T_out + t), dropping the junk
+    rows t = T_out and the ragged rows m >= M."""
     B, L = new.shape
     dt, f32 = new.dtype, torch.float32
     xc0 = torch.cat([c0.to(dt), new], dim=-1)
-    y = (torch.matmul(tfused.conv0_patches(xc0).to(f32), w0.to(f32))
-         + aux[0])
-    x0 = tfused._cnorm_relu(y, aux[1].to(dt), aux[2].to(dt), dt)
+    y0 = (torch.matmul(tfused.conv0_patches(xc0).to(f32), w0.to(f32))
+          + aux[0])
+    stats = tfused._cnorm_stats(y0)
+    w, b = aux[1].to(dt), aux[2].to(dt)
+    c1 = carries[0].to(dt)
+    # never stored by the kernel: only to hold the built tiles against
+    x1 = torch.cat([c1, tfused._cnorm_apply(y0, *stats, w, b, dt)], dim=1)
     geo = tfused.layer_geometry(B, L)
-    xs = [torch.cat([carries[0].to(dt), x0], dim=1)]
+    xs = [x1]
     for li, g in enumerate(geo[:3]):
         buf = torch.full((B, g["T_out"] + 2, 256), float("nan"), dtype=dt)
         buf[:, :2] = carries[li + 1].to(dt)
         xs.append(buf)
     z = torch.full((B, geo[-1]["T_out"], 256), float("nan"), dtype=dt)
     outs = [n.reshape(B, -1, 256) for n in xs[1:]] + [z]
-    new_carries = [xc0[:, -5:], xs[0][:, -4:].clone()]
+    new_carries = [xc0[:, -5:], tfused._cnorm_apply(
+        y0[:, -4:], stats[0][:, -4:], stats[1][:, -4:], w, b, dt)]
+    R = tfused.TILE_ROWS
     for li, (g, Wt) in enumerate(zip(geo, tfused.hopper_weights(wts))):
-        M, T, half = g["M"], g["T_out"], g["s"] * 256
-        xm = xs[li].reshape(M, half).to(f32)
-        rows = g["tiles"] * tfused.TILE_ROWS
-        xz = torch.cat([xm, torch.zeros(rows + 1 - M, half)])
+        M, T, half, tr = g["M"], g["T_out"], g["s"] * 256, g["rows"]
+        xm = xs[li].reshape(M, half)
+        end = g["tiles"] * tr + R + 1
+        xz = torch.cat([xm, torch.zeros(end - M, half, dtype=dt)])
         Wt = Wt.to(f32)
         cn = 2 if li < 3 else 0
         flat = outs[li].reshape(-1, 256)
-        for m0 in range(0, rows, tfused.TILE_ROWS):
-            a0 = xz[m0:m0 + tfused.TILE_ROWS]
-            a1 = xz[m0 + 1:m0 + tfused.TILE_ROWS + 1]
-            y = (torch.matmul(a0, Wt[:, :half].T)
-                 + torch.matmul(a1, Wt[:, half:].T) + aux[3 * (li + 1)])
+        for m0 in range(0, g["tiles"] * tr, tr):
+            a0, a1 = xz[m0:m0 + R], xz[m0 + 1:m0 + R + 1]
+            if li == 0:
+                b0, b1 = _conv1_tile(B, L, m0, y0, stats, c1, w, b)
+                assert torch.equal(b0, a0), m0
+                assert torch.equal(b1[:R - 1], a1[:R - 1]), m0
+                a0, a1 = b0, b1
+            y = (torch.matmul(a0.to(f32), Wt[:, :half].T)
+                 + torch.matmul(a1.to(f32), Wt[:, half:].T)
+                 + aux[3 * (li + 1)])
             o = tfused._cnorm_relu(y, aux[3 * (li + 1) + 1].to(dt),
                                    aux[3 * (li + 1) + 2].to(dt), dt)
-            m = torch.arange(m0, m0 + tfused.TILE_ROWS)
+            m = torch.arange(m0, m0 + R)
             n, t = m // (T + 1), m % (T + 1)
-            keep = (m < M) & (t < T)
+            keep = (m < min(M, m0 + tr)) & (t < T)
             flat[(n * (T + cn) + cn + t)[keep]] = o[keep]
         if li < 3:
             new_carries.append(outs[li][:, -2:].clone())
     return z, tuple(new_carries)
 
 
-@pytest.mark.parametrize("L,dtype", [(320, "float32"), (800, "float32"),
-                                     (1600, "float32"), (800, "bfloat16")])
-def test_hopper_layout_emulation_matches_plain(L, dtype):
-    """The bf16 body's data path (the W^T repack, M stacked over all
-    channel-streams with its masked ragged last tile, the stride-block A
-    views with their dropped junk rows), emulated in plain torch, against
-    conv_stack_fused_plain: B = 13 (ragged against the 128-row tiles at
-    every L), three frames carrying state.  float32 at atol 1e-6; bf16
-    (the serving dtype: the same rounding points) at |d| <= 2^-6 (1 +
-    |plain|), chip_smoke.py's kernel tolerance."""
+def _hold_emulation_to_plain(n, L, dtype, seed):
+    """Three frames of `_emulate_hopper_body` (in PIECE-sample pieces
+    past the bf16 body's 1600 samples, as the wrapper runs them) against
+    conv_stack_fused_plain over the whole frame, each carrying its own
+    state: float32 at atol 1e-6; bf16 at |d| <= 2^-6 (1 + |plain|),
+    chip_smoke.py's kernel tolerance."""
     _, jp = _params()
     td = getattr(torch, dtype)
     enc = params_to_torch(jp["encoder"], dtype=td)
     w0, wts, aux = tfused.pack_fused_params(enc, td)
-    n = 13
-    st = {k: T_(v).to(td) for k, v in _random_carries(n, 13).items()}
+    st = {k: T_(v).to(td) for k, v in _random_carries(n, seed).items()}
     st_e = st_p = (st["c0"][:, 0], *(st[f"c{i}"] for i in range(1, 5)))
-    rs = np.random.RandomState(14)
+    piece = tfused.piece_samples(L, lambda s: s <= 1600)
+    rs = np.random.RandomState(seed + 1)
     for f in range(3):
         new = T_((0.1 * rs.randn(n, L)).astype(np.float32)).to(td)
-        z_e, st_e = _emulate_hopper_body(st_e[0], new, st_e[1:], w0, wts,
-                                         aux)
+        z_e, st_e = tfused.in_pieces(_emulate_hopper_body, st_e[0], new,
+                                     st_e[1:], w0, wts, aux, piece)
         z_p, st_p = tfused.conv_stack_fused_plain(st_p[0], new, st_p[1:],
                                                   w0, wts, aux)
         for name, a, b in [("z", z_e, z_p)] + [
@@ -352,19 +387,47 @@ def test_hopper_layout_emulation_matches_plain(L, dtype):
                 f"{d.max().item():.3e}")
 
 
+@pytest.mark.parametrize("L,dtype", [(320, "float32"), (800, "float32"),
+                                     (1600, "float32"), (800, "bfloat16")])
+def test_hopper_layout_emulation_matches_plain(L, dtype):
+    """The bf16 body's data path (conv1's A tiles built from the samples
+    and conv0's stored statistics, each bit-equal to the X1 box it
+    replaces but for the row its tile drops; the W^T repack, M stacked over all channel-streams with its
+    masked ragged last tile, the stride-block A views with their dropped
+    junk rows), emulated in plain torch, against conv_stack_fused_plain:
+    B = 13 (ragged against the 128-row tiles at every L), three frames
+    carrying state."""
+    _hold_emulation_to_plain(13, L, dtype, 13)
+
+
+@pytest.mark.parametrize("n,L", [(13, 800), (13, 1600), (13, 3200),
+                                 (3, 3200)])
+def test_hopper_conv1_build_matches_plain_bf16(n, L):
+    """conv1's A tiles built from the samples, in bf16 at the frames the
+    serving cells run (20, 10 and 5 Hz; 3200 samples in four 800-sample
+    body calls with the carries threaded): every tile bit-equal to the
+    stored X1's box (but for the row its tile drops), with the row that
+    straddles two streams and the
+    ragged last tile (n = 3: one tile, mostly past the last stream); the
+    stack's outputs and carries against the plain version over the whole
+    frame."""
+    _hold_emulation_to_plain(n, L, "bfloat16", 17)
+
+
 def test_layer_geometry_and_weight_traffic():
     """layer_geometry at the serving shape (8192 channel-streams x 800
-    samples): M = N (T_out + 1) per layer, 128-row tiles with only the last
-    one ragged, and the L2 weight bytes per call those tiles imply; the
-    W^T repack is cached per weight tensor."""
+    samples): M = N (T_out + 1) per layer, tiles of 128 output rows (127
+    for conv1) with only the last one ragged, and the L2 weight bytes per
+    call those tiles imply; the W^T repack is cached per weight tensor."""
     geo = tfused.layer_geometry(8192, 800)
     assert [g["T_out"] for g in geo] == [40, 20, 10, 5]
+    assert [g["rows"] for g in geo] == [127, 128, 128, 128]
     for g in geo:
         assert g["M"] == 8192 * (g["T_out"] + 1)
-        assert (g["tiles"] - 1) * 128 < g["M"] <= g["tiles"] * 128
-    assert [g["tiles"] for g in geo] == [2624, 1344, 704, 384]
+        assert (g["tiles"] - 1) * g["rows"] < g["M"] <= g["tiles"] * g["rows"]
+    assert [g["tiles"] for g in geo] == [2645, 1344, 704, 384]
     assert tfused.weight_l2_bytes(8192, 800) == sum(
-        t * k * 256 * 2 for t, k in zip([2624, 1344, 704, 384],
+        t * k * 256 * 2 for t, k in zip([2645, 1344, 704, 384],
                                         [2048, 1024, 1024, 1024]))
     assert tfused.CUDA_LAUNCHES == {torch.float32: 1, torch.bfloat16: 5}
     _, jp = _params()

@@ -24,36 +24,69 @@
 // path, which rounds every conv output to bf16).
 //
 // bf16 body: five launches a call.
-//   conv0 (K = 10, 0.8 of the ~61 MFLOP a channel-stream): per 16 output
-//     rows of a stream, a (16 x 16) . (16 x 256) product on mma.sync
-//     m16n8k16 (samples as A, taps 10-15 zero), taken twice, 8 columns at
-//     a time: once for each row's sums, once to normalise.  A lane thus
-//     holds 4 accumulators, not 128, and 16 warps fit an SM.  It writes
-//     conv1's input X1 = [c1 | conv0 rows] (N, T0 + 4, 256) to device
-//     memory, the new c0 and c1, and the carries c2-c4 into the first rows
-//     of X2-X4.
+//   conv0 (K = 10, 0.8 of the ~61 MFLOP a channel-stream) is a
+//     statistics pass: per 16 output rows of a stream, a (16 x 16) .
+//     (16 x 256) product on mma.sync m16n8k16 (samples as A, taps 10-15
+//     zero), 8 columns at a time, 32 rows a warp task, gives each row's
+//     float32 sums, and the row's ChannelNorm (mean, rstd) goes to a (N,
+//     T0) float2 buffer: 8 bytes a row where the normalised bf16 row
+//     would be 512.  It also
+//     writes the new c0, the new c1 (the last 4 rows, normalised: the
+//     product taken a second time) and the carries c2-c4 into the first
+//     rows of X2-X4.  A lane holds 8 accumulators, not 128; 32 warps an
+//     SM hide the products' latency.
+//   conv1's input X1 = [c1 | conv0 rows] (N, T0 + 4, 256) never exists in
+//     device memory: conv1's producer warpgroup builds its A stages from
+//     the samples (below), with the same mma.sync product, the stored
+//     (mean, rstd) and the same roundings, so their values are X1's, bit
+//     for bit.
 //   conv1-4: one launch each of an implicit GEMM on wgmma.  Its M runs
 //     over the stride-block rows of ALL channel-streams at once: X_l is
 //     (N, T_in, 256) contiguous, i.e. the (N (T_out + 1), s 256) matrix xm
 //     of stride blocks, so output row m = xm[m] W[0] + xm[m + 1] W[1] for
 //     every m; the row m = n (T_out + 1) + T_out, which straddles streams
 //     n and n + 1, is junk and is dropped by the epilogue (1 row in
-//     T_out + 1: 2.4% of conv1's work at L = 800).  A tile is 128 such
-//     rows over all 256 output channels: two consumer warpgroups of 64
-//     rows each, so every weight tile staged in shared memory serves 128
-//     rows, whatever the stream boundaries; only the launch's last tile
-//     is ragged (TMA fills its rows past the end with zeros; the epilogue
+//     T_out + 1: 2.4% of conv1's work at L = 800).  A tile computes 128
+//     such rows over all 256 output channels: two consumer warpgroups of
+//     64 rows each, so every weight tile staged in shared memory serves
+//     128 rows, whatever the stream boundaries; only the launch's last
+//     tile is ragged (its rows past the end read as zeros; the epilogue
 //     masks them).  The A tile of k slice [k0, k0 + 64) is the box of xm
-//     at (column k0 mod s 256, row m0 + (k0 >= s 256)): a TMA 2-D tensor
-//     map over xm, so the one-row offset of W[1]'s half costs nothing.
-//     The weights go in as W^T (256, 2 s 256), K-major, through a second
+//     at (column k0 mod s 256, row m0 + (k0 >= s 256)).  For conv2-4 it is
+//     a TMA 2-D tensor map over xm, so the one-row offset of W[1]'s half
+//     costs nothing.
+//   conv1 (`conv_layer_kernel<true>`) builds its A instead.  Built row r
+//     of X1 row block cb (0..3) is X1 row 4 m + cb of xm row m = m0 + r;
+//     with T1 + 1 stride blocks a stream, m is stream n = m / (T1 + 1)'s
+//     block tm = m mod (T1 + 1), so the row is c1 row cb (tm = 0) or
+//     conv0 row 4 (tm - 1) + cb: per 16 rows a (16 x 16) . (16 x 64)
+//     slice of conv0's product, normalised with the rows' stored (mean,
+//     rstd).  conv1 runs its K slices in the order (W[0], c), (W[1], c)
+//     for c = 0 .. 15 (the TMA body: all of W[0]'s, then W[1]'s), so the
+//     64 columns c of the 128 built rows, held in registers, fill W[0]'s
+//     stage as they are and W[1]'s one row up: each X1 value is built
+//     once, not twice.  W[1]'s stage then lacks xm row m0 + 128 (its last
+//     row is zero), so conv1's tiles keep 127 of their 128 rows.  The
+//     other order of conv1's float32 sums moves z and c2-c4 by a bf16
+//     rounding here and there against the TMA body (max |d| 2^-5 at
+//     (83,968, 3,200), 2.7% of z; c0 and c1 bit-equal; PERF.md §6).
+//     The producer warpgroup's four warps build 32 rows each (the next
+//     row block's loads in flight while they build this one, the
+//     products of 4 column blocks issued together) and store them with
+//     stmatrix in the swizzle TMA would, then arrive on the stage's full
+//     barrier (after fence.proxy.async: wgmma reads through the async
+//     proxy).
+//   The weights go in as W^T (256, 2 s 256), K-major, through a second
 //     map.  Both land 128-byte swizzled; wgmma m64n256k16 reads them
-//     through shared-memory descriptors.  One thread of a third warpgroup
-//     keeps a ring of 3 stages (16 KB of A + 32 KB of W each) in flight
-//     against full / empty mbarriers; blocks are persistent (one per SM,
-//     walking the tiles), so the producer runs ahead into the next tile
-//     while the consumers finish the epilogue.  setmaxnreg gives the
-//     consumers 232 registers a thread and the producer's warpgroup 40.
+//     through shared-memory descriptors.  A third warpgroup (one thread
+//     for conv2-4; for conv1 four warps, with the weights loaded by
+//     consumer thread 0 two slices ahead) keeps a ring of 3 stages (16 KB
+//     of A + 32 KB of W each) in flight against full / empty mbarriers,
+//     whose waiters sleep rather than spin; blocks are persistent (one
+//     per SM, walking the tiles), so the producer runs ahead into the
+//     next tile while the consumers finish the epilogue.  setmaxnreg
+//     gives the consumers 232 registers a thread and the producer's
+//     warpgroup 40 (conv1: 168 each).
 //   Epilogue in registers: a warpgroup's m64n256 accumulator gives thread
 //     (warp w, lane l) rows 16w + l/4 and + 8, columns 8i + 2(l%4) + {0, 1}
 //     (i < 32): a row's 256 values lie in the 4 lanes of one quad, so the
@@ -64,20 +97,26 @@
 //     layer's input (after its 2 carry rows) or z, and the last two rows
 //     of a stream to the new carry too.
 //   Between the launches the activations go through device memory once:
-//     X1 is 84 KB a channel-stream in bf16 (688 MB at N = 8192, L = 800),
-//     X2-X4 21, 11 and 6 KB.
+//     conv0's statistics are 1.3 KB a channel-stream at L = 800 (10.5 MB
+//     at N = 8192, where X1 was 84 KB and 688 MB), X2-X4 21, 11 and 6 KB:
+//     ~40 KB of scratch a channel-stream in all (~123 KB with X1).
 //   L2 -> SM weight traffic per call: one 2 s 256 x 256 bf16 weight matrix
-//     per 128-row tile: ceil(N (T_out + 1) / 128) tiles a layer, 4.03 GB
-//     at N = 8192, L = 800 (conv1 2.75 GB, conv2 0.70, conv3 0.37, conv4
-//     0.20), where the one-block-per-stream body this replaced read all
-//     2.6 MB of weights per channel-stream, ~21 GB.
+//     per tile: ceil(N (T_out + 1) / rows) tiles a layer (rows 127 for
+//     conv1, 128 after), 4.05 GB at N = 8192, L = 800 (conv1 2.77 GB,
+//     conv2 0.70, conv3 0.37, conv4 0.20), where the one-block-per-stream
+//     body this replaced read all 2.6 MB of weights per channel-stream,
+//     ~21 GB.
 //   On the H100 (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase
-//     (d), N = 8192, L = 800): 1.3339 ms a call, 37.9% of the operation
-//     bound; conv1 0.6391 ms (551 TFLOP/s with its junk rows).  What it
-//     costs beyond the products: conv0 (0.3479 ms, beside its 0.21 ms
-//     bound, the 688 MB it writes), and each GEMM's epilogue, which the
-//     two consumer warpgroups run while the tensor cores wait (~0.21 ms
-//     over conv1-4: tools/k7_ablate.py).
+//     (k7bits), N = 8192, L = 800): 1.23 ms a call (1.32 while X1 was
+//     stored): conv0 0.12 ms (0.35, most of it the 688 MB of X1 it
+//     wrote), conv1 0.76 (0.62 reading X1 by TMA; 0.51 with the A build
+//     taken out, tools/k7_ablate.py zero_a_build), conv2-4 0.17, 0.10,
+//     0.05.  The A warps bound conv1: per 64-column slice (clock64 in
+//     the kernel) ~1,000 cycles of products and normalising, ~300 of row
+//     loads, ~300 of stores and fences, against ~1,000 of wgmma; at the
+//     5 Hz cell's (83,968, 3,200) a frame takes 47.7 ms (53.0).  Each
+//     GEMM's epilogue runs while the tensor cores wait (~0.21 ms over
+//     conv1-4).
 // float32 body: one block of 256 threads (8 warps) per channel-stream, on
 //   the CUDA cores (no TF32).  The activations never leave shared memory:
 //   the samples, buffer A (conv1's input, 164 x 256 floats at L = 800;
@@ -416,26 +455,94 @@ constexpr uint32_t kWBytes = kC * kBK * sizeof(bf16);   // 32 KB
 // instruction touches on distinct banks
 constexpr int kOutLd = kC + 8;
 constexpr uint32_t kOutBytes = kBM * kOutLd * sizeof(bf16);  // 66 KB
-// + the layer's bias and norm parameters, the barriers, the alignment
+
+// conv0's operands in shared memory, for its own pass and for conv1's A
+// build: the (10, C) weight as mma.sync B fragments ([n tile][lane]; taps
+// 10-15 zero), its bias, and its norm w and b as bf16 pairs (the affine's
+// operands, rounded as norm_rows16 rounds them).
+struct Conv0Smem {
+  uint2 sb[32][32];
+  float bias[kC];
+  uint2 wb[kC / 2];  // {norm w, norm b} of columns 2 p and 2 p + 1
+};
+
+// + conv0's operands (conv1 only), the layer's bias and norm parameters,
+// the barriers, a row conv1's A warps drop, the alignment
 constexpr size_t kGemmSmem = kStages * (kABytes + kWBytes) + kOutBytes +
-                             3 * kC * sizeof(float) +
-                             2 * kStages * sizeof(uint64_t) + 1024;
-constexpr int kConv0Warps = 4;      // conv0: warps a block, 16 rows a task
+                             sizeof(Conv0Smem) + 3 * kC * sizeof(float) +
+                             2 * kStages * sizeof(uint64_t) + 128 + 1024;
+static_assert(kGemmSmem <= 232448, "more than a block's shared memory");
+constexpr int kConv0Warps = 4;      // conv0: warps a block
+constexpr int kConv0Rows = 32;      // conv0: rows a warp's task
+constexpr int kConv0Blocks = 8;     // conv0: blocks an SM (64 registers)
 
 struct Conv0Args {
   const bf16* x_new;  // (N, L)
   const bf16* c[5];   // carries in
   const bf16* w0;     // (10, C)
   const float* aux;   // conv0's bias, norm w, norm b (3, C)
-  bf16* x[4];         // layer inputs X1 (N, T0 + 4, C), X2-X4 (N, T + 2, C)
+  float2* stats;      // (N, T0): each conv0 row's (mean, rstd)
+  bf16* x[3];         // layer inputs X2-X4 (N, T + 2, C)
   bf16* n0;           // (N, 5)
   bf16* n1;           // (N, 4, C)
   int N, L, T0, T1, T2, T3;
 };
 
+// What conv1's producer builds its A stages from.
+struct Conv1In {
+  const bf16* x_new;    // (N, L)
+  const bf16* c0;       // (N, 5) carry in
+  const bf16* c1;       // (N, 4, C) carry in: X1's first 4 rows
+  const float2* stats;  // (N, T0) from conv0_kernel
+  const bf16* w0;       // (10, C)
+  const float* aux;     // conv0's bias, norm w, norm b (3, C)
+  int L, T0;
+};
+
 // Two bf16 in one 32-bit word (lo in the low half).
 __device__ __forceinline__ uint32_t pack_bits(uint16_t lo, uint16_t hi) {
   return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+// Conv0Smem from the (10, C) weight and conv0's aux rows, by all threads
+// of the block (the caller synchronises).  Fragment [i][lane] holds, for
+// column 8 i + lane / 4, taps 2 q and 2 q + 1 (q = lane % 4) and, for
+// q = 0, taps 8 and 9.
+__device__ __forceinline__ void load_conv0(Conv0Smem& s, const bf16* w0,
+                                           const float* aux) {
+  const uint16_t* w = reinterpret_cast<const uint16_t*>(w0);
+  for (int e = threadIdx.x; e < 32 * 32; e += blockDim.x) {
+    const int i = e >> 5, l = e & 31, q = l & 3, col = 8 * i + (l >> 2);
+    s.sb[i][l] = make_uint2(
+        pack_bits(w[2 * q * kC + col], w[(2 * q + 1) * kC + col]),
+        q == 0 ? pack_bits(w[8 * kC + col], w[9 * kC + col]) : 0u);
+  }
+  for (int c = threadIdx.x; c < kC; c += blockDim.x) s.bias[c] = aux[c];
+  for (int p = threadIdx.x; p < kC / 2; p += blockDim.x) {
+    const __nv_bfloat162 wv =
+        __floats2bfloat162_rn(aux[kC + 2 * p], aux[kC + 2 * p + 1]);
+    const __nv_bfloat162 bv =
+        __floats2bfloat162_rn(aux[2 * kC + 2 * p], aux[2 * kC + 2 * p + 1]);
+    s.wb[p] = make_uint2(*reinterpret_cast<const uint32_t*>(&wv),
+                         *reinterpret_cast<const uint32_t*>(&bv));
+  }
+}
+
+// Sample j of a stream's xc0 = [c0 (5) | new], as bits.
+__device__ __forceinline__ uint16_t sample(const bf16* c0, const bf16* xn,
+                                           int j) {
+  return *reinterpret_cast<const uint16_t*>(j < kS0 ? c0 + j : xn + j - kS0);
+}
+
+// The A fragment words of one conv0 row t on mma.sync m16n8k16 for lane
+// quad position q: samples 5 t + 2 q and + 1 of xc0 (lo) and, for q = 0,
+// 5 t + 8 and + 9 (hi); taps 10-15 are zero.
+__device__ __forceinline__ void conv0_frag(const bf16* c0, const bf16* xn,
+                                           int t, int q, uint32_t& lo,
+                                           uint32_t& hi) {
+  const int j = kS0 * t;
+  lo = pack_bits(sample(c0, xn, j + 2 * q), sample(c0, xn, j + 2 * q + 1));
+  hi = q == 0 ? pack_bits(sample(c0, xn, j + 8), sample(c0, xn, j + 9)) : 0u;
 }
 
 // The normalised pair (y0, y1) of a row with (mean, rstd) through the
@@ -562,22 +669,6 @@ __device__ __forceinline__ void norm_rows16(float* d, const float* aux,
   flush_rows16(stage, rows);
 }
 
-// conv0's row t0 + rr of stream n: X1 row n (T0 + 4) + 4 + t, and the new
-// c1 for the last 4.
-struct Conv0Rows {
-  bf16* x1;
-  bf16* n1;
-  int T0, n, t0;
-  __device__ __forceinline__ void operator()(int rr, bf16*& dst,
-                                             bf16*& car) const {
-    const int t = t0 + rr;
-    dst = x1 + (static_cast<size_t>(n) * (T0 + 4) + 4 + t) * kC;
-    car = t >= T0 - 4
-              ? n1 + (static_cast<size_t>(n) * 4 + t - (T0 - 4)) * kC
-              : nullptr;
-  }
-};
-
 // One m16n8k16 product on the tensor cores: c = A B (bf16 fragments,
 // float32 accumulators from zero).
 __device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1,
@@ -595,112 +686,286 @@ __device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1,
 // mma.sync m16n8k16 (bf16 in, float32 accumulators): row r of A is
 // samples xc0[5 (t0 + r) + k], k < 10, zero for k >= 10; B the (10, C)
 // weight, zero rows 10-15, its fragments in shared memory.  Each warp
-// takes tasks (stream n, rows t0 .. t0 + 15) in turn; the warp of a
-// stream's first task also copies the carries in (c1 -> X1 rows 0-3,
-// c2..c4 -> rows 0-1 of X2..X4) and writes the new c0.  The products are
-// cheap (K = 16), so a task takes them twice, 8 columns at a time: once
-// for the rows' sums, once to normalise; a lane then holds 4 accumulators
-// instead of 128, and 4 blocks of 4 warps fit an SM.
-__global__ void __launch_bounds__(kConv0Warps * 32, 4) conv0_kernel(
-    const Conv0Args a) {
-  __shared__ __align__(16) bf16 stage[kConv0Warps * 16 * kOutLd];
-  __shared__ __align__(16) float saux[3 * kC];
-  __shared__ uint2 sb[32][32];  // B's fragments: [n tile][lane]
+// takes tasks (stream n, rows t0 .. t0 + 31: two 16-row groups, each B
+// fragment read once for both) in turn; the warp of a stream's first
+// task also copies the carries c2..c4 in (rows 0-1 of X2..X4) and writes
+// the new c0.  A task takes the products 8 columns at a time for the
+// rows' float32 sums, and stores each row's (mean, rstd); the stream's
+// last task takes them again to normalise its last 4 rows, the new c1.
+// A lane holds 8 accumulators instead of 128, and with no staging buffer
+// 8 blocks of 4 warps fit an SM.
+__global__ void __launch_bounds__(kConv0Warps * 32, kConv0Blocks)
+    conv0_kernel(const Conv0Args a) {
+  __shared__ Conv0Smem s0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3, cq = 2 * q;
-  for (int i = threadIdx.x; i < 3 * kC; i += blockDim.x) saux[i] = a.aux[i];
-  const uint16_t* w0 = reinterpret_cast<const uint16_t*>(a.w0);
-  for (int i = warp; i < 32; i += kConv0Warps) {
-    const int col = 8 * i + g;
-    sb[i][lane] = make_uint2(
-        pack_bits(w0[2 * q * kC + col], w0[(2 * q + 1) * kC + col]),
-        q == 0 ? pack_bits(w0[8 * kC + col], w0[9 * kC + col]) : 0u);
-  }
+  load_conv0(s0, a.w0, a.aux);
   __syncthreads();
-  bf16* st = stage + warp * 16 * kOutLd;
-  const int per = a.T0 / 16;
+  const int per = a.T0 / kConv0Rows;  // T0 is a multiple of 32 (lens_of)
   const int tasks = a.N * per;
   for (int task = blockIdx.x * kConv0Warps + warp; task < tasks;
        task += gridDim.x * kConv0Warps) {
-    const int n = task / per, t0 = 16 * (task - n * per);
-    const uint16_t* xn = reinterpret_cast<const uint16_t*>(a.x_new) +
-                         static_cast<size_t>(n) * a.L;
-    const uint16_t* cz = reinterpret_cast<const uint16_t*>(a.c[0]) +
-                         static_cast<size_t>(n) * kS0;
+    const int n = task / per, t0 = kConv0Rows * (task - n * per);
+    const bf16* xn = a.x_new + static_cast<size_t>(n) * a.L;
+    const bf16* cz = a.c[0] + static_cast<size_t>(n) * kS0;
     if (t0 == 0) {
-      const int rows_in[4] = {a.T0 + 4, a.T1 + 2, a.T2 + 2, a.T3 + 2};
+      const int rows_in[3] = {a.T1 + 2, a.T2 + 2, a.T3 + 2};
       const int kv = kC / 8;  // 16-byte words a row
-      for (int i = lane; i < 10 * kv; i += 32) {
-        const int row = i / kv, l = row < 4 ? 0 : 1 + (row - 4) / 2;
-        const int r = row < 4 ? row : (row - 4) % 2, cw = 8 * (i % kv);
-        const int kr = l == 0 ? 4 : 2;
+      for (int i = lane; i < 6 * kv; i += 32) {
+        const int row = i / kv, l = row / 2, r = row % 2, cw = 8 * (i % kv);
         const uint4 v = *reinterpret_cast<const uint4*>(
-            a.c[l + 1] + (static_cast<size_t>(n) * kr + r) * kC + cw);
+            a.c[l + 2] + (static_cast<size_t>(n) * 2 + r) * kC + cw);
         *reinterpret_cast<uint4*>(
             a.x[l] + (static_cast<size_t>(n) * rows_in[l] + r) * kC + cw) = v;
       }
-      if (lane < kS0)
-        a.n0[n * kS0 + lane] =
-            a.x_new[static_cast<size_t>(n) * a.L + a.L - kS0 + lane];
+      if (lane < kS0) a.n0[n * kS0 + lane] = xn[a.L - kS0 + lane];
     }
-    // sample j of [c0 | new]
-    auto smp = [&](int j) -> uint16_t {
-      return j < kS0 ? cz[j] : xn[j - kS0];
-    };
-    const int j0 = kS0 * (t0 + g), j1 = j0 + 8 * kS0;  // rows g, g + 8
-    const uint32_t a0 = pack_bits(smp(j0 + 2 * q), smp(j0 + 2 * q + 1));
-    const uint32_t a1 = pack_bits(smp(j1 + 2 * q), smp(j1 + 2 * q + 1));
-    const uint32_t a2 = q == 0 ? pack_bits(smp(j0 + 8), smp(j0 + 9)) : 0u;
-    const uint32_t a3 = q == 0 ? pack_bits(smp(j1 + 8), smp(j1 + 9)) : 0u;
-    // pass 1: the float32 sums of y = A B + b over each row's 256 channels
-    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+    uint32_t f[2][4];  // per 16-row group: rows g, g + 8
+#pragma unroll
+    for (int rg = 0; rg < 2; ++rg) {
+      conv0_frag(cz, xn, t0 + 16 * rg + g, q, f[rg][0], f[rg][2]);
+      conv0_frag(cz, xn, t0 + 16 * rg + g + 8, q, f[rg][1], f[rg][3]);
+    }
+    // the float32 sums of y = A B + b over each row's 256 channels
+    float s1[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    float s2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      float c[4];
-      mma16816(c, a0, a1, a2, a3, sb[i][lane]);
-      const float2 b = *reinterpret_cast<const float2*>(saux + 8 * i + cq);
+      const uint2 wf = s0.sb[i][lane];
+      const float2 b = *reinterpret_cast<const float2*>(s0.bias + 8 * i + cq);
+#pragma unroll
+      for (int rg = 0; rg < 2; ++rg) {
+        float c[4];
+        mma16816(c, f[rg][0], f[rg][1], f[rg][2], f[rg][3], wf);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float y0 = __fadd_rn(c[2 * h], b.x);
+          const float y1 = __fadd_rn(c[2 * h + 1], b.y);
+          s1[rg][h] += y0 + y1;
+          s2[rg][h] += __fmul_rn(y0, y0) + __fmul_rn(y1, y1);
+        }
+      }
+    }
+    float mean[2][2], rstd[2][2];
+#pragma unroll
+    for (int rg = 0; rg < 2; ++rg)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float y0 = __fadd_rn(c[2 * h], b.x);
-        const float y1 = __fadd_rn(c[2 * h + 1], b.y);
-        s1[h] += y0 + y1;
-        s2[h] += __fmul_rn(y0, y0) + __fmul_rn(y1, y1);
-      }
-    }
-    float mean[2], rstd[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        s1[h] += __shfl_xor_sync(0xffffffffu, s1[h], o);
-        s2[h] += __shfl_xor_sync(0xffffffffu, s2[h], o);
+        for (int o = 1; o <= 2; o <<= 1) {
+          s1[rg][h] += __shfl_xor_sync(0xffffffffu, s1[rg][h], o);
+          s2[rg][h] += __shfl_xor_sync(0xffffffffu, s2[rg][h], o);
+        }
+        row_stats(s1[rg][h], s2[rg][h], mean[rg][h], rstd[rg][h]);
+        if (q == 0)
+          a.stats[static_cast<size_t>(n) * a.T0 + t0 + 16 * rg + g + 8 * h] =
+              make_float2(mean[rg][h], rstd[rg][h]);
       }
-      row_stats(s1[h], s2[h], mean[h], rstd[h]);
-    }
-    bulk_wait_read();  // the slice's previous rows have gone out
-    __syncwarp();
-    // pass 2: the same products again, normalised into the stage
+    if (t0 + kConv0Rows < a.T0) continue;
+    // the stream's last 4 rows (28-31 of its last task: row group 1, h =
+    // 1, g >= 4): the same products again, normalised, to the new c1
+    bf16* c1row = a.n1 + (static_cast<size_t>(n) * 4 + g - 4) * kC;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float c[4];
-      mma16816(c, a0, a1, a2, a3, sb[i][lane]);
+      mma16816(c, f[1][0], f[1][1], f[1][2], f[1][3], s0.sb[i][lane]);
       const int col = 8 * i + cq;
-      const float2 b = *reinterpret_cast<const float2*>(saux + col);
-      const float2 w = *reinterpret_cast<const float2*>(saux + kC + col);
-      const float2 nb = *reinterpret_cast<const float2*>(saux + 2 * kC + col);
-      const __nv_bfloat162 wv = __floats2bfloat162_rn(w.x, w.y);
-      const __nv_bfloat162 bv = __floats2bfloat162_rn(nb.x, nb.y);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint32_t*>(st + (g + 8 * h) * kOutLd + col) =
-            norm_affine_relu2(__fadd_rn(c[2 * h], b.x),
-                              __fadd_rn(c[2 * h + 1], b.y), mean[h], rstd[h],
-                              *reinterpret_cast<const uint32_t*>(&wv),
-                              *reinterpret_cast<const uint32_t*>(&bv));
+      const float2 b = *reinterpret_cast<const float2*>(s0.bias + col);
+      if (g >= 4)
+        *reinterpret_cast<uint32_t*>(c1row + col) = norm_affine_relu2(
+            __fadd_rn(c[2], b.x), __fadd_rn(c[3], b.y), mean[1][1],
+            rstd[1][1], s0.wb[col >> 1].x, s0.wb[col >> 1].y);
     }
-    flush_rows16(st, Conv0Rows{a.x[0], a.n1, a.T0, n, t0});
   }
-  bulk_wait();
+}
+
+// What A warp w needs to build its kRG row groups (16 rows each:
+// tile rows 16 (kRG w + rg) + [0, 16)) of X1 row block cb for four 64-column
+// blocks (cc = 0, 64, 128, 192): tile row r is X1 row 4 m + cb of xm row
+// m = m0 + r.  Stream n = m / (T1 + 1)'s stride block tm = m mod (T1 + 1)
+// holds c1's 4 rows (tm = 0) or conv0 rows 4 (tm - 1) .. + 3; rows m >= M
+// are zeros, as TMA fills them.  Per row group the lane holds rows g and
+// g + 8 (hh): the conv0 product's A fragments, the rows' stored (mean,
+// rstd) and their kind (1: conv0 row; 0: zeros; < 0: -1 - its c1 row n 4
+// + cb).  Loaded once for the four blocks, so their latency is paid once.
+constexpr int kAWarps = 4;                   // conv1: the warps that build A
+constexpr int kRG = kBM / 16 / kAWarps;      // row groups an A warp
+
+struct A1Rows {
+  uint32_t f[kRG][4];
+  float mean[kRG][2], rstd[kRG][2];
+  int kind[kRG][2];
+  // the lane's c1 row, or null: one at most, as T1 + 1 (odd, > 3) divides
+  // none of the gaps 8, 16, 24 between the lane's rows
+  const bf16* c1;
+  bool patch;      // some lane of the warp holds a c1 or a zero row
+};
+
+// A1Rows' loads in flight: issued a group ahead of their use, so that
+// their latency passes while the A warp works on the group before.
+struct A1Raw {
+  uint16_t s[kRG][2][4];  // samples 5 t + 2 q, + 1, 5 t + 8, + 9
+  float2 ms[kRG][2];      // the rows' (mean, rstd)
+  int kind[kRG][2];
+};
+
+__device__ __forceinline__ void issue_a1_rows(A1Raw& r, const Conv1In& b,
+                                              int m0, int cb, int M, int w) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int blocks = b.T0 / 4 + 1;
+#pragma unroll
+  for (int rg = 0; rg < kRG; ++rg)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = m0 + 16 * (kRG * w + rg) + g + 8 * hh;
+      const int n = m / blocks, tm = m - n * blocks;
+      const int kind = m >= M ? 0 : tm == 0 ? -1 - (4 * n + cb) : 1;
+      // a zero or c1 row reads conv0 row 0 of stream 0 and drops it
+      const int nn = kind == 1 ? n : 0;
+      const int t = kind == 1 ? 4 * (tm - 1) + cb : 0;
+      const bf16* cz = b.c0 + nn * kS0;
+      const bf16* xn = b.x_new + static_cast<size_t>(nn) * b.L;
+      const int js[4] = {kS0 * t + 2 * q, kS0 * t + 2 * q + 1, kS0 * t + 8,
+                         kS0 * t + 9};  // of xc0 = [c0 | new]
+#pragma unroll
+      for (int k = 0; k < 4; ++k) r.s[rg][hh][k] = sample(cz, xn, js[k]);
+      r.ms[rg][hh] = b.stats[static_cast<size_t>(nn) * b.T0 + t];
+      r.kind[rg][hh] = kind;
+    }
+}
+
+__device__ __forceinline__ void finish_a1_rows(A1Rows& a, const A1Raw& r,
+                                               const Conv1In& b) {
+  const int q = threadIdx.x & 3;
+  bool patch = false;
+  a.c1 = nullptr;
+#pragma unroll
+  for (int rg = 0; rg < kRG; ++rg)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int kind = r.kind[rg][hh];
+      const uint16_t* sm = r.s[rg][hh];
+      a.f[rg][hh] = kind == 1 ? pack_bits(sm[0], sm[1]) : 0u;
+      a.f[rg][hh + 2] = kind == 1 && q == 0 ? pack_bits(sm[2], sm[3]) : 0u;
+      a.mean[rg][hh] = r.ms[rg][hh].x;
+      a.rstd[rg][hh] = r.ms[rg][hh].y;
+      a.kind[rg][hh] = kind;
+      patch = patch || kind <= 0;
+      if (kind < 0) a.c1 = b.c1 + static_cast<size_t>(-1 - kind) * kC;
+    }
+  a.patch = __any_sync(0xffffffffu, patch);
+  // the c1 row's 512 bytes into L1 now, not at its first read
+  if (a.c1 != nullptr)
+#pragma unroll
+    for (int l = 0; l < 4; ++l)
+      asm volatile("prefetch.global.L1 [%0];\n" ::"l"(a.c1 + 64 * l));
+}
+
+// A warp w's rows of conv1's A tile for channels [cc, cc + 64) of
+// X1 row block cb (A1Rows: which rows), as packed bf16 pairs in registers
+// (v[i][rg][hh]: row 16 (kRG w + rg) + g + 8 hh, columns cc + 8 i + 2 q
+// and + 1): a conv0 row is conv0_kernel's product on the same fragments,
+// 8 columns at a time, normalised with its stored (mean, rstd) as
+// norm_rows16 does: X1's value, bit for bit; a c1 row its c1 values;
+// rows past the last stream zeros.  The operands are read from shared
+// memory at once and the products issued together, so one warp on each
+// SM sub-partition pays each latency once, not once a product.
+struct A1Out {
+  uint32_t v[8][kRG][2];
+};
+constexpr int kBatch = 4;  // column blocks whose products issue together
+
+__device__ __forceinline__ void build_conv1_a(A1Out& o, const A1Rows& a,
+                                              const Conv0Smem& s0, int cc) {
+  const int lane = threadIdx.x & 31, q = lane & 3;
+  // the lane's c1 values, read first: used at the end
+  uint32_t cv[8];
+  if (a.c1 != nullptr)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      cv[i] = *reinterpret_cast<const uint32_t*>(a.c1 + cc + 8 * i + 2 * q);
+#pragma unroll
+  for (int i0 = 0; i0 < 8; i0 += kBatch) {  // kBatch column blocks at once
+    uint2 wf[kBatch], wb[kBatch];
+    float2 bias[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int col = cc + 8 * (i0 + j) + 2 * q;
+      wf[j] = s0.sb[(cc >> 3) + i0 + j][lane];
+      wb[j] = s0.wb[col >> 1];
+      bias[j] = *reinterpret_cast<const float2*>(s0.bias + col);
+    }
+    float c[kBatch][kRG][4];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+      for (int rg = 0; rg < kRG; ++rg)
+        mma16816(c[j][rg], a.f[rg][0], a.f[rg][1], a.f[rg][2], a.f[rg][3],
+                 wf[j]);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+      for (int rg = 0; rg < kRG; ++rg)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          o.v[i0 + j][rg][hh] = norm_affine_relu2(
+              __fadd_rn(c[j][rg][2 * hh], bias[j].x),
+              __fadd_rn(c[j][rg][2 * hh + 1], bias[j].y), a.mean[rg][hh],
+              a.rstd[rg][hh], wb[j].x, wb[j].y);
+  }
+  // c1's rows (a stream's first stride block: one row in T1 + 1) and the
+  // rows past the last stream
+  if (a.patch)
+#pragma unroll
+    for (int rg = 0; rg < kRG; ++rg)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        if (a.kind[rg][hh] <= 0)
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            o.v[i][rg][hh] = a.kind[rg][hh] < 0 ? cv[i] : 0u;
+}
+
+// Four 8 x 8 bf16 matrices from the mma fragment layout (lane l: row l /
+// 4, columns 2 (l % 4) and + 1 of each, one register a matrix) to shared
+// memory, lane l giving the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void stmatrix_x4(uint32_t row_addr, uint32_t m0,
+                                            uint32_t m1, uint32_t m2,
+                                            uint32_t m3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(row_addr),
+      "r"(m0), "r"(m1), "r"(m2), "r"(m3)
+      : "memory");
+}
+
+// The built rows into A stage `sa`, `shift` rows up (0: the W[0] slice,
+// stage row r = xm row m0 + r; 1: the W[1] slice, stage row r = xm row m0
+// + 1 + r, its last row zero: it feeds only the tile's dropped row kBM -
+// 1; the row shifted out goes to `spill`, 16 bytes x 8).  Each 16-byte
+// chunk i of row r lands where TMA's 128-byte swizzle puts it, at chunk
+// i ^ (r mod 8) (the stage is 1024-byte aligned): one stmatrix.x4 stores
+// two column blocks of a row group's 16 rows.
+__device__ __forceinline__ void store_conv1_a(bf16* sa, const A1Out& o,
+                                              int w, int shift,
+                                              unsigned char* spill) {
+  const int lane = threadIdx.x & 31, j = lane >> 3;  // j: lane's matrix
+  const uint32_t base = smem_u32(sa);
+#pragma unroll
+  for (int rg = 0; rg < kRG; ++rg) {
+    const int r = 16 * (kRG * w + rg) + (lane & 7) + 8 * (j & 1) - shift;
+#pragma unroll
+    for (int i = 0; i < 8; i += 2) {
+      const int ij = i + (j >> 1);
+      const uint32_t addr = r >= 0 ? base + r * 128 + ((ij ^ (r & 7)) << 4)
+                                   : smem_u32(spill) + 16 * (lane & 7);
+      stmatrix_x4(addr, o.v[i][rg][0], o.v[i][rg][1], o.v[i + 1][rg][0],
+                  o.v[i + 1][rg][1]);
+    }
+  }
+  if (shift > 0 && w == kAWarps - 1 && lane < 8)
+    reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(sa) +
+                             (kBM - 1) * 128)[lane] = make_uint4(0, 0, 0, 0);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* b, uint32_t count) {
@@ -722,7 +987,10 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* b) {
                : "memory");
 }
 
-// Wait until the phase of parity `parity` of barrier b has completed.
+// Wait until the phase of parity `parity` of barrier b has completed; a
+// waiting thread sleeps (up to kSuspendNs a try) instead of spinning, so
+// it leaves its sub-partition's issue slots to the warps that work.
+constexpr uint32_t kSuspendNs = 1000000;
 __device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
   const uint32_t addr = smem_u32(b);
   uint32_t done;
@@ -730,11 +998,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
         "selp.u32 %0, 1, 0, p;\n"
         "}\n"
         : "=r"(done)
-        : "r"(addr), "r"(parity)
+        : "r"(addr), "r"(parity), "r"(kSuspendNs)
         : "memory");
   } while (!done);
 }
@@ -841,24 +1109,25 @@ struct Layer {
   int T_out;         // valid output rows per stream
   int K;             // 2 s C
   int half;          // s C: K of one stride block
-  int tiles;         // ceil(M / kBM)
+  int rows;          // output rows a tile: kBM, or kBM - 1 for conv1
+  int tiles;         // ceil(M / rows)
   const float* aux;  // the layer's bias, norm w, norm b (3, C)
   bf16* out;         // (N, T_out + cn, C): the next input, or z (cn = 0)
   int cn;            // carry rows leading each stream in out
   bf16* carry;       // (N, 2, C) new carry (the last 2 rows), or null
 };
 
-// Output row m0 + rr of a layer: where it goes (null: a junk or ragged
-// row), and to the new carry if it is one of a stream's last 2.
+// Output row m0 + rr of a layer: where it goes (null: a junk, ragged or
+// dropped row), and to the new carry if it is one of a stream's last 2.
 struct GemmRows {
   bf16* out;
   bf16* carry;
-  int M, T_out, cn, m0;
+  int end, T_out, cn, m0;  // end: min(M, the tile's first row + its rows)
   __device__ __forceinline__ void operator()(int rr, bf16*& dst,
                                              bf16*& car) const {
     const int r = m0 + rr;
     dst = car = nullptr;
-    if (r >= M) return;
+    if (r >= end) return;
     const int n = r / (T_out + 1), t = r - n * (T_out + 1);
     if (t == T_out) return;  // straddles streams n and n + 1
     dst = out + (static_cast<size_t>(n) * (T_out + cn) + cn + t) * kC;
@@ -869,43 +1138,93 @@ struct GemmRows {
 
 // One tail layer as an implicit GEMM: out rows = ReLU(ChannelNorm(xm[m]
 // W[0] + xm[m + 1] W[1] + b)).  mapA: xm (M rows of s C bf16), box 64 x
-// 128; mapW: W^T (C rows of 2 s C), box 64 x 256.  Persistent: block b
-// takes tiles b, b + gridDim.x, ...  Warpgroups 0 and 1 consume (rows
-// 0-63 and 64-127 of a tile, all 256 columns: 128 accumulators a
-// thread); one thread of warpgroup 2 produces.  setmaxnreg moves the
-// producer's registers to the consumers (40 / 232 of the 168 a thread
-// of 384 gets at launch).
+// 128 (conv2-4); kBuildA (conv1): the A stages are built from `in` by
+// build_conv1_a instead.  mapW: W^T (C rows of 2 s C), box 64 x 256.
+// Persistent: block b takes tiles b, b + gridDim.x, ...  Warpgroups 0 and
+// 1 consume (rows 0-63 and 64-127 of a tile, all 256 columns: 128
+// accumulators a thread); warpgroup 2 produces: its first thread issues
+// the TMA loads; with kBuildA its four warps build A, one on each SM
+// sub-partition, and consumer thread 0 loads the weights (load_w).
+// setmaxnreg moves the producer's registers to the
+// consumers (40 / 232 of the 168 a thread of 384 gets at launch); ptxas
+// allocates every thread's code within those 168 all the same (a wgmma
+// m64n256 alone takes 154), so the A warps keep them.
+template <bool kBuildA>
 __global__ void __launch_bounds__(kGemmThreads, 1)
     conv_layer_kernel(const __grid_constant__ CUtensorMap mapA,
                       const __grid_constant__ CUtensorMap mapW,
-                      const Layer a) {
+                      const Layer a, const Conv1In in) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  // 1024-byte aligned by pointer arithmetic, not through an integer, so
+  // the compiler still knows every access below is to shared memory
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* sA = reinterpret_cast<bf16*>(smem);
   bf16* sW = reinterpret_cast<bf16*>(smem + kStages * kABytes);
   bf16* sOut = reinterpret_cast<bf16*>(smem + kStages * (kABytes + kWBytes));
-  float* sAux = reinterpret_cast<float*>(smem + kStages * (kABytes + kWBytes) +
-                                        kOutBytes);
+  Conv0Smem* s0 = reinterpret_cast<Conv0Smem*>(
+      smem + kStages * (kABytes + kWBytes) + kOutBytes);
+  float* sAux = reinterpret_cast<float*>(s0 + 1);
   uint64_t* full = reinterpret_cast<uint64_t*>(sAux + 3 * kC);
   uint64_t* empty = full + kStages;
+  unsigned char* spill = reinterpret_cast<unsigned char*>(empty + kStages);
   const int slices = a.K / kBK;
   for (int i = threadIdx.x; i < 3 * kC; i += blockDim.x) sAux[i] = a.aux[i];
+  if (kBuildA) load_conv0(*s0, in.w0, in.aux);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
+      // the TMA issuer's arrival (+ the bytes), and each A warp's
+      mbar_init(&full[s], kBuildA ? 1 + kAWarps : 1);
       mbar_init(&empty[s], kConsumers / 32);  // one arrival per warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == kConsumers) {
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup(s)
+    if (!kBuildA)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pw = (threadIdx.x - kConsumers) >> 5;
+    if (kBuildA) {
+      // conv1's K slices in the order (W[0], c), (W[1], c), c = 0, 1, ...:
+      // the 64 columns c of the X1 rows built once serve W[0]'s slice and,
+      // one row up, W[1]'s
+      int it = 0;
+      A1Raw raw;
+      A1Rows rows;
+      A1Out out;
+      if (blockIdx.x < a.tiles)
+        issue_a1_rows(raw, in, blockIdx.x * a.rows, 0, a.M, pw);
+      for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+        const int m0 = tile * a.rows;
+        for (int c = 0; c < a.half / kBK; ++c) {
+          if ((c & 3) == 0) {
+            finish_a1_rows(rows, raw, in);
+            // the next group's: the next row block, or the next tile's first
+            const int next = tile + static_cast<int>(gridDim.x);
+            if (c + 4 < a.half / kBK)
+              issue_a1_rows(raw, in, m0, (c + 4) >> 2, a.M, pw);
+            else if (next < a.tiles)
+              issue_a1_rows(raw, in, next * a.rows, 0, a.M, pw);
+          }
+          __syncwarp();  // mma.sync wants the warp converged
+          build_conv1_a(out, rows, *s0, (c & 3) * kBK);
+          for (int h = 0; h < 2; ++h, ++it) {
+            const int st = it % kStages;
+            mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+            __syncwarp();
+            store_conv1_a(sA + st * (kBM * kBK), out, pw, h, spill);
+            // wgmma reads the stage through the async proxy
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            __syncwarp();
+            if ((threadIdx.x & 31) == 0) mbar_arrive(&full[st]);
+          }
+        }
+      }
+    } else if (threadIdx.x == kConsumers) {
       int it = 0;
       for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
-        const int m0 = tile * kBM;
+        const int m0 = tile * a.rows;
         for (int q = 0; q < slices; ++q, ++it) {
           const int st = it % kStages;
           mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
@@ -918,11 +1237,30 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    if (!kBuildA)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     float d[128];
     int it = 0;
+    // conv1: thread 0 keeps the weight slices kStages - 1 ahead, so the
+    // A warps' stores are all a stage waits for: slice j of the block (K
+    // order (W[0], c), (W[1], c)) into stage j mod kStages, once every
+    // consumer warp has released slice j - kStages there (an iteration
+    // ago: thread 0 seldom waits for the other warpgroup)
+    const int total =
+        slices * ((a.tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) /
+                  gridDim.x);
+    auto load_w = [&](int j) {
+      if (!kBuildA || threadIdx.x != 0 || j >= total) return;
+      const int q = j % slices, st = j % kStages;
+      if (j >= kStages) mbar_wait(&empty[st], ((j / kStages) & 1) ^ 1);
+      mbar_expect_tx(&full[st], kWBytes);
+      tma_load(sW + st * (kC * kBK), &mapW, &full[st],
+               (q & 1) * a.half + (q >> 1) * kBK, 0);
+    };
+    for (int j = 0; j < kStages; ++j) load_w(j);
+    __syncwarp();
     for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
 #pragma unroll
       for (int i = 0; i < 128; ++i) d[i] = 0.f;
@@ -944,14 +1282,16 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
         wgmma_wait<1>();
         fence_acc(d);
         if (q > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        if (it >= kStages - 1) load_w(it + 1);
+        __syncwarp();
         prev = st;
       }
       wgmma_wait<0>();
       fence_acc(d);
       if (lane == 0) mbar_arrive(&empty[prev]);
       norm_rows16(d, sAux, sOut + warp * 16 * kOutLd,
-                  GemmRows{a.out, a.carry, a.M, a.T_out, a.cn,
-                           tile * kBM + 16 * warp});
+                  GemmRows{a.out, a.carry, min(a.M, (tile + 1) * a.rows),
+                           a.T_out, a.cn, tile * a.rows + 16 * warp});
     }
     bulk_wait();
   }
@@ -1043,46 +1383,55 @@ extern "C" int conv_stack_fused_f32_launch(
 // c2-c4, n2-n4 (B, 2, 256); w0 (10, 256); wt1 (256, 2048) and wt2-wt4
 // (256, 1024): the stride-block weights transposed, W^T[u, j C + c] = tap
 // j from input channel c to output u; aux (15, 256) float32; z (B, T4,
-// 256); scratch x1 (B, T0 + 4, 256), x2-x4 (B, T + 2, 256) for the inputs
-// of conv2-4 (T = T1, T2, T3).  All contiguous.  Returns the first
-// failing launch's cudaError_t (cudaErrorNotSupported: no TMA encoder).
+// 256); scratch: stats (B, T0) float2 (conv0 rows' mean, rstd), x2-x4
+// (B, T + 2, 256) for the inputs of conv2-4 (T = T1, T2, T3).  All
+// contiguous.  Returns the first failing launch's cudaError_t
+// (cudaErrorNotSupported: no TMA encoder).
 extern "C" int conv_stack_fused_bf16_launch(
     const void* x_new, const void* c0, const void* c1, const void* c2,
     const void* c3, const void* c4, const void* w0, const void* wt1,
     const void* wt2, const void* wt3, const void* wt4, const float* aux,
-    void* z, void* n0, void* n1, void* n2, void* n3, void* n4, void* x1,
+    void* z, void* n0, void* n1, void* n2, void* n3, void* n4, void* stats,
     void* x2, void* x3, void* x4, int B, int L, void* stream) {
   if (B <= 0 || !valid(L)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Lens ln = lens_of(L / kS0);
   const int T[5] = {ln.T0, ln.T1, ln.T2, ln.T3, ln.T4};
-  bf16* x[4] = {static_cast<bf16*>(x1), static_cast<bf16*>(x2),
-                static_cast<bf16*>(x3), static_cast<bf16*>(x4)};
+  bf16* x[3] = {static_cast<bf16*>(x2), static_cast<bf16*>(x3),
+                static_cast<bf16*>(x4)};
   bf16* nout[5] = {static_cast<bf16*>(n0), static_cast<bf16*>(n1),
                    static_cast<bf16*>(n2), static_cast<bf16*>(n3),
                    static_cast<bf16*>(n4)};
-  const Conv0Args c{static_cast<const bf16*>(x_new),
-                    {static_cast<const bf16*>(c0), static_cast<const bf16*>(c1),
-                     static_cast<const bf16*>(c2), static_cast<const bf16*>(c3),
-                     static_cast<const bf16*>(c4)},
-                    static_cast<const bf16*>(w0), aux,
-                    {x[0], x[1], x[2], x[3]}, nout[0], nout[1],
-                    B, L, ln.T0, ln.T1, ln.T2, ln.T3};
+  const bf16* cin[5] = {
+      static_cast<const bf16*>(c0), static_cast<const bf16*>(c1),
+      static_cast<const bf16*>(c2), static_cast<const bf16*>(c3),
+      static_cast<const bf16*>(c4)};
+  const bf16* xn = static_cast<const bf16*>(x_new);
+  const bf16* w0b = static_cast<const bf16*>(w0);
+  float2* st0 = static_cast<float2*>(stats);
+  const Conv0Args c{xn, {cin[0], cin[1], cin[2], cin[3], cin[4]}, w0b, aux,
+                    st0, {x[0], x[1], x[2]}, nout[0], nout[1], B, L, ln.T0,
+                    ln.T1, ln.T2, ln.T3};
+  const Conv1In in{xn, cin[0], cin[1], st0, w0b, aux, L, ln.T0};
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaError_t e =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int tasks0 = B * (ln.T0 / 16);  // 16 conv0 rows a warp task
+  const int tasks0 = B * (ln.T0 / kConv0Rows);  // a warp's tasks
   const int blocks0 = (tasks0 + kConv0Warps - 1) / kConv0Warps;
-  conv0_kernel<<<blocks0 < 4 * sms ? blocks0 : 4 * sms, kConv0Warps * 32, 0,
-                 st>>>(c);
+  conv0_kernel<<<blocks0 < kConv0Blocks * sms ? blocks0 : kConv0Blocks * sms,
+                 kConv0Warps * 32, 0, st>>>(c);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  e = cudaFuncSetAttribute(conv_layer_kernel,
+  e = cudaFuncSetAttribute(conv_layer_kernel<true>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(kGemmSmem));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(conv_layer_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kGemmSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const void* wt[4] = {wt1, wt2, wt3, wt4};
   for (int l = 0; l < 4; ++l) {
@@ -1092,17 +1441,25 @@ extern "C" int conv_stack_fused_bf16_launch(
     a.M = B * (a.T_out + 1);
     a.half = s * kC;
     a.K = 2 * a.half;
-    a.tiles = (a.M + kBM - 1) / kBM;
+    // conv1's tiles drop their last row: the built rows serve both halves
+    // of its K (build_conv1_a)
+    a.rows = l == 0 ? kBM - 1 : kBM;
+    a.tiles = (a.M + a.rows - 1) / a.rows;
     a.aux = aux + 3 * (l + 1) * kC;
-    a.out = l < 3 ? x[l + 1] : static_cast<bf16*>(z);
+    a.out = l < 3 ? x[l] : static_cast<bf16*>(z);
     a.cn = l < 3 ? 2 : 0;
     a.carry = l < 3 ? nout[l + 2] : nullptr;
-    CUtensorMap mapA, mapW;
-    if (!make_map(&mapA, x[l], a.half, a.M, kBM) ||
+    CUtensorMap mapA{}, mapW;  // conv1 builds its A: no map
+    if ((l > 0 && !make_map(&mapA, x[l - 1], a.half, a.M, kBM)) ||
         !make_map(&mapW, wt[l], a.K, kC, kC))
       return static_cast<int>(cudaErrorNotSupported);
-    conv_layer_kernel<<<a.tiles < sms ? a.tiles : sms, kGemmThreads,
-                        kGemmSmem, st>>>(mapA, mapW, a);
+    const int grid = a.tiles < sms ? a.tiles : sms;
+    if (l == 0)
+      conv_layer_kernel<true><<<grid, kGemmThreads, kGemmSmem, st>>>(
+          mapA, mapW, a, in);
+    else
+      conv_layer_kernel<false><<<grid, kGemmThreads, kGemmSmem, st>>>(
+          mapA, mapW, a, Conv1In{});
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }

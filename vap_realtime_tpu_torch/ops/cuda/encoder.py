@@ -21,13 +21,22 @@ dtype.  In float32 this is the `conv` stack's math to float noise; in
 bf16 it is more precise than the `conv` path (no bf16 rounding of the
 conv outputs), so bf16 results are compared with the plain version here.
 
-Two bodies.  bf16 (the serving dtype): five launches a call, conv0 on
-mma.sync writing conv1's input to a scratch buffer, then conv1..conv4
-each an implicit GEMM on `wgmma` whose M runs over the stride-block rows
-of all channel-streams at once (`layer_geometry`), fed by TMA from the
-scratch buffers and from the transposed weights (`hopper_weights`, a
-kernel-private repack cached beside `pack_fused_params`).  float32: one
-launch, one block per channel-stream on the CUDA cores.
+Two bodies.  bf16 (the serving dtype): five launches a call: conv0 on
+mma.sync, then conv1..conv4 each an implicit GEMM on `wgmma` whose M runs
+over the stride-block rows of all channel-streams at once
+(`layer_geometry`), with the transposed weights (`hopper_weights`, a
+kernel-private repack cached beside `pack_fused_params`) fed by TMA.
+conv0 writes only each of its rows' ChannelNorm (mean, rstd), a (B, T0)
+float2 buffer, and the carries: conv1's input X1 = [c1 | conv0 rows] is
+never stored, since conv1's producer warps build its A tiles from the
+samples, the stored statistics and c1 with conv0's own product and
+roundings (`conv1_a_rows` writes the indexing out), so the tiles hold
+X1's values bit for bit.  Each built 64-column block serves W[0]'s k
+slice and, one row up, W[1]'s, so conv1 sums its K in that interleaved
+order and its tiles keep 127 rows; z and c2..c4 differ from a body that
+read a stored X1 only by that order's roundings.  conv2..conv4 read their
+inputs by TMA from scratch buffers the layer before writes.  float32:
+one launch, one block per channel-stream on the CUDA cores.
 
 Bound on the H100: operations.  ~63.6 MFLOP per channel-stream in the
 stride-block form: 0.50 TFLOP per step at 2B = 8192 (0.51 ms at the bf16
@@ -41,9 +50,10 @@ as consecutive body calls over `PIECE`-sample pieces (the 20 Hz frame),
 each piece's carries out the next one's carries in (`in_pieces`).  The
 stack is causal and every layer's input rows are stored in the
 activation dtype in both forms, so the pieces compute the whole frame's
-rows from the same operands: the kernel's scratch (X1..X4, ~122 KB a
-channel-stream in bf16) stays at the 20 Hz frame's size, where one call
-over L = 3200 would need ~476 KB.
+rows from the same operands: the bf16 body's scratch (conv0's statistics
+and X2..X4, ~40 KB a channel-stream; ~123 KB while X1 was stored) stays
+at the 20 Hz frame's size, where one call over L = 3200 would need
+~152 KB.
 
 On a CUDA tensor the wrapper launches the kernels or raises; on a CPU
 tensor it runs `conv_stack_fused_plain` over the whole frame.
@@ -85,17 +95,29 @@ def tail_lens(T0: int) -> List[Tuple[int, int]]:
     return lens
 
 
-def _cnorm_relu(y: Tensor, w: Tensor, b: Tensor, dt) -> Tensor:
-    """ChannelNorm over the last axis (UNBIASED variance, clamped) + ReLU,
-    the TPU kernel's `_cnorm_relu`: y (..., C) float32; w, b (C,) already
-    in dt.  Returns dt."""
+def _cnorm_stats(y: Tensor) -> Tuple[Tensor, Tensor]:
+    """ChannelNorm's (mean, rstd) over the last axis of y (..., C) float32
+    (UNBIASED variance, clamped), each (..., 1)."""
     n = y.shape[-1]
     s1 = y.sum(-1, keepdim=True)
     s2 = (y * y).sum(-1, keepdim=True)
     mean = s1 / n
     var = torch.clamp((s2 - n * mean * mean) / (n - 1), min=0.0)
-    z = ((y - mean) * torch.rsqrt(var + 1e-5)).to(dt) * w + b
-    return torch.relu(z)
+    return mean, torch.rsqrt(var + 1e-5)
+
+
+def _cnorm_apply(y: Tensor, mean: Tensor, rstd: Tensor, w: Tensor,
+                 b: Tensor, dt) -> Tensor:
+    """y normalised with its rows' (mean, rstd), cast to dt BEFORE the
+    affine (w, b already in dt), ReLU."""
+    return torch.relu(((y - mean) * rstd).to(dt) * w + b)
+
+
+def _cnorm_relu(y: Tensor, w: Tensor, b: Tensor, dt) -> Tensor:
+    """ChannelNorm over the last axis + ReLU, the TPU kernel's
+    `_cnorm_relu`: y (..., C) float32; w, b (C,) already in dt.  Returns
+    dt."""
+    return _cnorm_apply(y, *_cnorm_stats(y), w, b, dt)
 
 
 # packed operands per encoder params: id(conv0 weight) -> (weak reference
@@ -139,7 +161,8 @@ def pack_fused_params(enc: Params, dtype=None):
     return per[dtype]
 
 
-# the bf16 body's GEMM tile: output rows a weight tile serves
+# the bf16 body's GEMM tile: output rows a weight tile serves; conv1's
+# tiles keep TILE_ROWS - 1 of them (`layer_geometry`)
 TILE_ROWS = 128
 # CUDA kernel launches per conv_stack_fused call, per activation dtype
 CUDA_LAUNCHES = {torch.float32: 1, torch.bfloat16: 5}
@@ -152,14 +175,38 @@ def layer_geometry(B: int, L: int) -> List[Dict[str, int]]:
     row m = xm[m] W[0] + xm[m + 1] W[1] for every m, of which row t of
     stream n is m = n (T_out + 1) + t, and the rows with t = T_out (which
     straddle two streams) are junk, dropped.  M runs over all streams in
-    tiles of TILE_ROWS rows; the last tile's rows past M are masked.
-    Returns per layer {M, T_out, s, K (2 s C), tiles}."""
+    tiles of `rows` output rows; the last tile's rows past M are masked.
+    A tile computes TILE_ROWS rows; conv1's keep TILE_ROWS - 1, since its
+    A rows are built once for W[0]'s half of K and serve W[1]'s one row
+    up (`conv1_a_rows`).  Returns per layer {M, T_out, s, K (2 s C), rows,
+    tiles}."""
     out = []
-    for (k, s), (_, t_out) in zip(TAIL_KS, tail_lens(L // CONV0_S)):
+    for li, ((k, s), (_, t_out)) in enumerate(
+            zip(TAIL_KS, tail_lens(L // CONV0_S))):
         M = B * (t_out + 1)
-        out.append(dict(M=M, T_out=t_out, s=s, K=k * C,
-                        tiles=-(-M // TILE_ROWS)))
+        rows = TILE_ROWS - 1 if li == 0 else TILE_ROWS
+        out.append(dict(M=M, T_out=t_out, s=s, K=k * C, rows=rows,
+                        tiles=-(-M // rows)))
     return out
+
+
+def conv1_a_rows(B: int, L: int, m0: int, cb: int):
+    """The rows the bf16 body's conv1 builds for X1 row block cb (0..3)
+    of the tile at xm row m0 (B channel-streams of L samples): built row r
+    < TILE_ROWS is X1 row 4 m + cb of xm row m = m0 + r, of which the A
+    stage of W[0]'s k slice [256 cb + cc, + 64) takes rows 0 .. 127 and
+    that of W[1]'s slice [1024 + 256 cb + cc, + 64) rows 1 .. 127 (its
+    last row zero), each over channels [cc, cc + 64).  Stream n = m //
+    (T1 + 1)'s stride block tm = m mod (T1 + 1) is c1's rows (tm = 0) or
+    conv0's rows 4 (tm - 1) .. + 3.  Returns (kind, n, t), each
+    (TILE_ROWS,) int64: kind 1 for conv0 row t of stream n, -1 for c1 row
+    t, 0 for a zero row past the last stream (m >= M)."""
+    T1 = tail_lens(L // CONV0_S)[0][1]
+    m = torch.arange(m0, m0 + TILE_ROWS)
+    n, tm = m // (T1 + 1), m % (T1 + 1)
+    kind = torch.where(m >= B * (T1 + 1), 0, torch.where(tm == 0, -1, 1))
+    t = torch.where(tm == 0, cb, 4 * (tm - 1) + cb)
+    return kind, n, t
 
 
 def weight_l2_bytes(B: int, L: int) -> int:
@@ -250,8 +297,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # new, c0, c1..c4; w0, w1..w4; aux; z, n0, n1..n4; B, L; stream
     lib.conv_stack_fused_f32_launch.restype = I
     lib.conv_stack_fused_f32_launch.argtypes = [P] * 18 + [I, I, P]
-    # new, c0, c1..c4; w0, wt1..wt4; aux; z, n0, n1..n4; x1..x4; B, L;
-    # stream
+    # new, c0, c1..c4; w0, wt1..wt4; aux; z, n0, n1..n4; stats, x2..x4;
+    # B, L; stream
     lib.conv_stack_fused_bf16_launch.restype = I
     lib.conv_stack_fused_bf16_launch.argtypes = [P] * 22 + [I, I, P]
     lib.conv_stack_fused_smem.restype = I
@@ -357,10 +404,11 @@ def _call(c0: Tensor, new: Tensor, cs, w0: Tensor, wts, aux: Tensor):
             rc = _lib().conv_stack_fused_f32_launch(
                 *ptrs, *[W.data_ptr() for W in wts], *outs, B, L, stream)
         else:
-            # the layer inputs X1..X4 (carry rows first), kernel scratch
-            xs = [torch.empty((B, T0 + 4, C), dtype=dt, device=dev)] + [
-                torch.empty((B, t_out + 2, C), dtype=dt, device=dev)
-                for _, t_out in lens[:3]]
+            # kernel scratch: conv0 rows' (mean, rstd), float2, and the
+            # inputs X2..X4 of conv2..conv4 (carry rows first)
+            xs = [torch.empty((B, T0, 2), dtype=torch.float32, device=dev)
+                  ] + [torch.empty((B, t_out + 2, C), dtype=dt, device=dev)
+                       for _, t_out in lens[:3]]
             rc = _lib().conv_stack_fused_bf16_launch(
                 *ptrs, *[W.data_ptr() for W in hopper_weights(wts)], *outs,
                 *[x.data_ptr() for x in xs], B, L, stream)

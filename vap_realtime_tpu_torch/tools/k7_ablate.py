@@ -50,7 +50,8 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
         "    if (dst != nullptr) bulk_store(dst, src, kC * sizeof(bf16));\n"
         "    if (car != nullptr) bulk_store(car, src, kC * sizeof(bf16));\n",
         "")],
-    # the weight tiles loaded for a block's first tile only
+    # the weight tiles loaded for a block's first tile only (conv2-4; conv1
+    # loads its own from a consumer thread)
     "weights_once": [
         ("mbar_expect_tx(&full[st], kABytes + kWBytes);",
          "mbar_expect_tx(&full[st], kABytes + "
@@ -58,6 +59,15 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
         ("tma_load(sW + st * (kC * kBK), &mapW, &full[st], k0, 0);",
          "if (tile == blockIdx.x) "
          "tma_load(sW + st * (kC * kBK), &mapW, &full[st], k0, 0);")],
+    # conv1's A stages filled with zeros: no samples, statistics or c1
+    # read, no products, no normalisation (the stage stores stay)
+    "zero_a_build": [
+        ("      if (blockIdx.x < a.tiles)\n        issue_a1_rows(",
+         "      if (blockIdx.x < 0)\n        issue_a1_rows("),
+        ("          if ((c & 3) == 0) {\n            finish_a1_rows(",
+         "          if (c < 0) {\n            finish_a1_rows("),
+        ("          build_conv1_a(out, rows, *s0, (c & 3) * kBK);",
+         "          out = A1Out{};")],
     # the staged rows stored by the warp with 16-byte stores
     "plain_stores": [(_FLUSH, '''#pragma unroll 4
   for (int rr = 0; rr < 16; ++rr) {
@@ -145,10 +155,13 @@ def time_call(fn, reps: int) -> Tuple[float, List[float]]:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and ("conv0_kernel" in e.name
-                   or "conv_layer_kernel" in e.name)]
+        # in launch order (the profiler's list need not be)
+        us = [e.time_range.elapsed_us() for e in sorted(
+                  (e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and ("conv0_kernel" in e.name
+                        or "conv_layer_kernel" in e.name)),
+                  key=lambda e: e.time_range.start)]
         if us and len(us) % reps == 0:
             break
     else:
