@@ -167,6 +167,22 @@ Phases (any failed check raises, so the script exits non-zero):
          `python3 chip_smoke.py --k7-digests [check] [save=DIR] [ref=DIR]`
          runs only this; with save= in one build's run and ref= in
          another's, each output's max |d| between the two builds.
+  (upload) The arena's fenced upload (`python3 chip_smoke.py --upload
+         [save=DIR] [ref=DIR] [trace]` runs only this): the benchmark's
+         serving call on the three serving configurations (nod 5 Hz,
+         vap 20 Hz, nod 20 Hz) at 8192 streams, 64 ticks in the open
+         loop's pattern (dispatch, collect) and then 64 in the closed
+         loop's (dispatch tick k, then collect k - 1), fresh seeded frames
+         every tick, 16 merge ticks: a digest of every served field of
+         every stream each tick, and 64 streams' fields.  With save= the
+         digests and fields are written there; with ref= (another
+         build's, e.g. the parent commit's, saved the same way) every
+         tick's digests must be equal.  Where the arena counts upload
+         pieces, 4 a 5 Hz tick and 1 a 20 Hz tick.  With trace, a
+         torch.profiler stretch of 3 ticks at the nod 5 Hz cell's 41,984
+         streams: each tick's frame pieces cross PCIe at >= 40 GB/s and
+         each later piece's copy overlaps K7's body calls before its own
+         (at that size pieces 1-3 all cross under body call 0).
   (sync) Warm ticks of the benchmark's serving call (64 streams, bf16) on
          the three serving configurations (vap 20 Hz / 2.5 s, nod 20 Hz
          and 5 Hz / 10 s) past a merge tick, each `step_device_batch`
@@ -4419,6 +4435,164 @@ def phase_i(cfg, params_np, gpu) -> dict:
     return lab
 
 
+UPLOAD_STREAMS, UPLOAD_TICKS = 8192, 64
+UPLOAD_GBPS = 40.0                 # a piece's copy: PCIe Gen5 x16's pace
+
+
+def _upload_serving(name: str, streams: int, seed: int,
+                    device: str = "cuda"):
+    """The benchmark's serving call for cell `name` at `streams` streams
+    (a small audio pool), after 3 frozen ticks."""
+    from vapbench.common import load_config, load_workload
+    from vapbench.serving import Serving
+
+    wl = load_workload(name)
+    wl = dict(wl, audio=dict(wl["audio"], clips=4, seconds=4))
+    sv = Serving(wl, load_config(wl["config"]), seed, device,
+                 streams=streams)
+    sv.frozen_ticks(3)
+    return sv
+
+
+def _upload_ticks(sv, ticks: int, sat: bool, at: int = 0):
+    """`ticks` ticks from tick `at`, fresh frames each: open (dispatch,
+    collect) or sat (dispatch tick k, then collect k - 1).  Returns per
+    tick (digest of every field of every stream, 64 streams' fields)."""
+    import hashlib
+
+    out = []
+
+    def take(host, ev):
+        if ev is not None:
+            ev.synchronize()
+        mats = [host[k].numpy().reshape(sv.N, -1) for k in sv.fields]
+        m = np.ascontiguousarray(np.concatenate(mats, axis=1))
+        out.append((hashlib.sha256(m.tobytes()).hexdigest()[:16],
+                    torch.from_numpy(m[:: sv.N // 64].copy())))
+
+    prev = None
+    for k in range(at, at + ticks):
+        sv.audio.fill(k, sv.frames[k % 3])
+        cur = sv.dispatch(k)
+        if not sat:
+            take(*cur)
+            continue
+        if prev is not None:
+            take(*prev)
+        prev = cur
+    if prev is not None:
+        take(*prev)
+    return out
+
+
+def _upload_trace(gpu) -> dict:
+    """3 profiled open-loop ticks at the nod 5 Hz cell's streams: per
+    piece its copy's GB/s, and for piece j >= 1 the share of its copy
+    under K7's body calls 0 .. j - 1 (first launch to last)."""
+    from torch.autograd import DeviceType
+
+    from vapbench.common import load_workload
+
+    N = load_workload("nod5-fast-open")["streams"]
+    sv = _upload_serving("nod5-fast-open", N, 2 ** 33 + 9)
+    ticks = 3
+    for k in range(2):
+        sv.audio.fill(k, sv.frames[k % 3])
+        sv.collect(*sv.dispatch(k))
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for k in range(2, 2 + ticks):
+            sv.audio.fill(k, sv.frames[k % 3])
+            sv.collect(*sv.dispatch(k))
+        torch.cuda.synchronize()
+    sv.free()
+    dev = [(ev.name, ev.time_range.start, ev.time_range.end)
+           for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    piece_bytes = N * 2 * 800 * 2
+    # the frame pieces: the host->device copies over 100 us (the active
+    # mask's copy is N bytes, a few us)
+    copies = sorted((s, e) for n, s, e in dev
+                    if "HtoD" in n and e - s > 100)
+    k7 = sorted((s, e) for n, s, e in dev
+                if "conv0_kernel" in n or "conv_layer_kernel" in n)
+    check(len(copies) == 4 * ticks and len(k7) == 20 * ticks,
+          f"upload trace: {len(copies)} piece copies and {len(k7)} K7 "
+          f"launches over {ticks} ticks, expected {4 * ticks} and "
+          f"{20 * ticks}")
+    calls = [(k7[i][0], k7[i + 4][1]) for i in range(0, len(k7), 5)]
+    gbps = [piece_bytes / ((e - s) * 1e-6) / 1e9 for s, e in copies]
+    under = []
+    for t in range(ticks):
+        for j in range(1, 4):
+            cs, ce = copies[4 * t + j]
+            ks, ke = calls[4 * t][0], calls[4 * t + j - 1][1]
+            under.append(max(0.0, min(ce, ke) - max(cs, ks)) / (ce - cs))
+    exposed = [(calls[4 * t][0] - copies[4 * t][0]) * 1e-3
+               for t in range(ticks)]
+    print(f"[upload] nod 5 Hz, {N} streams, {ticks} profiled ticks: piece "
+          f"copies {piece_bytes / 1e6:.1f} MB at "
+          + ", ".join(f"{g:.1f}" for g in gbps) + " GB/s; share of piece "
+          "j's copy under K7's body calls before j (j = 1..3): "
+          + ", ".join(f"{u:.3f}" for u in under) + "; first copy's start "
+          "to K7's first launch " + ", ".join(f"{x:.3f}" for x in exposed)
+          + f" ms | {gpu}", flush=True)
+    check(min(gbps) >= UPLOAD_GBPS, f"upload trace: a piece's copy at "
+          f"{min(gbps):.1f} GB/s, under {UPLOAD_GBPS}")
+    check(min(under) > 0, f"upload trace: a piece's copy does not overlap "
+          f"K7's earlier body calls (shares {under})")
+    return dict(gbps=gbps, under=under, exposed_ms=exposed)
+
+
+def phase_upload(gpu, save=None, ref=None, trace=False) -> dict:
+    """The fenced upload against another build (`--upload`, see the
+    module docstring).  Returns {cell: {ticks, pieces, equal}}."""
+    import os
+
+    from vap_realtime_tpu_torch.runtime.arena import StreamArena
+
+    out = {}
+    for name in SYNC_CELLS:
+        sv = _upload_serving(name, UPLOAD_STREAMS, 2 ** 33 + 7)
+        pieces0 = getattr(StreamArena, "upload_pieces", None)
+        got = _upload_ticks(sv, UPLOAD_TICKS, sat=False)
+        got += _upload_ticks(sv, UPLOAD_TICKS, sat=True, at=UPLOAD_TICKS)
+        sv.free()
+        ticks = len(got)
+        res = dict(ticks=ticks)
+        line = f"{ticks} ticks (open, then sat)"
+        if pieces0 is not None:
+            res["pieces"] = (StreamArena.upload_pieces - pieces0) / ticks
+            want = 4 if sv.vcfg.frame_hz == 5 else 1
+            check(res["pieces"] == want, f"{name}: "
+                  f"{res['pieces']} upload pieces a tick, expected {want}")
+            line += f", {res['pieces']:g} upload piece(s) a tick"
+        path = lambda d: os.path.join(d, f"upload_{name}.pt")
+        if save:
+            os.makedirs(save, exist_ok=True)
+            torch.save(got, path(save))
+        if ref:
+            theirs = torch.load(path(ref))
+            check(len(theirs) == ticks, f"{name}: {len(theirs)} reference "
+                  f"ticks, {ticks} here")
+            same = [a[0] == b[0] for a, b in zip(got, theirs)]
+            d = max((a[1] - b[1]).abs().max().item()
+                    for a, b in zip(got, theirs))
+            res.update(equal=sum(same), max_abs_sample=d)
+            line += (f"; every field of every stream bit-equal to the "
+                     f"reference build's at {sum(same)} of {ticks} ticks "
+                     f"(64 streams' max |d| {d:.3e})")
+            check(all(same), f"{name}: served fields differ from the "
+                  f"reference build's at ticks "
+                  f"{[i for i, x in enumerate(same) if not x][:10]}")
+        print(f"[upload] {name}, {UPLOAD_STREAMS} streams: {line} | {gpu}",
+              flush=True)
+        out[name] = res
+        torch.cuda.empty_cache()
+    if trace:
+        out["trace"] = _upload_trace(gpu)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4433,6 +4607,11 @@ def main() -> int:
     gpu = gpu_line()
     print(f"[gpu] {gpu} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
+    if sys.argv[1:2] == ["--upload"]:
+        opt = dict(a.split("=", 1) for a in sys.argv[2:] if "=" in a)
+        print(json.dumps(phase_upload(gpu, opt.get("save"), opt.get("ref"),
+                                      "trace" in sys.argv[2:])), flush=True)
+        return 0
     if sys.argv[1:2] == ["--k7-digests"]:
         opt = dict(a.split("=", 1) for a in sys.argv[2:] if "=" in a)
         expect = K7_X1_C01 if "check" in sys.argv[2:] else None
@@ -4477,6 +4656,7 @@ def main() -> int:
     serve_tick = phase_serve_tick(gpu)
     serve = time_serve(gpu)
     phase_sync(gpu)
+    phase_upload(gpu, trace=True)
     run_bf16 = phase_c(cfg, params_np, "bf16")
     run_q8g = phase_c(cfg, params_np, "q8g_normk")
     run_fused = phase_c(cfg, params_np, "fused_compact")

@@ -174,7 +174,7 @@ def test_unported_conv_impl_raises(conv_impl, monkeypatch):
     def refuse(*args):
         raise AssertionError("the conv stack ran")
 
-    def fused(params, x, state):
+    def fused(params, x, state, fence=None):
         # the fused kernel is written for 256 channels: at this narrow
         # width the call is recorded and served by the blocked stack
         calls.append(tuple(x.shape))

@@ -38,7 +38,8 @@ def test_every_port_module_is_scanned():
     the serving tools, the clients, the demo and the examples, and the
     export and checkpoint tools, the web runner's server and the encoder,
     roofline and scatter labs, K5's crossover and ablation tools, the
-    staged merge's wrapper and the KV cache's format."""
+    staged merge's wrapper, the KV cache's format and the arena's 2-D
+    upload copy."""
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
     pkg = "vap_realtime_tpu_torch/"
     for mod in ("ops/cuda/attend.py", "ops/cuda/channorm.py",
@@ -67,7 +68,8 @@ def test_every_port_module_is_scanned():
                 "clients/web_runner/serve.py", "tools/encoder_lab.py",
                 "tools/roofline.py", "tools/scatter_lab.py",
                 "tools/lstm_bodies.py", "tools/k5_ablate.py",
-                "ops/cuda/merge.py", "runtime/cache_format.py"):
+                "ops/cuda/merge.py", "runtime/cache_format.py",
+                "ops/cuda/upload.py"):
         assert pkg + mod in rel, mod
 
 

@@ -45,7 +45,7 @@ from vap_realtime_tpu_torch.ops.basic import (
 )
 from vap_realtime_tpu_torch.ops.cuda.channorm import channel_norm_relu
 from vap_realtime_tpu_torch.ops.cuda.encoder import (
-    cpc_conv_stack_streaming_fused,
+    cpc_conv_stack_streaming_fused, wait_all,
 )
 from vap_realtime_tpu_torch.ops.cuda.lstm import lstm_fused, lstm_serve
 from vap_realtime_tpu_torch.utils.spans import span
@@ -260,12 +260,15 @@ def encode_chunk(params: Params, wav: torch.Tensor, h0: torch.Tensor,
 def encode_chunk_streaming(params: Params, new: torch.Tensor,
                            conv_state: Params, h0: torch.Tensor,
                            c0: torch.Tensor, downsample_kernel: int,
-                           conv_impl: str = "conv"):
+                           conv_impl: str = "conv", fence=None):
     """Fast-path chunk encoder over ONLY the frame's fresh samples.
 
     new: (B, 16000//frame_hz); h0, c0: (B, C) LSTM state.  conv_impl:
     one of CONV_IMPLS ("fused": the whole-stack kernel, whose results in
     bf16 are more precise than the "conv" path's; see ops/cuda/encoder.py).
+    fence: None (new is already on the stream) or the events of the
+    copies that bring it: the fused stack waits on each before the body
+    call that reads its piece, every other stack on all of them first.
     Returns (emb (B, C), new_conv_state, h_new, c_new).  Its three
     stages are the spans `vap.encode.conv` (the conv stack), `.lstm` (the
     100 // frame_hz steps of the LSTM: `cpc_context`, one `lstm_serve`
@@ -277,7 +280,11 @@ def encode_chunk_streaming(params: Params, new: torch.Tensor,
              "blocked": cpc_conv_stack_streaming_blocked,
              }.get(conv_impl, cpc_conv_stack_streaming)
     with span("vap.encode.conv"):
-        z, conv_state = stack(params, new, conv_state)
+        if conv_impl == "fused":
+            z, conv_state = stack(params, new, conv_state, fence)
+        else:
+            wait_all(fence)
+            z, conv_state = stack(params, new, conv_state)
     with span("vap.encode.lstm"):
         y, h_new, c_new = cpc_context(params, z, h0, c0)
     with span("vap.encode.down"):

@@ -55,6 +55,11 @@ and X2..X4, ~40 KB a channel-stream; ~123 KB while X1 was stored) stays
 at the 20 Hz frame's size, where one call over L = 3200 would need
 ~152 KB.
 
+A frame that arrives over PCIe in pieces (`runtime/arena.py`) comes with
+a fence: one event a piece, `fence[j].wait()` made on the current stream
+right before body call j (`in_pieces`), or before the one call, so body
+call j overlaps the copy of piece j + 1.
+
 On a CUDA tensor the wrapper launches the kernels or raises; on a CPU
 tensor it runs `conv_stack_fused_plain` over the whole frame.
 `conv_stack_fused.launches` counts body calls (`CUDA_LAUNCHES` kernel
@@ -330,14 +335,32 @@ def piece_samples(L: int, fits) -> int:
     return PIECE
 
 
+def body_fits(dt):
+    """The body call's rule in activation dtype dt: whether one call
+    takes an L-sample frame (its shared memory, asked of the library)."""
+    _check(dt in _DTYPES, f"dtype {dt} (float32 / bfloat16)")
+    return lambda L: 0 < _lib().conv_stack_fused_smem(
+        _DTYPES[dt], L // CONV0_S) <= SMEM_LIMIT
+
+
+def wait_all(fence) -> None:
+    """The current stream waits on every event of `fence` (None: the
+    frame is already on the stream)."""
+    for ev in fence or ():
+        ev.wait()
+
+
 def in_pieces(stack, c0: Tensor, new: Tensor, carries, w0: Tensor, wts,
-              aux: Tensor, piece: int = PIECE):
+              aux: Tensor, piece: int = PIECE, fence=None):
     """`stack` (the signature of `conv_stack_fused_plain`) over new (B, L)
     as L / piece consecutive calls, each piece's new carries the next
-    one's carries in; z of the pieces concatenated over time.  Returns
-    what one call over the whole frame returns."""
+    one's carries in; z of the pieces concatenated over time.  fence:
+    None, or one event a piece, waited on right before that piece's
+    call.  Returns what one call over the whole frame returns."""
     zs = []
-    for at in range(0, new.shape[1], piece):
+    for j, at in enumerate(range(0, new.shape[1], piece)):
+        if fence is not None:
+            fence[j].wait()
         z, (c0, *carries) = stack(c0, new[:, at:at + piece], tuple(carries),
                                   w0, wts, aux)
         zs.append(z)
@@ -345,13 +368,15 @@ def in_pieces(stack, c0: Tensor, new: Tensor, carries, w0: Tensor, wts,
 
 
 def conv_stack_fused(c0: Tensor, new: Tensor, carries, w0: Tensor, wts,
-                     aux: Tensor):
+                     aux: Tensor, fence=None):
     """The whole streaming conv stack on the card (a body call: one
     launch in float32, five in bf16; a frame longer than one call takes
     runs in PIECE-sample pieces, a call each): same arguments and results
     as `conv_stack_fused_plain`.  The activation dtype (new's) is float32
-    or bf16; every tensor lies on one device."""
+    or bf16; every tensor lies on one device.  fence: None, or one event
+    a body call (`in_pieces`)."""
     if new.device.type == "cpu":
+        wait_all(fence)
         return conv_stack_fused_plain(c0, new, carries, w0, wts, aux)
     _check(new.device.type == "cuda", f"unsupported device {new.device}")
     dt = new.dtype
@@ -375,11 +400,13 @@ def conv_stack_fused(c0: Tensor, new: Tensor, carries, w0: Tensor, wts,
            and aux.is_contiguous(), "aux must be (15, C) float32")
     for t in (new, c0, *cs, w0, *wts, aux):
         _check(t.device == new.device, "all tensors on one device")
-    piece = piece_samples(L, lambda n: 0 < _lib().conv_stack_fused_smem(
-        _DTYPES[dt], n // CONV0_S) <= SMEM_LIMIT)
+    piece = piece_samples(L, body_fits(dt))
+    _check(fence is None or len(fence) == L // piece,
+           f"{len(fence or ())} fence events for {L // piece} body calls")
     if piece == L:
+        wait_all(fence)
         return _call(c0, new, cs, w0, wts, aux)
-    return in_pieces(_call, c0, new, cs, w0, wts, aux, piece)
+    return in_pieces(_call, c0, new, cs, w0, wts, aux, piece, fence)
 
 
 def _call(c0: Tensor, new: Tensor, cs, w0: Tensor, wts, aux: Tensor):
@@ -425,16 +452,17 @@ conv_stack_fused.samples = 0
 
 
 def cpc_conv_stack_streaming_fused(params: Params, new: Tensor,
-                                   state: Params):
+                                   state: Params, fence=None):
     """Drop-in for models/encoder.cpc_conv_stack_streaming through the
     fused kernel: new (B, L) fresh samples; state channels-last carries
-    {"c0": (B, 1, 5), "c1": (B, 4, C), "c2".."c4": (B, 2, C)}.  Returns
-    ((B, L/160, C) features, new_state)."""
+    {"c0": (B, 1, 5), "c1": (B, 4, C), "c2".."c4": (B, 2, C)}; fence:
+    see `conv_stack_fused`.  Returns ((B, L/160, C) features,
+    new_state)."""
     dt = new.dtype
     w0, wts, aux = pack_fused_params(params, dt)
     z, tails = conv_stack_fused(
         state["c0"].reshape(new.shape[0], CONV0_S), new,
-        tuple(state[f"c{i}"] for i in range(1, 5)), w0, wts, aux)
+        tuple(state[f"c{i}"] for i in range(1, 5)), w0, wts, aux, fence)
     new_state = {"c0": tails[0][:, None, :]}
     for i, t in enumerate(tails[1:], start=1):
         new_state[f"c{i}"] = t

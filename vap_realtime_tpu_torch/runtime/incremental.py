@@ -468,7 +468,7 @@ def fast_step(params: Params, state: FastState, new: Tensor,
               cfg: VapConfig, active: Optional[Tensor] = None,
               slots: str = "global", attend_impl: str = "einsum",
               conv_impl: str = "conv", conv_chunks: int = 1,
-              merge: str = "auto"
+              merge: str = "auto", fence=None
               ) -> Tuple[FastState, Dict[str, Tensor]]:
     """One fast-path frame: new (B, 2, 16000//frame_hz) FRESH samples
     (no 320-sample overlap) -> probabilities.  Updates `state` in place
@@ -481,10 +481,12 @@ def fast_step(params: Params, state: FastState, new: Tensor,
     "blocked" (stride-block matmuls); see `encode_chunk_streaming`.
     conv_chunks > 1 runs the encoder over that many sequential
     sub-batches (smaller transient activations; identical numerics).
+    fence: None (new is already on the stream) or the events of the
+    copies that bring it in pieces (see `encode_chunk_streaming`).
     """
     active = _all_active(new, active)
     e, h_new, c_new = _fast_encode(params, state, new, cfg, active,
-                                   conv_impl, conv_chunks)
+                                   conv_impl, conv_chunks, fence)
     outs = _kv_core(params, state.kv, e, h_new, c_new, cfg, active, slots,
                     attend_impl, merge)
     return state, outs
@@ -499,7 +501,8 @@ def _all_active(x: Tensor, active: Optional[Tensor]) -> Tensor:
 
 @traced("vap.encode")
 def _fast_encode(params: Params, state, new: Tensor, cfg: VapConfig,
-                 active: Tensor, conv_impl: str, conv_chunks: int):
+                 active: Tensor, conv_impl: str, conv_chunks: int,
+                 fence=None):
     """The fast path's streaming encoder over FRESH samples (B, 2, L):
     updates the active streams' conv tails in `state.conv` in place and
     returns (e, h_new, c_new), each (B, 2, D); e in the state dtype."""
@@ -517,7 +520,7 @@ def _fast_encode(params: Params, state, new: Tensor, cfg: VapConfig,
         enc, flat[i * n:(i + 1) * n],
         {name: c[i * n:(i + 1) * n] for name, c in state.conv.items()},
         h0[i * n:(i + 1) * n], c0[i * n:(i + 1) * n], cfg.downsample_kernel,
-        conv_impl)
+        conv_impl, fence)
         for i in range(k)]
     # the embedding enters the trunk in the state dtype (as in JAX)
     e = torch.cat([p[0] for p in parts]).reshape(B, 2, D).to(dtype)
@@ -710,16 +713,17 @@ def fast_hybrid_step(params: Params, state: FastHybridState, new: Tensor,
                      cfg: VapConfig, active: Optional[Tensor] = None,
                      resync_every: int = 0, attend_impl: str = "einsum",
                      conv_impl: str = "conv", conv_chunks: int = 1,
-                     resync_mode: str = "auto", merge: str = "auto"
+                     resync_mode: str = "auto", merge: str = "auto",
+                     fence=None
                      ) -> Tuple[FastHybridState, Dict[str, Tensor]]:
     """`fast_step` with a full-trunk resync every `resync_every`-th tick:
     new (B, 2, frame_shift) FRESH samples.  A resync frame is exact
     against the full trunk over the fast encoder's embeddings
-    (`resync_every=1` is that oracle).  conv_impl / conv_chunks: see
-    `fast_step`.  Updates `state` in place and returns it."""
+    (`resync_every=1` is that oracle).  conv_impl / conv_chunks / fence:
+    see `fast_step`.  Updates `state` in place and returns it."""
     active = _all_active(new, active)
     e, h_new, c_new = _fast_encode(params, state, new, cfg, active,
-                                   conv_impl, conv_chunks)
+                                   conv_impl, conv_chunks, fence)
     outs = _hybrid_core(params, state.kv, state.e_ctx, e, h_new, c_new, cfg,
                         active, resync_every, attend_impl, resync_mode,
                         merge)
